@@ -1,0 +1,57 @@
+"""colvo_torch stands alone: importing every module of the package loads
+no JAX-family module and nothing of the JAX package, and no source file
+of the package, nor chip_smoke.py, imports one."""
+
+import ast
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "colvo_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chex", "colvo")
+
+_IMPORT_ALL = """
+import importlib, json, pkgutil, sys
+import colvo_torch
+names = [m.name for m in pkgutil.walk_packages(colvo_torch.__path__, "colvo_torch.")]
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({"imported": names, "loaded": sorted(sys.modules)}))
+"""
+
+
+def _forbidden(module: str) -> bool:
+    return module.split(".")[0] in FORBIDDEN
+
+
+def test_importing_every_module_loads_no_jax_or_colvo():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, capture_output=True,
+                         text=True, check=True, timeout=300)
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "colvo_torch.kernels.sampler" in result["imported"]
+    assert "colvo_torch.runtime.train_step" in result["imported"]
+    assert [m for m in result["loaded"] if _forbidden(m)] == []
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield "." * node.level + (node.module or "")
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(
+                node.func, "id", None)) in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_nothing_forbidden(path):
+    bad = [m for m in _imports(path) if _forbidden(m)]
+    assert bad == [], f"{path.relative_to(ROOT)} imports {bad}"
