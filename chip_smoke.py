@@ -5,22 +5,27 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
 1. Prints the card's name and power limit (``nvidia-smi``).
 2. Builds the CUDA kernels from ``colvo_torch/kernels/csrc`` (one ``nvcc``
    per source, in parallel).
-3. Kernel phase: at the training path's shapes, holds kernel S (bilinear
-   sampler, with and without d/dx, d/dy; C=3 photometric and C=1 at the
-   four geo scales) and kernel T (source-cotangent scatter) against their
-   plain PyTorch versions on the card, and times kernel, plain version and
-   the nearest single PyTorch call on the device (CUDA-graph replays
-   between CUDA events), and the kernel's eager call through its wrapper.
-4. Slice phase: the default ``ColvoConfig`` at full width (ResNet-18,
-   B=12, 256×320, 3 frames, 4 scales, bf16 convs) trains for a few steps
-   on rendered synthetic snippets, then evaluates the loss on a held-out
-   batch without gradients. Losses and the gradient norm must be finite,
-   the launch counters must show every S and T launch of the path, and
-   step 1's loss terms must agree with a recomputation that swaps the
-   kernels for their plain versions on the same weights and batch. One
-   more step runs under ``torch.profiler``: device time by kernel and by
+3. Kernel phase: at the training paths' shapes, holds kernel S (bilinear
+   sampler, with and without d/dx, d/dy; C=3 photometric, C=1 at the four
+   geo scales, and grouped: 4 coordinate fields per source frame), kernel
+   T (source-cotangent scatter) and kernel F (fused warp+LCC+SSIM+L1
+   error, forward and coordinate backward) against their plain PyTorch
+   versions on the card, and times kernel, plain version and the nearest
+   single PyTorch call on the device (CUDA-graph replays between CUDA
+   events), and the kernel's eager call through its wrapper.
+4. Slice phase, three times: ``ColvoConfig`` at full width (ResNet-18,
+   B=12, 256×320, 3 frames, 4 scales, bf16 convs) by default, with
+   ``loss.fused_kernel`` and with ``loss.batched_photo``, each from the same
+   initial weights, trains for a few steps on rendered synthetic snippets,
+   then evaluates the loss on a held-out batch without gradients. Losses
+   and the gradient norm must be finite, the launch counters must equal
+   the launches the path makes, step 1's loss terms must agree with a
+   recomputation that swaps the kernels for their plain versions on the
+   same weights and batch, and with the default path's step 1. One more
+   step runs under ``torch.profiler``: device time by kernel and by
    bucket, the device's busy share, peak memory.
-5. Serving phase: ``InferenceRunner.infer_coupled`` on frame pairs.
+5. Serving phase, after the default path's steps:
+   ``InferenceRunner.infer_coupled`` on frame pairs.
 6. Prints the kernel table as one JSON line, then the device line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -35,6 +40,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 from unittest import mock
 
 import numpy as np
@@ -46,7 +52,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from colvo_torch.config import ColvoConfig  # noqa: E402
 from colvo_torch.data import batch_iterator, synthetic_dataset  # noqa: E402
 from colvo_torch.kernels import build, launch_counts, reset_launch_counts  # noqa: E402
-from colvo_torch.kernels import sampler, scatter  # noqa: E402
+from colvo_torch.kernels import fused_loss, sampler, scatter  # noqa: E402
+from colvo_torch.losses.photometric import lcc_calibrate  # noqa: E402
 from colvo_torch.runtime import InferenceRunner, init_state, loss_fn, to_device, train_step  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
@@ -57,8 +64,27 @@ PEAK_F32_FLOPS = 67e12
 PHOTO = (12, 3, 256, 320)  # B, C, H, W of the photometric warp
 GEO_N = 24  # S·B depth planes of the stacked geo warp
 GEO_SCALES = ((256, 320), (128, 160), (64, 80), (32, 40))
+GROUP = 4  # coordinate fields per source frame of the grouped sampler (n_scales)
+LCC_WINDOW, ALPHA = 15, 0.85
 TOL_VALUE, TOL_GRAD, TOL_SCATTER_REL = 1e-5, 1e-4, 1e-4
+TOL_GROUPED = 1e-6  # P6 value and d/dx, d/dy, abs
+TOL_FUSED_FWD, TOL_FUSED_BWD_REL = 5e-5, 1e-4
+# P8 is discontinuous where ŵ = t in a channel (the L1 term's sign): within
+# TIE_GAP of that, float32 rounding may put kernel and plain version on
+# opposite sides. Such pixels are compared on no tolerance, and may be at
+# most MAX_TIE_SHARE of all.
+TIE_GAP, MAX_TIE_SHARE = 1e-5, 1e-3
 TRAIN_STEPS = 6
+# f32 operations of F per output pixel: the tap arithmetic once, and per
+# channel the lerps (6), the four window-L sums taken separably with the
+# two products (2 + 8·(L−1)), the LCC statistics and ŵ (17), the five 3×3
+# sums taken separably with three products (3 + 20), the SSIM moments and
+# value (23) and the L1 and channel sums (4); the backward adds per channel
+# the coordinate derivatives (4), the SSIM terms G1-G3 and F1-F3 (30), the
+# three 3×3 transposed sums (12), dŵ, dw and the two channel sums (12).
+F_TAP_OPS = 12
+F_FWD_OPS = 6 + 2 + 8 * (LCC_WINDOW - 1) + 17 + 3 + 20 + 23 + 4
+F_BWD_OPS = F_FWD_OPS + 4 + 30 + 12 + 12
 
 
 def log(msg: str) -> None:
@@ -145,9 +171,10 @@ def _norm_grid(x, y, h, w):
     return torch.stack([x / (w - 1) * 2 - 1, y / (h - 1) * 2 - 1], dim=-1)
 
 
-def kernel_phase(device, photo=PHOTO, geo_n=GEO_N, geo_scales=GEO_SCALES, timed=True):
-    """Hold S and T against their plain versions; returns the kernel rows
-    (without launch counts) keyed P1..P5."""
+def kernel_phase(device, photo=PHOTO, geo_n=GEO_N, geo_scales=GEO_SCALES, group=GROUP,
+                 timed=True):
+    """Hold S, T and F against their plain versions; returns the kernel
+    rows (without launch counts) keyed P1..P8."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cpu").manual_seed(0)
@@ -255,23 +282,133 @@ def kernel_phase(device, photo=PHOTO, geo_n=GEO_N, geo_scales=GEO_SCALES, timed=
                 g, d, gr, 0, 1, True, [True, False]))),
         bound=bound(4 * (3 * gpx + gsrc), 24 * gpx),
     )
+    rows.update(grouped_rows(device, gen, photo, group, timer, eager))
+    rows.update(fused_rows(device, gen, photo, timer, eager))
     torch.backends.cudnn.allow_tf32 = True
     return rows
 
 
-def slice_phase(cfg: ColvoConfig, device, n_steps: int = TRAIN_STEPS, n_frames: int = 24):
-    """Default train steps at ``cfg``'s size + a held-out no-grad loss."""
+def grouped_rows(device, gen, photo, group, timer, eager):
+    """P6: the grouped sampler at the batched photometric stack (S·B source
+    frames, ``group`` scale-minor coordinate fields each)."""
+    b, c, h, w = photo
+    src = torch.rand((2 * b, c, h, w), generator=gen).to(device)
+    n = src.shape[0] * group
+    x, y = make_coords(n, h, w, 2, device)
+    out, dx, dy = sampler.sample(src, x, y, True, group)
+    pout, pdx, pdy = sampler.sample_plain(src, x, y, True, group)
+    err_v = (out - pout).abs().max().item()
+    err_g = max((dx - pdx).abs().max().item(), (dy - pdy).abs().max().item())
+    err_nv = (sampler.sample(src, x, y, False, group)[0] - pout).abs().max().item()
+    log(f"S grouped C={c} x{group}: |value| {err_v:.3g}  |dx,dy| {err_g:.3g}  "
+        f"|value-only| {err_nv:.3g}")
+    check(max(err_v, err_g, err_nv) <= TOL_GROUPED, "S grouped vs plain")
+    check(bool(torch.isfinite(out).all() and torch.isfinite(dx).all()), "S grouped finite")
+    # F.grid_sample's input is the source repeated ``group`` times, made
+    # outside the clock
+    rep, grid = src.repeat_interleave(group, 0), _norm_grid(x, y, h, w)
+    px = n * h * w
+    log(f"S grouped value-only: {timer(lambda: sampler.sample(src, x, y, False, group)):.4f} ms")
+    return {"P6": dict(
+        max_abs_err=max(err_v, err_g, err_nv),
+        ms=timer(lambda: sampler.sample(src, x, y, True, group)),
+        eager_ms=eager(lambda: sampler.sample(src, x, y, True, group)),
+        plain_ms=timer(lambda: sampler.sample_plain(src, x, y, True, group)),
+        library_ms=timer(lambda: F.grid_sample(rep, grid, "bilinear", "border", True)),
+        bound=bound(4 * (src.numel() + 2 * px + 3 * px * c), px * (12 + 11 * c)),
+    )}
+
+
+def fused_rows(device, gen, photo, timer, eager):
+    """P7, P8: the fused error map and its coordinate cotangent at the
+    per-source photometric shape, against a target that is the source's
+    affine relight plus noise (the LCC fit has something to find)."""
+    b, c, h, w = photo
+    src = torch.rand(photo, generator=gen).to(device)
+    tgt = (0.8 * src + 0.1 + 0.05 * torch.rand(photo, generator=gen).to(device)).clamp(0, 1)
+    x, y = make_coords(b, h, w, 3, device)
+    g = torch.randn((b, h, w), generator=gen).to(device)
+    g[:, : h // 8] = 0.0  # zero cotangent where the loss masks pixels
+    args = (src, tgt, x, y)
+    e = fused_loss.err(*args, LCC_WINDOW, ALPHA)
+    err_f = (e - fused_loss.err_plain(*args, LCC_WINDOW, ALPHA)).abs().max().item()
+    gx, gy = fused_loss.err_bwd(*args, g, LCC_WINDOW, ALPHA)
+    pgx, pgy = fused_loss.err_bwd_plain(*args, g, LCC_WINDOW, ALPHA)
+    diff = torch.maximum((gx - pgx).abs(), (gy - pgy).abs())
+    scale_b = max(pgx.abs().max().item(), pgy.abs().max().item())
+    t = tgt.permute(0, 2, 3, 1)
+    w_hat = lcc_calibrate(sampler.sample_plain(src, x, y, False)[0].permute(0, 2, 3, 1), t,
+                          "affine", LCC_WINDOW)
+    ties = (w_hat - t).abs().amin(-1) < TIE_GAP
+    err_b = diff[~ties].max().item()
+    log(f"F fwd C={c} L={LCC_WINDOW}: |e| {err_f:.3g};  F bwd: |gx,gy| {err_b:.3g}, "
+        f"/ max|gx,gy| {err_b / scale_b:.3g} off the {int(ties.sum())} pixels within "
+        f"{TIE_GAP:g} of an L1 sign change (there {diff[ties].max().item() if ties.any() else 0:.3g})")
+    check(err_f <= TOL_FUSED_FWD and err_b <= TOL_FUSED_BWD_REL * scale_b, "F vs plain")
+    check(ties.float().mean().item() <= MAX_TIE_SHARE, "F bwd: share of L1 sign ties")
+    check(bool(torch.isfinite(e).all() and torch.isfinite(gx).all() and torch.isfinite(gy).all()),
+          "F finite")
+    px = b * h * w
+    frames = src.numel() + tgt.numel()
+    return {
+        "P7": dict(
+            max_abs_err=err_f,
+            ms=timer(lambda: fused_loss.err(*args, LCC_WINDOW, ALPHA)),
+            eager_ms=eager(lambda: fused_loss.err(*args, LCC_WINDOW, ALPHA)),
+            plain_ms=timer(lambda: fused_loss.err_plain(*args, LCC_WINDOW, ALPHA)),
+            library_ms=None,
+            bound=bound(4 * (frames + 3 * px), px * (F_TAP_OPS + F_FWD_OPS * c)),
+        ),
+        "P8": dict(
+            max_abs_err=err_b,
+            ms=timer(lambda: fused_loss.err_bwd(*args, g, LCC_WINDOW, ALPHA)),
+            eager_ms=eager(lambda: fused_loss.err_bwd(*args, g, LCC_WINDOW, ALPHA)),
+            plain_ms=timer(lambda: fused_loss.err_bwd_plain(*args, g, LCC_WINDOW, ALPHA)),
+            library_ms=None,
+            bound=bound(4 * (frames + 5 * px), px * (F_TAP_OPS + F_BWD_OPS * c)),
+        ),
+    }
+
+
+def make_batches(cfg: ColvoConfig, device, n: int = TRAIN_STEPS + 1, n_frames: int = 24):
+    """``n`` batches of rendered snippets at ``cfg``'s size, on ``device``."""
     t0 = time.time()
     ds = synthetic_dataset(cfg.data, n_sequences=2, n_frames=n_frames)
     it = batch_iterator(ds, cfg.data, seed=0)
-    batches = [to_device(next(it), device) for _ in range(n_steps + 1)]
+    batches = [to_device(next(it), device) for _ in range(n)]
     log(f"rendered {len(ds)} snippets at {cfg.data.height}x{cfg.data.width} "
         f"in {time.time() - t0:.1f} s")
+    return batches
+
+
+def expected_launches(cfg: ColvoConfig, n_steps: int) -> dict:
+    """The kernel launches of ``n_steps`` train steps and one held-out
+    no-grad loss: per step, one photometric error per (scale, source) and
+    one geo warp per scale."""
+    n_scales, n_sources = cfg.model.n_scales, len(cfg.data.frame_offsets)
+    pairs = n_scales * n_sources
+    counts = {"S/grad/C1": n_scales * n_steps, "T/C1": n_scales * n_steps,
+              "S/value/C1": n_scales}
+    if cfg.loss.fused_kernel:
+        counts.update({"F/fwd/C3": pairs * (n_steps + 1), "F/bwd/C3": pairs * n_steps})
+    elif cfg.loss.batched_photo:
+        counts.update({f"S/grad/C3/g{n_scales}": n_steps, f"S/value/C3/g{n_scales}": 1})
+    else:
+        counts.update({"S/grad/C3": pairs * n_steps, "S/value/C3": pairs})
+    return counts
+
+
+def slice_phase(cfg: ColvoConfig, device, batches, n_steps: int = TRAIN_STEPS):
+    """Train steps at ``cfg``'s size + a held-out no-grad loss on
+    ``batches[n_steps]``; returns the state, the metrics by step, the
+    launch counts and the median ms/step."""
     state = init_state(cfg, device=device)
 
-    # Step 1's loss, recomputed with the plain samplers on the same weights.
+    # Step 1's loss, recomputed with the plain kernels on the same weights.
     with torch.no_grad(), mock.patch.object(sampler, "sample", sampler.sample_plain), \
-            mock.patch.object(scatter, "scatter", scatter.scatter_plain):
+            mock.patch.object(scatter, "scatter", scatter.scatter_plain), \
+            mock.patch.object(fused_loss, "err", fused_loss.err_plain), \
+            mock.patch.object(fused_loss, "err_bwd", fused_loss.err_bwd_plain):
         _, ref_aux = loss_fn(state.model, batches[0], cfg)
     ref_aux = {k: v.item() for k, v in ref_aux.items()}
 
@@ -300,21 +437,23 @@ def slice_phase(cfg: ColvoConfig, device, n_steps: int = TRAIN_STEPS, n_frames: 
     for k, v in ref_aux.items():
         got = metrics[0][k]
         check(abs(got - v) <= 1e-3 * max(abs(v), 1e-6), f"step 1 {k}: kernels {got} vs plain {v}")
-    log(f"step 1 vs plain samplers: " + " ".join(
+    log("step 1 vs plain kernels: " + " ".join(
         f"{k} {metrics[0][k]:.6g}/{v:.6g}" for k, v in ref_aux.items()))
     log(f"held-out loss (no grad): {eval_loss.item():.6g}; launches: {counts}")
+    med = float("nan")
     if device.type == "cuda":
         busy = profile_step(state, batches[0], cfg)
         med = float(np.median(step_ms[1:]))
         log(f"train step: {med:.2f} ms/step (median of steps 2..{n_steps}, CUDA events; "
             f"all: {[round(t, 2) for t in step_ms]}); device busy {busy:.2f} ms of it "
             f"({100 * busy / med:.1f} %, kernel time of the profiled step)")
-    return state, metrics, counts
+    return state, metrics, counts, med
 
 
 # Kernel-name keywords of the buckets in the step breakdown, first match wins.
 BUCKETS = (
     ("S (bilinear_sample)", ("bilinear_sample",)),
+    ("F (fused_err)", ("fused_err",)),
     ("T (bilinear_scatter)", ("bilinear_scatter",)),
     ("conv / gemm", ("conv", "gemm", "xmma", "cutlass", "sm90", "wgrad", "dgrad", "fprop")),
     ("norm", ("norm",)),
@@ -405,7 +544,18 @@ KERNELS = (
      "colvo/kernels/sampler.py:706", "S/value/C1"),
     ("P5", "bilinear_scatter[C=1,4 scales]", "colvo_torch/kernels/csrc/scatter.cu",
      "colvo/kernels/scatter.py:217", "T/C1"),
+    ("P6", "bilinear_sample[grad,C=3,group=4]", "colvo_torch/kernels/csrc/sampler.cu",
+     "colvo/kernels/sampler.py:658", "S/grad/C3/g4"),
+    ("P7", "fused_err[fwd,C=3,L=15]", "colvo_torch/kernels/csrc/fused_loss.cu",
+     "colvo/kernels/fused_loss.py:275", "F/fwd/C3"),
+    ("P8", "fused_err[bwd,C=3,L=15]", "colvo_torch/kernels/csrc/fused_loss.cu",
+     "colvo/kernels/fused_loss.py:312", "F/bwd/C3"),
 )
+
+# The configurations the slice phase trains: the default path, and the two
+# alternative photometric paths of the reference.
+PATHS = (("default", {}), ("fused_kernel", {"fused_kernel": True}),
+         ("batched_photo", {"batched_photo": True}))
 
 
 def main() -> int:
@@ -425,13 +575,29 @@ def main() -> int:
     log(f"built kernels {build.SOURCES} in {time.time() - t0:.1f} s")
 
     rows = kernel_phase(device)
-    cfg = ColvoConfig()
-    state, _, counts = slice_phase(cfg, device)
-    n = TRAIN_STEPS
-    expect = {"S/grad/C3": 8 * n, "S/grad/C1": 4 * n, "T/C1": 4 * n,
-              "S/value/C3": 8, "S/value/C1": 4}
-    check(counts == expect, f"launch counts {counts} == {expect}")
-    serving_phase(cfg, state, device)
+    batches = make_batches(ColvoConfig(), device)
+    counts, first, step_ms = Counter(), {}, {}
+    for label, knobs in PATHS:
+        log(f"--- slice: {label} ---")
+        cfg = ColvoConfig()
+        for k, v in knobs.items():
+            setattr(cfg.loss, k, v)
+        state, metrics, path_counts, step_ms[label] = slice_phase(cfg, device, batches)
+        expect = expected_launches(cfg, TRAIN_STEPS)
+        check(path_counts == expect, f"{label} launch counts {path_counts} == {expect}")
+        counts.update(path_counts)
+        first[label] = metrics[0]
+        if label == "default":
+            serving_phase(cfg, state, device)
+        else:
+            for k, v in first["default"].items():
+                check(k == "grad_norm" or abs(first[label][k] - v) <= 1e-3 * max(abs(v), 1e-6),
+                      f"step 1 {k}: {label} {first[label][k]} vs default {v}")
+            log(f"step 1, {label} vs default: " + " ".join(
+                f"{k} {first[label][k]:.6g}/{v:.6g}" for k, v in first["default"].items()))
+        del state  # the next path's peak memory holds its own state only
+    log("train ms/step (median of steps 2.., CUDA events): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in step_ms.items()))
 
     table = []
     for key, name, src, replaces, counter in KERNELS:

@@ -1,19 +1,26 @@
-"""Hand-written CUDA kernels for the warps of the training loss.
-
-Two samplers, as in ``colvo/kernels/__init__.py``:
+"""Hand-written CUDA kernels for the warps and the fused photometric
+error of the training loss, as in ``colvo/kernels/__init__.py``:
 
 * ``bilinear_sample_fast`` — gradients to the coordinates only (frames are
   data): forward is kernel S with d/dx, d/dy; backward the channel sums
   ``gx = Σ_c g·dx``, ``gy = Σ_c g·dy``; no gradient to the image.
+* ``bilinear_sample_grouped_planes`` — the same for ``group`` coordinate
+  fields per source frame in one launch of S (the grouped sampler, for
+  ``loss.batched_photo``): plane ``i`` samples source ``i // group``.
 * ``bilinear_sample_full`` — gradients to the coordinates and the source
   (the geometric-consistency depth warp): forward is S with d/dx, d/dy,
   backward the same channel sums plus the source cotangent by kernel T.
+* ``warp_photometric`` — the per-pixel warp + LCC + SSIM + L1 error of
+  one source frame (``loss.fused_kernel``): kernel F's forward, and its
+  backward for the coordinate cotangent, where LCC is affine or off; the
+  composed sampler → ``lcc_calibrate`` → ``photometric_error`` otherwise.
 
-Both choose by the tensor's device only: a CUDA tensor goes to the kernels
+All choose by the tensor's device only: a CUDA tensor goes to the kernels
 and a build or launch error propagates; a CPU tensor goes to the plain
 PyTorch versions. Outside autograd (no grad needed) S runs its value-only
-variant. ``*_planes`` variants take NCHW planes and (N, h, w) coordinate
-planes and are what the loss calls; the NHWC forms keep the JAX layout.
+variant and F its forward alone. ``*_planes`` variants and
+``warp_photometric`` take NCHW planes and (N, h, w) coordinate planes and
+are what the loss calls; the NHWC forms keep the JAX layout.
 """
 
 from __future__ import annotations
@@ -22,20 +29,38 @@ from typing import Dict
 
 import torch
 
-from colvo_torch.kernels import sampler, scatter
+from colvo_torch.kernels import fused_loss, sampler, scatter
 
 
 class _SampleCoordsGrad(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, src, x, y):
-        out, dx, dy = sampler.sample(src, x, y, with_grad=True)
+    def forward(ctx, src, x, y, group):
+        out, dx, dy = sampler.sample(src, x, y, with_grad=True, group=group)
         ctx.save_for_backward(dx, dy)
         return out
 
     @staticmethod
     def backward(ctx, g):
         dx, dy = ctx.saved_tensors
-        return None, (g * dx).sum(1), (g * dy).sum(1)
+        return None, (g * dx).sum(1), (g * dy).sum(1), None
+
+
+class _FusedError(torch.autograd.Function):
+    """Forward F (P7), backward F's coordinate cotangent (P8). Only the
+    inputs are saved: the backward recomputes the warp and the window
+    statistics instead of keeping them in memory."""
+
+    @staticmethod
+    def forward(ctx, src, tgt, x, y, lcc_window, alpha):
+        ctx.save_for_backward(src, tgt, x, y)
+        ctx.cfg = (lcc_window, alpha)
+        return fused_loss.err(src, tgt, x, y, lcc_window, alpha)
+
+    @staticmethod
+    def backward(ctx, g):
+        src, tgt, x, y = ctx.saved_tensors
+        gx, gy = fused_loss.err_bwd(src, tgt, x, y, g.contiguous(), *ctx.cfg)
+        return None, None, gx, gy, None, None
 
 
 class _SampleFullGrad(torch.autograd.Function):
@@ -64,8 +89,42 @@ def bilinear_sample_planes(src: torch.Tensor, x: torch.Tensor,
     """Coords-gradient sampler on planes: src (N, C, H, W), x/y (N, h, w)
     → (N, C, h, w). The image gets no gradient (mirrors the reference)."""
     if _needs_grad(x, y):
-        return _SampleCoordsGrad.apply(src, x.contiguous(), y.contiguous())
+        return _SampleCoordsGrad.apply(src, x.contiguous(), y.contiguous(), 1)
     return sampler.sample(src, x.contiguous(), y.contiguous(), with_grad=False)[0]
+
+
+def bilinear_sample_grouped_planes(src: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                                   group: int) -> torch.Tensor:
+    """Grouped coords-gradient sampler: src (N, C, H, W), x/y (N·group, h, w)
+    ordered so that plane ``i`` samples ``src[i // group]`` → (N·group, C,
+    h, w). Mirrors ``colvo.kernels.bilinear_sample_fast_grouped``."""
+    if _needs_grad(x, y):
+        return _SampleCoordsGrad.apply(src, x.contiguous(), y.contiguous(), group)
+    return sampler.sample(src, x.contiguous(), y.contiguous(), False, group)[0]
+
+
+def warp_photometric(src: torch.Tensor, tgt: torch.Tensor, x: torch.Tensor,
+                     y: torch.Tensor, lcc_mode: str, lcc_window: int,
+                     alpha: float) -> torch.Tensor:
+    """Per-pixel photometric error (N, h, w) of ``src`` (N, C, H, W) warped
+    to (x, y) against ``tgt`` (N, C, h, w); gradients flow to x and y only.
+    Mirrors ``colvo.kernels.warp_photometric_fast``: kernel F where LCC is
+    affine or off and α > 0, else the composed path, whose LCC pools no
+    valid mask."""
+    x, y = x.contiguous(), y.contiguous()
+    if lcc_mode in ("affine", "off") and alpha > 0.0:
+        window = lcc_window if lcc_mode == "affine" else 0
+        if _needs_grad(x, y):
+            return _FusedError.apply(src, tgt, x, y, window, alpha)
+        return fused_loss.err(src, tgt, x, y, window, alpha)
+    # imported here: colvo_torch.losses imports this package
+    from colvo_torch.losses.photometric import lcc_calibrate, photometric_error
+
+    warped = bilinear_sample_planes(src, x, y).permute(0, 2, 3, 1)
+    tgt = tgt.permute(0, 2, 3, 1)
+    if lcc_mode != "off":
+        warped = lcc_calibrate(warped, tgt, lcc_mode, lcc_window)
+    return photometric_error(warped, tgt, alpha)
 
 
 def bilinear_sample_full_planes(src: torch.Tensor, x: torch.Tensor,
@@ -95,16 +154,19 @@ def bilinear_sample_full(img: torch.Tensor, coords: torch.Tensor) -> torch.Tenso
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches since the last reset: ``S/grad/C3``, ``S/value/C1``,
-    ``T/C1``, ... (only CUDA launches count; the plain versions do not)."""
+    """Kernel launches since the last reset: ``S/grad/C3``,
+    ``S/grad/C3/g4``, ``S/value/C1``, ``T/C1``, ``F/fwd/C3``, ``F/bwd/C3``,
+    ... (only CUDA launches count; the plain versions do not)."""
     counts = {f"S/{k}": v for k, v in sampler.launches.items()}
     counts.update({f"T/{k}": v for k, v in scatter.launches.items()})
+    counts.update({f"F/{k}": v for k, v in fused_loss.launches.items()})
     return counts
 
 
 def reset_launch_counts() -> None:
     sampler.launches.clear()
     scatter.launches.clear()
+    fused_loss.launches.clear()
 
 
 __all__ = [
@@ -112,6 +174,8 @@ __all__ = [
     "bilinear_sample_full",
     "bilinear_sample_planes",
     "bilinear_sample_full_planes",
+    "bilinear_sample_grouped_planes",
+    "warp_photometric",
     "launch_counts",
     "reset_launch_counts",
 ]

@@ -7,7 +7,10 @@
   with the coefficients clipped and stop-gradiented; see the JAX module for
   the rationale of each mode.
 
-Images are (B, H, W, C) as in the JAX package; any strides work.
+Images are (B, H, W, C) as in the JAX package, or (..., H, W, C) with any
+leading dims that broadcast against each other (the batched photometric
+stack compares each target with all its warps without copying it); any
+strides work.
 """
 
 from __future__ import annotations
@@ -19,17 +22,18 @@ import torch.nn.functional as F
 
 
 def _box_sum(x: torch.Tensor, window: int) -> torch.Tensor:
-    """SAME-padded 2-D box sum over dims (1, 2) of an NHWC tensor."""
+    """SAME-padded 2-D box sum over the H, W dims of a (..., H, W, C) tensor."""
     lo = (window - 1) // 2
     hi = window - 1 - lo
-    nchw = F.pad(x.permute(0, 3, 1, 2), (lo, hi, lo, hi))
-    return F.avg_pool2d(nchw, window, 1, divisor_override=1).permute(0, 2, 3, 1)
+    nchw = F.pad(x.reshape(-1, *x.shape[-3:]).permute(0, 3, 1, 2), (lo, hi, lo, hi))
+    out = F.avg_pool2d(nchw, window, 1, divisor_override=1).permute(0, 2, 3, 1)
+    return out.reshape(x.shape)
 
 
 def _avg_pool_same(x: torch.Tensor, window: int) -> torch.Tensor:
     """Mean filter with SAME padding; border pixels divide by the true
     window overlap."""
-    ones = torch.ones((1,) + x.shape[1:3] + (1,), dtype=x.dtype, device=x.device)
+    ones = torch.ones((1,) + x.shape[-3:-1] + (1,), dtype=x.dtype, device=x.device)
     return _box_sum(x, window) / _box_sum(ones, window)
 
 
@@ -83,13 +87,13 @@ def lcc_calibrate(
             if m.ndim == warped.ndim - 1:
                 m = m[..., None]
             m = m.detach()
-            denom = torch.sum(m, dim=(1, 2), keepdim=True) + 1e-6
+            denom = torch.sum(m, dim=(-3, -2), keepdim=True) + 1e-6
 
             def _gmean(x):
-                return torch.sum(x * m, dim=(1, 2), keepdim=True) / denom
+                return torch.sum(x * m, dim=(-3, -2), keepdim=True) / denom
         else:
             def _gmean(x):
-                return torch.mean(x, dim=(1, 2), keepdim=True)
+                return torch.mean(x, dim=(-3, -2), keepdim=True)
 
         gmu_w = _gmean(warped)
         gmu_t = _gmean(target)

@@ -8,8 +8,13 @@ native-scale geometric-consistency term with gradients through both the
 projected z and the sampled source depth (kernels S and T), and the
 depth↔pose gauge hinge. Aux keys are those of the JAX loss.
 
-Knobs off by default in the reference whose branches are not ported yet
-raise ``NotImplementedError`` naming the knob.
+Two alternative photometric paths of the reference are ported:
+``loss.fused_kernel`` (each warp + LCC + SSIM + L1 by the fused kernel F)
+and ``loss.batched_photo`` (all n_scales × n_sources warps in one grouped
+launch of S, then one stats pipeline over the stack). The other knobs off
+by default in the reference (``photo_native``, ``geo_full_res``,
+``geo_grad="sym"``, ``geo_stopgrad``, ``compute_dtype``, ``photo_remat``,
+``scatter_audit``) raise ``NotImplementedError`` naming the knob.
 """
 
 from __future__ import annotations
@@ -26,7 +31,12 @@ from colvo_torch.geometry import (
     transformation_from_parameters,
 )
 from colvo_torch.geometry.ops import _valid_mask
-from colvo_torch.kernels import bilinear_sample_full_planes, bilinear_sample_planes
+from colvo_torch.kernels import (
+    bilinear_sample_full_planes,
+    bilinear_sample_grouped_planes,
+    bilinear_sample_planes,
+    warp_photometric,
+)
 from colvo_torch.losses.photometric import lcc_calibrate, photometric_error
 from colvo_torch.losses.terms import automask as automask_fn
 from colvo_torch.losses.terms import geometry_consistency, smoothness_loss
@@ -35,8 +45,6 @@ from colvo_torch.models.depth_decoder import upsample_nearest
 # Off-default knobs of the reference whose branches are not ported, with
 # the value that keeps the default path.
 _UNPORTED = {
-    "batched_photo": False,
-    "fused_kernel": False,
     "photo_native": False,
     "geo_full_res": False,
     "geo_stopgrad": False,
@@ -48,6 +56,16 @@ _UNPORTED = {
 def _check_config(cfg: LossConfig) -> None:
     if cfg.geo_grad not in ("both", "sym"):
         raise ValueError(f"loss.geo_grad must be 'both' or 'sym', got {cfg.geo_grad!r}")
+    if cfg.fused_kernel and cfg.batched_photo:
+        raise ValueError(
+            "loss.fused_kernel and loss.batched_photo are alternative "
+            "launch-reduction strategies for the same photometric path — pick one"
+        )
+    if cfg.fused_kernel and cfg.compute_dtype not in ("", "float32"):
+        raise ValueError(
+            "loss.compute_dtype is not supported with loss.fused_kernel "
+            "(the fused kernel computes every photometric plane in float32)"
+        )
     if cfg.compute_dtype not in ("", "float32", "bfloat16"):
         raise ValueError(
             f"loss.compute_dtype must be ''|float32|bfloat16, got {cfg.compute_dtype!r}"
@@ -158,6 +176,9 @@ def snippet_loss(
         z_all.append([z for _, z in projected])
 
     def photometric_of(s: int, pix: torch.Tensor) -> torch.Tensor:
+        if loss_cfg.fused_kernel:
+            return warp_photometric(planes[:, s + 1], planes[:, 0], pix[..., 0], pix[..., 1],
+                                    lcc_mode, loss_cfg.lcc_window, loss_cfg.ssim_alpha)
         warped = bilinear_sample_planes(planes[:, s + 1], pix[..., 0], pix[..., 1])
         warped = warped.permute(0, 2, 3, 1)
         if lcc_mode.startswith("global"):
@@ -168,6 +189,33 @@ def snippet_loss(
         elif lcc_mode != "off":
             warped = lcc_calibrate(warped, tgt_clean, lcc_mode, loss_cfg.lcc_window)
         return photometric_error(warped, tgt_clean, loss_cfg.ssim_alpha)
+
+    # batched_photo: all n_scales × n_sources full-resolution warps in one
+    # grouped launch of S and one stats pipeline over the stack.
+    err_lookup: Dict[Tuple[int, int], torch.Tensor] = {}
+    if loss_cfg.batched_photo:
+        batch = frames.shape[0]
+        # plane j = s·B + b; coords scale-minor, so plane i samples source i // n_scales
+        src_one = torch.cat([planes[:, s + 1] for s in range(n_sources)])
+        pix_flat = torch.stack(
+            [torch.cat([pix_all[sc][s] for s in range(n_sources)]) for sc in range(n_scales)],
+            dim=1,
+        ).reshape(-1, height, width, 2)
+        warped = bilinear_sample_grouped_planes(src_one, pix_flat[..., 0], pix_flat[..., 1],
+                                                n_scales)
+        warped = warped.permute(0, 2, 3, 1).reshape(n_sources, batch, n_scales, height, width, 3)
+        tgt_b = tgt_clean[None, :, None]  # broadcast over sources and scales
+        vmask = None
+        if lcc_mode.startswith("global"):
+            vmask = _valid_mask(pix_flat, height, width).reshape(
+                n_sources, batch, n_scales, height, width)
+        if lcc_mode != "off":
+            warped = lcc_calibrate(warped, tgt_b, lcc_mode, loss_cfg.lcc_window,
+                                   valid_mask=vmask)
+        err_g = photometric_error(warped, tgt_b, loss_cfg.ssim_alpha)
+        for sc in range(n_scales):
+            for s in range(n_sources):
+                err_lookup[(sc, s)] = err_g[s, :, sc]
 
     for scale in range(n_scales):
         disp_s = disps[0][scale]
@@ -206,7 +254,7 @@ def snippet_loss(
         for s in range(n_sources):
             pix, z = pix_all[scale][s], z_all[scale][s]
             valid = _valid_mask(pix, height, width) * (z > 0)
-            err = photometric_of(s, pix)
+            err = err_lookup[(scale, s)] if loss_cfg.batched_photo else photometric_of(s, pix)
             if loss_cfg.geometric_weight > 0:
                 pix_g, z_g, _, h_g, w_g = geo_grids[s]
                 gvalid = _valid_mask(pix_g, h_g, w_g)

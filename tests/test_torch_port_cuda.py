@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from colvo_torch import kernels
-from colvo_torch.kernels import sampler, scatter
+from colvo_torch.kernels import fused_loss, sampler, scatter
 
 
 @pytest.fixture
@@ -88,3 +88,92 @@ def test_kernel_wrappers_reject_what_they_cannot_launch(device):
         sampler.sample(src.float(), x.transpose(1, 2), x, True)
     with pytest.raises(ValueError):
         sampler.sample(torch.zeros((1, 2, 4, 4), device=device).transpose(2, 3), x, x, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 4])
+def test_grouped_sampler_matches_plain_version(device, group):
+    """P6: plane i samples source i // group; value ≤1e-5, d/dx, d/dy ≤1e-4
+    abs against the plain version on the repeated source. group=1 is the
+    ungrouped launch, bit for bit."""
+    rng = np.random.default_rng(11)
+    src = torch.tensor(rng.random((3, 3, 40, 56), dtype=np.float32), device=device)
+    x, y = (torch.tensor(a, device=device) for a in _coords(3 * group, 36, 50, 12))
+    kernels.reset_launch_counts()
+    for with_grad in (True, False):
+        got = sampler.sample(src, x, y, with_grad, group)
+        want = sampler.sample_plain(src, x, y, with_grad, group)
+        torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=0)
+        if with_grad:
+            for k, p in zip(got[1:], want[1:]):
+                torch.testing.assert_close(k, p, atol=1e-4, rtol=0)
+        if group == 1:
+            for k, p in zip(got, sampler.sample(src, x, y, with_grad)):
+                assert (k is None and p is None) or torch.equal(k, p)
+    suffix = "" if group == 1 else f"/g{group}"
+    assert kernels.launch_counts() == {
+        f"S/grad/C3{suffix}": 1 + (group == 1), f"S/value/C3{suffix}": 1 + (group == 1)}
+
+
+def _fused_inputs(device, c, seed, h=36, w=50):
+    rng = np.random.default_rng(seed)
+    src = torch.tensor(rng.random((2, c, h + 4, w + 6), dtype=np.float32), device=device)
+    tgt = torch.tensor(rng.random((2, c, h, w), dtype=np.float32), device=device)
+    x, y = (torch.tensor(a, device=device) for a in _coords(2, h, w, seed + 1))
+    g = torch.tensor(rng.normal(size=(2, h, w)).astype(np.float32), device=device)
+    g[:, :5] = 0.0
+    return src, tgt, x, y, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("window", [0, 15, 31])
+def test_fused_loss_matches_plain_versions(device, c, window):
+    """P7 e ≤1e-4 abs and P8 gx, gy ≤1e-3 of max|plain| against the plain
+    versions, at a size that is no multiple of the 16×32 tile (the window
+    sums add in another order; E[w²]−μ² cancels under 1/(var+1e-4)).
+    Window 31 needs more than 48 KB of shared memory in the backward."""
+    src, tgt, x, y, g = _fused_inputs(device, c, 20 + c)
+    e = fused_loss.err(src, tgt, x, y, window, 0.85)
+    torch.testing.assert_close(e, fused_loss.err_plain(src, tgt, x, y, window, 0.85),
+                               atol=1e-4, rtol=0)
+    got = fused_loss.err_bwd(src, tgt, x, y, g, window, 0.85)
+    want = fused_loss.err_bwd_plain(src, tgt, x, y, g, window, 0.85)
+    for k, p in zip(got, want):
+        torch.testing.assert_close(k, p, atol=1e-3 * p.abs().max().item(), rtol=0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_fused_loss_autograd_goes_through_the_kernels(device):
+    """warp_photometric's forward is P7 and its backward P8, once each;
+    the coordinate gradients equal the CPU path's and the frames get none."""
+    src, tgt, x, y, _ = _fused_inputs(device, 3, 30)
+    kernels.reset_launch_counts()
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        tx = x.to(dev, copy=True).requires_grad_(True)
+        ty = y.to(dev, copy=True).requires_grad_(True)
+        e = kernels.warp_photometric(src.to(dev), tgt.to(dev), tx, ty, "affine", 15, 0.85)
+        torch.sum(torch.cos(4 * e)).backward()
+        out[dev.type] = (e.detach().cpu(), tx.grad.cpu(), ty.grad.cpu())
+    assert kernels.launch_counts() == {"F/fwd/C3": 1, "F/bwd/C3": 1}
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=1e-4, rtol=0)
+    for got, want in zip(out["cuda"][1:], out["cpu"][1:]):
+        torch.testing.assert_close(got, want, atol=1e-3 * want.abs().max().item(), rtol=0)
+
+
+@pytest.mark.cuda
+def test_fused_and_grouped_wrappers_reject_what_they_cannot_launch(device):
+    src, tgt, x, y, g = _fused_inputs(device, 3, 40)
+    with pytest.raises(TypeError):
+        fused_loss.err(src.double(), tgt, x, y, 15, 0.85)
+    with pytest.raises(ValueError):
+        fused_loss.err(src, tgt, x.transpose(1, 2).contiguous().transpose(1, 2), y, 15, 0.85)
+    with pytest.raises(ValueError):
+        fused_loss.err_bwd(src, tgt.transpose(2, 3).contiguous().transpose(2, 3), x, y, g, 15,
+                           0.85)
+    with pytest.raises(ValueError):
+        fused_loss.err(src, tgt.cpu(), x, y, 15, 0.85)
+    with pytest.raises(ValueError):
+        sampler.sample(src, x, y, True, 4)  # 2 coordinate planes for 2 frames × 4

@@ -33,6 +33,7 @@ def test_importing_every_module_loads_no_jax_or_colvo():
                          text=True, check=True, timeout=300)
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert "colvo_torch.kernels.sampler" in result["imported"]
+    assert "colvo_torch.kernels.fused_loss" in result["imported"]
     assert "colvo_torch.runtime.train_step" in result["imported"]
     assert [m for m in result["loaded"] if _forbidden(m)] == []
 

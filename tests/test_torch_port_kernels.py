@@ -1,9 +1,11 @@
 """colvo_torch.kernels against the Pallas kernels of colvo.kernels (run in
 interpret mode on the CPU, as tests/test_kernels.py does): the plain
-versions behind the CPU path of both samplers, value, coordinate gradient
-and source gradient, with out-of-bounds and ±1e20 coords. The CUDA
-kernels themselves run only on a card (test_torch_port_cuda.py, and
-chip_smoke.py at the training shapes)."""
+versions behind the CPU path of the samplers (plain, grouped, full
+gradient), value, coordinate gradient and source gradient, with
+out-of-bounds and ±1e20 coords, and of the fused photometric error and its
+analytic coordinate backward. The CUDA kernels themselves run only on a
+card (test_torch_port_cuda.py, and chip_smoke.py at the training
+shapes)."""
 
 import jax
 import jax.numpy as jnp
@@ -12,10 +14,14 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from colvo.kernels.sampler import bilinear_sample_pallas
+from colvo.geometry.ops import bilinear_sample as jax_bilinear_sample
+from colvo.kernels.fused_loss import warp_photometric_pallas
+from colvo.kernels.sampler import bilinear_sample_pallas, bilinear_sample_pallas_grouped
 from colvo.kernels.scatter import bilinear_sample_fullgrad
+from colvo.losses.photometric import lcc_calibrate as jax_lcc_calibrate
+from colvo.losses.photometric import photometric_error as jax_photometric_error
 from colvo_torch import kernels
-from colvo_torch.kernels import build, sampler, scatter
+from colvo_torch.kernels import build, fused_loss, sampler, scatter
 
 torch.set_num_threads(2)
 
@@ -90,6 +96,104 @@ def test_full_grad_sampler_matches_pallas(case, h, w, c):
     np.testing.assert_allclose(tc.grad.numpy(), np.asarray(gc), atol=1e-4)
 
 
+@pytest.mark.parametrize("case", list(CASES))
+def test_grouped_sampler_matches_pallas(case):
+    """bilinear_sample_grouped_planes (P6 port) vs
+    bilinear_sample_pallas_grouped: plane i samples source i // group;
+    value ≤1e-5 and coords gradient ≤1e-4 abs."""
+    scale, huge = CASES[case]
+    group = 3
+    rng = np.random.default_rng(6)
+    img = rng.random((2, 8, 128, 3), dtype=np.float32)
+    coords = _coords(2 * group, 8, 128, 7, scale, huge)
+    loss = lambda c: jnp.sum(jnp.cos(3 * bilinear_sample_pallas_grouped(img, c, group)))  # noqa: E731
+    with pltpu.force_tpu_interpret_mode():
+        ref = bilinear_sample_pallas_grouped(jnp.asarray(img), jnp.asarray(coords), group)
+        gc = jax.grad(loss)(coords)
+    tc = _t(coords, True)
+    src = _t(img).permute(0, 3, 1, 2)
+    out = kernels.bilinear_sample_grouped_planes(src, tc[..., 0], tc[..., 1], group)
+    out = out.permute(0, 2, 3, 1)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=1e-5)
+    torch.sum(torch.cos(3 * out)).backward()
+    np.testing.assert_allclose(tc.grad.numpy(), np.asarray(gc), atol=1e-4)
+    with torch.no_grad():
+        np.testing.assert_allclose(
+            kernels.bilinear_sample_grouped_planes(src, _t(coords[..., 0]), _t(coords[..., 1]),
+                                                   group).permute(0, 2, 3, 1).numpy(),
+            np.asarray(ref), atol=1e-5)
+
+
+def _fused_port(src, tgt, coords, lcc_mode, window):
+    """The port's warp_photometric on NHWC numpy inputs: (e, coords grad of
+    Σcos(4e)) through the CPU path (plain forward, plain analytic backward)."""
+    tc = _t(coords, True)
+    e = kernels.warp_photometric(_t(src).permute(0, 3, 1, 2), _t(tgt).permute(0, 3, 1, 2),
+                                 tc[..., 0], tc[..., 1], lcc_mode, window, 0.85)
+    torch.sum(torch.cos(4 * e)).backward()
+    return e.detach().numpy(), tc.grad.numpy()
+
+
+def _fused_inputs(h, w, c, seed):
+    rng = np.random.default_rng(seed)
+    src = rng.random((1, h, w, c), dtype=np.float32)
+    tgt = rng.random((1, h, w, c), dtype=np.float32)
+    return src, tgt, _coords(1, h, w, seed + 1, 2.0, False)
+
+
+def test_fused_loss_matches_pallas_without_lcc():
+    """P7/P8 ports (plain forward and analytic backward) vs
+    warp_photometric_pallas with lcc_window=0 in interpret mode, at the
+    JAX suite's (1, 32, 128, 2): e ≤2e-5 and coords gradient ≤5e-5 abs."""
+    src, tgt, coords = _fused_inputs(32, 128, 2, 8)
+    with pltpu.force_tpu_interpret_mode():  # one interpreted forward and backward
+        ref, vjp = jax.vjp(lambda c: warp_photometric_pallas(src, tgt, c, 0, 0.85),
+                           jnp.asarray(coords))
+        (gc,) = vjp(-4 * jnp.sin(4 * ref))  # the gradient of Σcos(4e)
+    e, g = _fused_port(src, tgt, coords, "off", 0)
+    np.testing.assert_allclose(e, np.asarray(ref), atol=2e-5)
+    np.testing.assert_allclose(g, np.asarray(gc), atol=5e-5)
+
+
+@pytest.mark.parametrize("h,w,c", [(32, 128, 2), (23, 37, 3)])
+def test_fused_loss_with_lcc_matches_composed_reference(h, w, c):
+    """P7/P8 ports at lcc_window=15 vs the JAX composed XLA pipeline
+    (sampler → affine LCC → SSIM+L1, tests/test_kernels.py's xla_ref):
+    e ≤2e-5 and coords gradient ≤5e-5 abs, also at a size no tile divides."""
+    src, tgt, coords = _fused_inputs(h, w, c, 3)
+
+    def xla_ref(crd):
+        warped = jax_lcc_calibrate(jax_bilinear_sample(src, crd), tgt, "affine", 15)
+        return jax_photometric_error(warped, tgt, 0.85)
+
+    ref = xla_ref(jnp.asarray(coords))
+    gc = jax.grad(lambda c_: jnp.sum(jnp.cos(4 * xla_ref(c_))))(jnp.asarray(coords))
+    e, g = _fused_port(src, tgt, coords, "affine", 15)
+    np.testing.assert_allclose(e, np.asarray(ref), atol=2e-5)
+    np.testing.assert_allclose(g, np.asarray(gc), atol=5e-5)
+
+
+@pytest.mark.parametrize("window", [0, 15])
+@pytest.mark.parametrize("c", [1, 3])
+def test_fused_loss_plain_backward_is_autograd_of_plain_forward(window, c):
+    """err_bwd_plain (the kernel's analytic transpose: SSIM terms, L1 sign,
+    ·a with a and b held constant, the /C of the channel mean) equals
+    torch.autograd of err_plain to 1e-5 relative L2, with ±1e20 coords and
+    a cotangent zeroed on a band."""
+    rng = np.random.default_rng(9 + c)
+    src = _t(rng.random((2, c, 22, 30), dtype=np.float32))
+    tgt = _t(rng.random((2, c, 19, 26), dtype=np.float32))
+    coords = _coords(2, 19, 26, 10, 3.0, True)
+    x, y = _t(coords[..., 0], True), _t(coords[..., 1], True)
+    g = _t(rng.normal(size=(2, 19, 26)).astype(np.float32))
+    g[:, :3] = 0.0
+    e = fused_loss.err_plain(src, tgt, x, y, window, 0.85)
+    torch.sum(e * g).backward()
+    gx, gy = fused_loss.err_bwd_plain(src, tgt, x.detach(), y.detach(), g, window, 0.85)
+    for got, want in ((gx, x.grad), (gy, y.grad)):
+        assert (got - want).norm().item() <= 1e-5 * want.norm().item()
+
+
 def test_plain_scatter_is_the_gather_transpose():
     """scatter_plain is the adjoint of sample_plain: <S(src), g> == <src, T(g)>."""
     rng = np.random.default_rng(5)
@@ -108,6 +212,10 @@ def test_cpu_path_launches_no_kernel():
     img = _t(np.ones((1, 8, 8, 1), np.float32), True)
     kernels.bilinear_sample_full(img, coords).sum().backward()
     kernels.bilinear_sample_fast(img, coords).sum().backward()
+    planes = img.detach().permute(0, 3, 1, 2)
+    kernels.bilinear_sample_grouped_planes(planes, coords[..., 0], coords[..., 1], 1).sum().backward()
+    kernels.warp_photometric(planes, planes, coords[..., 0], coords[..., 1], "affine", 15,
+                             0.85).sum().backward()
     assert kernels.launch_counts() == {}
 
 
@@ -120,6 +228,12 @@ def test_non_cpu_tensors_never_take_the_plain_path():
         sampler.sample(src, x, x, True)
     with pytest.raises(ValueError, match="CUDA"):
         scatter.scatter(x, x, src, 4, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        sampler.sample(src, x, x, True, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_loss.err(src, src, x, x, 15, 0.85)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_loss.err_bwd(src, src, x, x, x, 15, 0.85)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -1,6 +1,9 @@
 """colvo_torch.losses against colvo.losses at float32 on the CPU: the
 photometric/LCC functions, the loss terms, and snippet_loss (loss, aux
-terms, gradients with respect to disparities and poses)."""
+terms, gradients with respect to disparities and poses) on the default
+path and under the alternative photometric paths ``loss.fused_kernel`` and
+``loss.batched_photo``, which JAX runs on the CPU through its XLA
+fallbacks."""
 
 import dataclasses
 
@@ -149,7 +152,12 @@ VARIANTS = {
         "automask": False, "min_reprojection": False, "geometric_weight": 0.0,
         "lcc": False, "gauge_weight": 0.0,
     }},
+    "batched_photo": {"loss": {"batched_photo": True}},
+    "fused_kernel": {"loss": {"fused_kernel": True}},
+    # the composed path of warp_photometric: its LCC pools no valid mask
+    "fused_kernel_global_lcc": {"loss": {"fused_kernel": True, "lcc_mode": "global+affine"}},
 }
+KNOB_VARIANTS = ("batched_photo", "fused_kernel", "fused_kernel_global_lcc")
 
 
 def _run_both(variant, with_grad):
@@ -187,17 +195,30 @@ def _check_aux(jaux, taux):
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-7, err_msg=key)
 
 
-def test_snippet_loss_default_matches_with_gradients():
-    """Default DCDP+LCC loss: value and every aux term ≤1e-4 relative, and
-    the gradients to each frame's disparities at each scale and to the
-    poses ≤1e-3 relative L2."""
-    (jl, jaux, gd, gp), (tl, taux, tdisps, tposes) = _run_both("default", True)
+def _check_with_gradients(variant):
+    (jl, jaux, gd, gp), (tl, taux, tdisps, tposes) = _run_both(variant, True)
     np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-4)
     _check_aux(jaux, taux)
     for f in range(3):
         for s in range(4):
             assert _rel(tdisps[f][s].grad.numpy(), gd[f][s]) < 1e-3, (f, s)
     assert _rel(tposes.grad.numpy(), gp) < 1e-3
+
+
+def test_snippet_loss_default_matches_with_gradients():
+    """Default DCDP+LCC loss: value and every aux term ≤1e-4 relative, and
+    the gradients to each frame's disparities at each scale and to the
+    poses ≤1e-3 relative L2."""
+    _check_with_gradients("default")
+
+
+@pytest.mark.parametrize("variant", KNOB_VARIANTS)
+def test_snippet_loss_photometric_knobs_match_with_gradients(variant):
+    """The alternative photometric paths, at the default test's
+    tolerances: the grouped sampler with one stats pipeline over the stack,
+    the fused error (plain forward and analytic backward on the CPU), and
+    the fused knob's composed path under global LCC."""
+    _check_with_gradients(variant)
 
 
 @pytest.mark.parametrize("variant", [v for v in VARIANTS if v != "default"])
@@ -209,9 +230,62 @@ def test_snippet_loss_branches_match(variant):
         assert taux["loss/gauge"].item() > 0
 
 
+def _port_loss(knobs, with_grad):
+    cfg = ColvoConfig()
+    for k, v in knobs.items():
+        setattr(cfg.loss, k, v)
+    disps, poses, frames, k = _loss_inputs()
+    tdisps = [{s: _t(v, with_grad) for s, v in d.items()} for d in disps]
+    tposes = _t(poses, with_grad)
+    loss, aux = snippet_loss(tdisps, tposes, _t(frames), _t(k), _t(np.linalg.inv(k)), cfg.loss,
+                             cfg.model)
+    if with_grad:
+        loss.backward()
+    return loss, aux, [d[s].grad for d in tdisps for s in d] + [tposes.grad]
+
+
+@pytest.mark.parametrize("knob,base", [
+    ("batched_photo", {}), ("batched_photo", {"lcc_mode": "global+affine"}),
+    ("fused_kernel", {}), ("fused_kernel", {"lcc": False}),
+])
+def test_photometric_knobs_equal_default_in_port(knob, base):
+    """Each knob computes the default path's function on the same inputs:
+    loss and aux ≤1e-5 relative, gradients ≤1e-4 relative L2. (Under
+    global LCC fused_kernel differs by design: its composed path pools no
+    valid mask; the JAX comparison above pins that.)"""
+    want_l, want_aux, want_g = _port_loss(base, True)
+    got_l, got_aux, got_g = _port_loss({**base, knob: True}, True)
+    np.testing.assert_allclose(got_l.item(), want_l.item(), rtol=1e-5)
+    for key, v in want_aux.items():
+        np.testing.assert_allclose(got_aux[key].detach().numpy(), v.detach().numpy(), rtol=1e-5,
+                                   atol=1e-8, err_msg=key)
+    for got, want in zip(got_g, want_g):
+        assert _rel(got.numpy(), want.numpy()) < 1e-4
+
+
+@pytest.mark.parametrize("knobs,match", [
+    ({"fused_kernel": True, "batched_photo": True}, "batched_photo"),
+    ({"fused_kernel": True, "compute_dtype": "bfloat16"}, "compute_dtype"),
+    ({"fused_kernel": True, "batched_photo": True, "compute_dtype": "bfloat16"}, "batched_photo"),
+])
+def test_conflicting_photometric_knobs_raise_the_reference_error(knobs, match):
+    """The reference's ValueErrors, in its order, ahead of the port's
+    NotImplementedError for compute_dtype."""
+    jcfg, tcfg = JaxConfig(), ColvoConfig()
+    for cfg in (jcfg, tcfg):
+        for k, v in knobs.items():
+            setattr(cfg.loss, k, v)
+    disps, poses, frames, k = _loss_inputs()
+    k_inv = np.linalg.inv(k).astype(np.float32)
+    with pytest.raises(ValueError, match=match):
+        jax_snippet_loss(disps, poses, jnp.asarray(frames), k, k_inv, jcfg.loss, jcfg.model)
+    with pytest.raises(ValueError, match=match):
+        snippet_loss([{s: _t(v) for s, v in d.items()} for d in disps], _t(poses), _t(frames),
+                     _t(k), _t(k_inv), tcfg.loss, tcfg.model)
+
+
 @pytest.mark.parametrize("knob,value", [
-    ("batched_photo", True), ("fused_kernel", True), ("photo_native", True),
-    ("geo_full_res", True), ("geo_grad", "sym"), ("geo_stopgrad", True),
+    ("photo_native", True), ("geo_full_res", True), ("geo_grad", "sym"), ("geo_stopgrad", True),
     ("compute_dtype", "bfloat16"), ("photo_remat", True), ("scatter_audit", True),
 ])
 def test_unported_loss_knobs_raise(knob, value):

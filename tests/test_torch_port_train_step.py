@@ -30,6 +30,7 @@ from colvo.models import ColVOModel as JaxModel
 from colvo.runtime.train_step import make_optimizer
 from colvo_torch.config import ColvoConfig
 from colvo_torch.data import SnippetDataset, batch_iterator, render_sequence
+from colvo_torch.losses.terms import automask as port_automask
 from colvo_torch.runtime import (
     clip_by_global_norm,
     flax_params,
@@ -200,6 +201,30 @@ def test_three_adam_steps_track_reference(setup):
                                        rtol=0, atol=1e-3 * tcfg.train.lr, err_msg=name)
     assert state.step == 3
     shared.check_port_decisions()
+
+
+@pytest.mark.parametrize("knob", ["fused_kernel", "batched_photo"])
+def test_train_step_under_photometric_knobs_equals_default(knob, monkeypatch):
+    """One CPU train_step under each alternative photometric path, from
+    the default run's weights and batch: finite metrics, every loss term
+    equal to the default's ≤1e-5 relative and grad_norm ≤1e-4 relative.
+    Both runs take the port's own automask decisions (the module fixture
+    may have replaced them with the reference's)."""
+    monkeypatch.setattr(port_total, "automask_fn", port_automask)
+    seq = render_sequence(n_frames=6, height=64, width=96)
+    metrics = {}
+    for name in ("default", knob):
+        _, tcfg = _configs()
+        if name != "default":
+            setattr(tcfg.loss, knob, True)
+        ds = SnippetDataset([seq.frames], [seq.k], tcfg.data.frame_offsets)
+        batch = to_device(next(batch_iterator(ds, tcfg.data, seed=0)), torch.device("cpu"))
+        state = init_state(tcfg, seed=3, device="cpu")
+        metrics[name] = {k: v.item() for k, v in train_step(state, batch, tcfg).items()}
+    assert all(np.isfinite(v) for v in metrics[knob].values())
+    for k, v in metrics["default"].items():
+        np.testing.assert_allclose(metrics[knob][k], v, rtol=1e-4 if k == "grad_norm" else 1e-5,
+                                   atol=1e-8, err_msg=k)
 
 
 @pytest.mark.parametrize("warmup,step", [(0, 0), (0, 14_999), (0, 15_000), (10, 3), (10, 10),
