@@ -10,9 +10,12 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
    geo scales, and grouped: 4 coordinate fields per source frame), kernel
    T (source-cotangent scatter) and kernel F (fused warp+LCC+SSIM+L1
    error, forward and coordinate backward) against their plain PyTorch
-   versions on the card, and times kernel, plain version and the nearest
-   single PyTorch call on the device (CUDA-graph replays between CUDA
-   events), and the kernel's eager call through its wrapper.
+   versions on the card, F also at a shape that cuts its tiles and at
+   windows 0, 4 and 15; times kernel, plain version and the nearest single
+   PyTorch call on the device (CUDA-graph replays between CUDA events),
+   the kernel's eager call through its wrapper, and F with the L2 flushed
+   before each call. F's registers and spills come from the build's
+   ``ptxas`` report; a spill fails the run.
 4. Slice phase, three times: ``ColvoConfig`` at full width (ResNet-18,
    B=12, 256×320, 3 frames, 4 scales, bf16 convs) by default, with
    ``loss.fused_kernel`` and with ``loss.batched_photo``, each from the same
@@ -37,6 +40,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -74,6 +78,12 @@ TOL_FUSED_FWD, TOL_FUSED_BWD_REL = 5e-5, 1e-4
 # opposite sides. Such pixels are compared on no tolerance, and may be at
 # most MAX_TIE_SHARE of all.
 TIE_GAP, MAX_TIE_SHARE = 1e-5, 1e-3
+# F is also held at a shape that cuts every strip, chunk and row range of
+# its grid and puts the image edges inside the windows, from a source of
+# another size, and at each of these windows (0: no LCC; 4: even, lo ≠ hi).
+FUSED_SEAM = ((2, 3, 150, 70), (97, 131))
+FUSED_WINDOWS = (0, 4, LCC_WINDOW)
+FLUSH_BYTES = 64 * 2**20  # more than the H100's 50 MB L2
 TRAIN_STEPS = 6
 # f32 operations of F per output pixel: the tap arithmetic once, and per
 # channel the lerps (6), the four window-L sums taken separably with the
@@ -123,6 +133,13 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         fn()
     graph.replay()
     return _events_ms(graph.replay, iters)
+
+
+def cold_ms(fn, flush: torch.Tensor) -> float:
+    """Device time of one ``fn()`` with a cold L2: CUDA-graph replays of
+    (writing all of ``flush``, ``fn()``) less those of the write alone."""
+    fill = lambda: flush.fill_(1.0)  # noqa: E731
+    return time_ms(lambda: (fill(), fn())) - time_ms(fill)
 
 
 def eager_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -180,6 +197,8 @@ def kernel_phase(device, photo=PHOTO, geo_n=GEO_N, geo_scales=GEO_SCALES, group=
     gen = torch.Generator(device="cpu").manual_seed(0)
     timer = time_ms if timed else (lambda fn, **kw: float("nan"))
     eager = eager_ms if timed else (lambda fn, **kw: float("nan"))
+    flush = torch.empty(FLUSH_BYTES // 4, device=device) if timed else None
+    cold = (lambda fn: cold_ms(fn, flush)) if timed else (lambda fn: float("nan"))
     rows = {}
 
     # Photometric warp: C=3 frames, value + dx + dy (P1) and value only (P2).
@@ -283,7 +302,7 @@ def kernel_phase(device, photo=PHOTO, geo_n=GEO_N, geo_scales=GEO_SCALES, group=
         bound=bound(4 * (3 * gpx + gsrc), 24 * gpx),
     )
     rows.update(grouped_rows(device, gen, photo, group, timer, eager))
-    rows.update(fused_rows(device, gen, photo, timer, eager))
+    rows.update(fused_rows(device, gen, photo, timer, eager, cold))
     torch.backends.cudnn.allow_tf32 = True
     return rows
 
@@ -319,55 +338,106 @@ def grouped_rows(device, gen, photo, group, timer, eager):
     )}
 
 
-def fused_rows(device, gen, photo, timer, eager):
-    """P7, P8: the fused error map and its coordinate cotangent at the
-    per-source photometric shape, against a target that is the source's
-    affine relight plus noise (the LCC fit has something to find)."""
-    b, c, h, w = photo
-    src = torch.rand(photo, generator=gen).to(device)
-    tgt = (0.8 * src + 0.1 + 0.05 * torch.rand(photo, generator=gen).to(device)).clamp(0, 1)
-    x, y = make_coords(b, h, w, 3, device)
+def fused_inputs(gen, shape, src_hw, seed, device):
+    """Frames, coords (scaled to the source's size) and cotangent for F.
+    The target relights the source where the two have one size, so the LCC
+    fit has something to find; else it relights fresh noise."""
+    b, c, h, w = shape
+    src = torch.rand((b, c) + tuple(src_hw), generator=gen).to(device)
+    base = src if tuple(src_hw) == (h, w) else torch.rand(shape, generator=gen).to(device)
+    tgt = (0.8 * base + 0.1 + 0.05 * torch.rand(shape, generator=gen).to(device)).clamp(0, 1)
+    x, y = make_coords(b, h, w, seed, device)
+    x, y = x * (src_hw[1] / w), y * (src_hw[0] / h)
     g = torch.randn((b, h, w), generator=gen).to(device)
     g[:, : h // 8] = 0.0  # zero cotangent where the loss masks pixels
-    args = (src, tgt, x, y)
-    e = fused_loss.err(*args, LCC_WINDOW, ALPHA)
-    err_f = (e - fused_loss.err_plain(*args, LCC_WINDOW, ALPHA)).abs().max().item()
-    gx, gy = fused_loss.err_bwd(*args, g, LCC_WINDOW, ALPHA)
-    pgx, pgy = fused_loss.err_bwd_plain(*args, g, LCC_WINDOW, ALPHA)
+    return (src, tgt, x.contiguous(), y.contiguous()), g
+
+
+def fused_parity(args, g, window):
+    """P7 and P8 against their plain versions: |e| abs, |gx, gy| off the L1
+    sign ties, abs and over max|gx, gy|, and the mask of those ties."""
+    src, tgt, x, y = args
+    e = fused_loss.err(*args, window, ALPHA)
+    err_f = (e - fused_loss.err_plain(*args, window, ALPHA)).abs().max().item()
+    gx, gy = fused_loss.err_bwd(*args, g, window, ALPHA)
+    pgx, pgy = fused_loss.err_bwd_plain(*args, g, window, ALPHA)
     diff = torch.maximum((gx - pgx).abs(), (gy - pgy).abs())
-    scale_b = max(pgx.abs().max().item(), pgy.abs().max().item())
+    scale = max(pgx.abs().max().item(), pgy.abs().max().item())
     t = tgt.permute(0, 2, 3, 1)
-    w_hat = lcc_calibrate(sampler.sample_plain(src, x, y, False)[0].permute(0, 2, 3, 1), t,
-                          "affine", LCC_WINDOW)
+    w_hat = sampler.sample_plain(src, x, y, False)[0].permute(0, 2, 3, 1)
+    if window:
+        w_hat = lcc_calibrate(w_hat, t, "affine", window)
     ties = (w_hat - t).abs().amin(-1) < TIE_GAP
     err_b = diff[~ties].max().item()
-    log(f"F fwd C={c} L={LCC_WINDOW}: |e| {err_f:.3g};  F bwd: |gx,gy| {err_b:.3g}, "
-        f"/ max|gx,gy| {err_b / scale_b:.3g} off the {int(ties.sum())} pixels within "
-        f"{TIE_GAP:g} of an L1 sign change (there {diff[ties].max().item() if ties.any() else 0:.3g})")
-    check(err_f <= TOL_FUSED_FWD and err_b <= TOL_FUSED_BWD_REL * scale_b, "F vs plain")
-    check(ties.float().mean().item() <= MAX_TIE_SHARE, "F bwd: share of L1 sign ties")
     check(bool(torch.isfinite(e).all() and torch.isfinite(gx).all() and torch.isfinite(gy).all()),
           "F finite")
+    return err_f, err_b, err_b / scale, ties
+
+
+def fused_rows(device, gen, photo, timer, eager, cold):
+    """P7, P8: the fused error map and its coordinate cotangent against
+    their plain versions at the per-source photometric shape and at
+    ``FUSED_SEAM``, each at ``FUSED_WINDOWS``; timed at the photometric
+    shape and ``LCC_WINDOW``, with a warm and a cold L2."""
+    b, c, h, w = photo
+    main = fused_inputs(gen, photo, (h, w), 3, device)
+    worst = {"P7": 0.0, "P8": 0.0}
+    for shape, src_hw in ((photo, (h, w)), FUSED_SEAM):
+        args, g = main if shape == photo else fused_inputs(gen, shape, src_hw, 4, device)
+        for window in FUSED_WINDOWS:
+            err_f, err_b, rel_b, ties = fused_parity(args, g, window)
+            log(f"F {tuple(shape)} src {tuple(src_hw)} L={window}: |e| {err_f:.3g};  |gx,gy| "
+                f"{err_b:.3g}, / max|gx,gy| {rel_b:.3g} off the {int(ties.sum())} pixels within "
+                f"{TIE_GAP:g} of an L1 sign change")
+            check(err_f <= TOL_FUSED_FWD and rel_b <= TOL_FUSED_BWD_REL,
+                  f"F vs plain at {tuple(shape)}, L={window}")
+            check(ties.float().mean().item() <= MAX_TIE_SHARE, "F bwd: share of L1 sign ties")
+            worst["P7"], worst["P8"] = max(worst["P7"], err_f), max(worst["P8"], err_b)
+    args, g = main
     px = b * h * w
-    frames = src.numel() + tgt.numel()
-    return {
+    frames = args[0].numel() + args[1].numel()
+    fwd = lambda: fused_loss.err(*args, LCC_WINDOW, ALPHA)  # noqa: E731
+    bwd = lambda: fused_loss.err_bwd(*args, g, LCC_WINDOW, ALPHA)  # noqa: E731
+    rows = {
         "P7": dict(
-            max_abs_err=err_f,
-            ms=timer(lambda: fused_loss.err(*args, LCC_WINDOW, ALPHA)),
-            eager_ms=eager(lambda: fused_loss.err(*args, LCC_WINDOW, ALPHA)),
+            max_abs_err=worst["P7"],
+            ms=timer(fwd),
+            cold_ms=cold(fwd),
+            eager_ms=eager(fwd),
             plain_ms=timer(lambda: fused_loss.err_plain(*args, LCC_WINDOW, ALPHA)),
             library_ms=None,
             bound=bound(4 * (frames + 3 * px), px * (F_TAP_OPS + F_FWD_OPS * c)),
         ),
         "P8": dict(
-            max_abs_err=err_b,
-            ms=timer(lambda: fused_loss.err_bwd(*args, g, LCC_WINDOW, ALPHA)),
-            eager_ms=eager(lambda: fused_loss.err_bwd(*args, g, LCC_WINDOW, ALPHA)),
+            max_abs_err=worst["P8"],
+            ms=timer(bwd),
+            cold_ms=cold(bwd),
+            eager_ms=eager(bwd),
             plain_ms=timer(lambda: fused_loss.err_bwd_plain(*args, g, LCC_WINDOW, ALPHA)),
             library_ms=None,
             bound=bound(4 * (frames + 5 * px), px * (F_TAP_OPS + F_BWD_OPS * c)),
         ),
     }
+    log(f"F with the L2 flushed before each call: P7 {rows['P7']['cold_ms']:.4f} ms (warm "
+        f"{rows['P7']['ms']:.4f}), P8 {rows['P8']['cold_ms']:.4f} ms (warm {rows['P8']['ms']:.4f})")
+    return rows
+
+
+def fused_ptxas() -> None:
+    """Logs F's registers from the build's ``ptxas -v`` report, and fails
+    if any of its kernels spills."""
+    report = build.ptxas_report("fused_loss")
+    entries = re.findall(r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, "
+                         r"(\d+) bytes spill loads.*?Used (\d+) registers", report, re.S)
+    check(len(entries) >= 2, f"ptxas report of F lists its kernels:\n{report}")
+    regs = {}
+    for name, stores, loads, n_regs in entries:
+        kind = "fwd" if "fwd" in name else "bwd"
+        nc = re.search(r"kernelILi(\d+)E", name)
+        regs[f"{kind} C={nc.group(1) if nc else '?'}"] = int(n_regs)
+        check(int(stores) == 0 and int(loads) == 0, f"F kernel {name} spills")
+    log(f"F kernels (ptxas -v, sm_90a; C=0: channels counted at run time): "
+        + ", ".join(f"{k} {v} registers" for k, v in sorted(regs.items())) + "; no spills")
 
 
 def make_batches(cfg: ColvoConfig, device, n: int = TRAIN_STEPS + 1, n_frames: int = 24):
@@ -573,6 +643,7 @@ def main() -> int:
     t0 = time.time()
     build.build_all()
     log(f"built kernels {build.SOURCES} in {time.time() - t0:.1f} s")
+    fused_ptxas()
 
     rows = kernel_phase(device)
     batches = make_batches(ColvoConfig(), device)
@@ -603,7 +674,8 @@ def main() -> int:
     for key, name, src, replaces, counter in KERNELS:
         r = rows[key]
         bound_ms, bound_by = r["bound"]
-        log(f"{name}: {r['ms']:.4f} ms on the device (CUDA graph), {r['eager_ms']:.4f} ms "
+        cold = f", {r['cold_ms']:.4f} ms with a cold L2" if "cold_ms" in r else ""
+        log(f"{name}: {r['ms']:.4f} ms on the device (CUDA graph){cold}, {r['eager_ms']:.4f} ms "
             f"eager through the wrapper; plain {r['plain_ms']:.4f} ms; bound {bound_ms:.4f} ms")
         table.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,

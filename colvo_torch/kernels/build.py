@@ -3,7 +3,8 @@
 Each source compiles with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, loaded through ``ctypes``; the build is
 cached under ``_build/`` (git-ignored) by a hash of the sources and flags,
-so the first use on a machine builds and later uses load. Nothing here
+so the first use on a machine builds and later uses load. ``ptxas``'s
+report of each kernel's registers and spills is kept beside the library. Nothing here
 runs at import time: this module is imported on machines without CUDA.
 """
 
@@ -24,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("sampler", "scatter", "fused_loss")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -65,6 +66,7 @@ def _finish(name: str, proc: subprocess.Popen, tmp: str, out: Path) -> None:
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed to build {name}.cu:\n{log}")
+    out.with_suffix(".ptxas").write_text(log)
     os.replace(tmp, out)
 
 
@@ -80,6 +82,12 @@ def build_all(names: Iterable[str] = SOURCES) -> None:
                 errors.append(str(e))
         if errors:
             raise RuntimeError("\n".join(errors))
+
+
+def ptxas_report(name: str) -> str:
+    """``ptxas -v``'s report from the build of ``csrc/<name>.cu``."""
+    build_all([name])
+    return _target(name).with_suffix(".ptxas").read_text()
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -127,13 +127,15 @@ def _fused_inputs(device, c, seed, h=36, w=50):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("c", [1, 3])
-@pytest.mark.parametrize("window", [0, 15, 31])
-def test_fused_loss_matches_plain_versions(device, c, window):
+@pytest.mark.parametrize("window", [0, 4, 15, 31])
+@pytest.mark.parametrize("hw", [(36, 50), (150, 70)])
+def test_fused_loss_matches_plain_versions(device, c, window, hw):
     """P7 e ≤1e-4 abs and P8 gx, gy ≤1e-3 of max|plain| against the plain
-    versions, at a size that is no multiple of the 16×32 tile (the window
-    sums add in another order; E[w²]−μ² cancels under 1/(var+1e-4)).
-    Window 31 needs more than 48 KB of shared memory in the backward."""
-    src, tgt, x, y, g = _fused_inputs(device, c, 20 + c)
+    versions (the window sums add in another order; E[w²]−μ² cancels under
+    1/(var+1e-4)). Neither size is a multiple of the kernels' strips and
+    row chunks, and 150 rows split into several row ranges; window 4 has
+    lo ≠ hi, and window 31 is wider than the 36-row image."""
+    src, tgt, x, y, g = _fused_inputs(device, c, 20 + c, *hw)
     e = fused_loss.err(src, tgt, x, y, window, 0.85)
     torch.testing.assert_close(e, fused_loss.err_plain(src, tgt, x, y, window, 0.85),
                                atol=1e-4, rtol=0)

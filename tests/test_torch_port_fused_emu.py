@@ -1,0 +1,182 @@
+"""Kernel F's CUDA source (``csrc/fused_loss.cu``) on the CPU.
+
+The source is compiled with the host's C++ compiler against a small shim
+of the CUDA features it uses: one ``std::thread`` per CUDA thread of a
+block, ``std::barrier`` for ``__syncthreads``, a buffer per block for its
+dynamic shared memory, and plain copies for ``cp.async``. The blocks of a
+grid run one after another. That executes the kernels' own indexing,
+rings, walks and edge handling, which the plain versions do not, against
+those plain versions, at shapes that cut the strips, chunks and row
+ranges and at windows that take every branch. The shim reports 4 SMs, so
+a frame splits into several row ranges. Float arithmetic differs from the
+card's (no fused multiply-adds, exact divisions), so the card's own check
+stays ``chip_smoke.py``; the tolerances are the same.
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from colvo_torch.kernels import build, fused_loss
+from colvo_torch.kernels.sampler import sample_plain
+from colvo_torch.losses.photometric import lcc_calibrate
+
+SHIM = r"""
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <cstdint>
+#include <thread>
+#include <vector>
+using std::max;
+using std::min;
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(n)
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct Index { unsigned x = 0, y = 0, z = 0; };
+inline thread_local Index threadIdx, blockIdx;
+inline thread_local std::barrier<>* block_barrier = nullptr;
+inline thread_local float* block_smem = nullptr;
+typedef void* cudaStream_t;
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaDevAttrMaxSharedMemoryPerBlockOptin, cudaDevAttrMultiProcessorCount };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize };
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* v, int attr, int) {
+  *v = attr == cudaDevAttrMaxSharedMemoryPerBlockOptin ? 232448 : 4;
+  return 0;
+}
+template <class K> int cudaFuncSetAttribute(K, int, int) { return 0; }
+template <class K> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
+  *n = 2;
+  return 0;
+}
+inline int cudaGetLastError() { return 0; }
+template <class T> T __ldg(const T* p) { return *p; }
+inline unsigned __umulhi(unsigned a, unsigned b) {
+  return static_cast<unsigned>((static_cast<unsigned long long>(a) * b) >> 32);
+}
+inline float __fdividef(float a, float b) { return a / b; }
+inline void __syncthreads() { block_barrier->arrive_and_wait(); }
+template <class K, class P>
+void shim_launch(K kernel, dim3 grid, int threads, size_t bytes, P p) {
+  for (unsigned z = 0; z < grid.z; ++z)
+    for (unsigned y = 0; y < grid.y; ++y)
+      for (unsigned x = 0; x < grid.x; ++x) {
+        std::vector<float> smem(bytes / sizeof(float), std::nanf(""));
+        std::barrier<> bar(threads);
+        std::vector<std::thread> pool;
+        for (int t = 0; t < threads; ++t)
+          pool.emplace_back([&, t] {
+            threadIdx.x = t;
+            blockIdx.x = x;
+            blockIdx.y = y;
+            blockIdx.z = z;
+            block_barrier = &bar;
+            block_smem = smem.data();
+            kernel(p);
+          });
+        for (auto& th : pool) th.join();
+      }
+}
+"""
+
+CP_ASYNC = r"""
+#pragma once
+inline void cp_async_f32(float* dst, const float* src, bool in) { *dst = in ? *src : 0.0f; }
+inline void cp_async_commit() {}
+inline void cp_async_wait_all() {}
+"""
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a C++20 compiler")
+    d = tmp_path_factory.mktemp("fused_emu")
+    (d / "cuda_runtime.h").write_text(SHIM)
+    (d / "cp_async.cuh").write_text(CP_ASYNC)
+    src = (build.CSRC / "fused_loss.cu").read_text()
+    src = src.replace("extern __shared__ float smem[];", "float* smem = block_smem;")
+    src, n_launch = re.subn(r"(\w+)<<<([^,]+),\s*([^,]+),\s*([^,]+),\s*[^>]+>>>\((\w+)\);",
+                            r"shim_launch(\1, \2, \3, \4, \5);", src)
+    assert n_launch == 1 and "block_smem" in src
+    (d / "fused_loss.cpp").write_text(src)
+    out = d / "fused_loss.so"
+    run = subprocess.run([cxx, "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC", "-w",
+                          f"-I{d}", f"-I{build.CSRC}", "-o", str(out), str(d / "fused_loss.cpp")],
+                         capture_output=True, text=True)
+    assert run.returncode == 0, run.stderr[-4000:]
+    lib = ctypes.CDLL(str(out))
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.colvo_fused_err_fwd.argtypes = [p, ll, p, ll, p, p, p, i, i, i, i, i, i, i, f, p]
+    lib.colvo_fused_err_bwd.argtypes = [p, ll, p, ll, p, p, p, p, p, i, i, i, i, i, i, i, f, p]
+    return lib
+
+
+def _inputs(n, c, h, w, hs, ws, seed):
+    """A source one frame longer than used (a batch stride that is not the
+    frame's size), a relit target, near-identity coords scaled to the
+    source with noise, out-of-bounds and ±1e20 coords."""
+    rng = np.random.default_rng(seed)
+    src = torch.tensor(rng.random((n + 1, c, hs, ws), dtype=np.float32))[1:]
+    tgt = torch.tensor(0.8 * rng.random((n, c, h, w), dtype=np.float32) + 0.1)
+    gy, gx = np.meshgrid(np.arange(h, dtype=np.float32), np.arange(w, dtype=np.float32),
+                         indexing="ij")
+    x = gx[None] * (ws / w) + rng.normal(0, 3.0, (n, h, w)).astype(np.float32)
+    y = gy[None] * (hs / h) + rng.normal(0, 3.0, (n, h, w)).astype(np.float32)
+    x[0, 1, 3], x[0, 2, 5], y[0, 3, 2] = 1e20, -1e20, 1e20
+    g = torch.tensor(rng.normal(size=(n, h, w)).astype(np.float32))
+    g[:, :2] = 0.0
+    return src, tgt, torch.tensor(x), torch.tensor(y), g
+
+
+@pytest.mark.parametrize("n,c,h,w,hs,ws,window", [
+    (2, 3, 36, 50, 40, 56, 15),   # the main window; 36 rows split into row ranges
+    (1, 3, 150, 70, 97, 131, 4),  # even window (lo ≠ hi), several strips and ranges
+    (1, 1, 30, 20, 25, 33, 31),   # a window wider than the image
+    (1, 5, 20, 30, 22, 33, 0),    # no LCC; a channel count compiled at run time
+    (2, 2, 9, 7, 12, 10, 3),      # an image smaller than a chunk and a strip
+])
+def test_fused_kernel_source_matches_plain_versions(lib, n, c, h, w, hs, ws, window):
+    """e ≤5e-5 abs; gx, gy ≤1e-4 of max off the pixels within 1e-5 of an
+    L1 sign change, which may be ≤0.1 % of all (the card's tolerances,
+    chip_smoke.py)."""
+    torch.set_num_threads(2)
+    src, tgt, x, y, g = _inputs(n, c, h, w, hs, ws, 40 + window)
+    e = torch.full((n, h, w), float("nan"))
+    gx, gy = torch.full_like(e, float("nan")), torch.full_like(e, float("nan"))
+    frames = (src.data_ptr(), src.stride(0), tgt.data_ptr(), tgt.stride(0), x.data_ptr(),
+              y.data_ptr())
+    assert lib.colvo_fused_err_fwd(*frames, e.data_ptr(), n, c, hs, ws, h, w, window, 0.85,
+                                   None) == 0
+    assert lib.colvo_fused_err_bwd(*frames, g.data_ptr(), gx.data_ptr(), gy.data_ptr(), n, c,
+                                   hs, ws, h, w, window, 0.85, None) == 0
+    torch.testing.assert_close(e, fused_loss.err_plain(src, tgt, x, y, window, 0.85),
+                               atol=5e-5, rtol=0)
+    pgx, pgy = fused_loss.err_bwd_plain(src, tgt, x, y, g, window, 0.85)
+    t = tgt.permute(0, 2, 3, 1)
+    w_hat = sample_plain(src, x, y, False)[0].permute(0, 2, 3, 1)
+    if window:
+        w_hat = lcc_calibrate(w_hat, t, "affine", window)
+    ties = (w_hat - t).abs().amin(-1) < 1e-5
+    assert ties.float().mean().item() <= 1e-3
+    scale = max(pgx.abs().max().item(), pgy.abs().max().item())
+    for got, want in ((gx, pgx), (gy, pgy)):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got[~ties], want[~ties], atol=1e-4 * scale, rtol=0)
