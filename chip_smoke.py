@@ -7,15 +7,17 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
    per source, in parallel).
 3. Kernel phase: at the training paths' shapes, holds kernel S (bilinear
    sampler, with and without d/dx, d/dy; C=3 photometric, C=1 at the four
-   geo scales, and grouped: 4 coordinate fields per source frame), kernel
-   T (source-cotangent scatter) and kernel F (fused warp+LCC+SSIM+L1
+   geo scales in one multi-plane-set launch, also at an odd width and
+   under a wild warp, and grouped: 4 coordinate fields per source frame),
+   kernel T (source-cotangent scatter, one launch for the four geo scales,
+   also at an odd width and under a wild warp) and kernel F (fused warp+LCC+SSIM+L1
    error, forward and coordinate backward) against their plain PyTorch
    versions on the card, F also at a shape that cuts its tiles and at
    windows 0, 4 and 15; times kernel, plain version and the nearest single
    PyTorch call on the device (CUDA-graph replays between CUDA events),
    the kernel's eager call through its wrapper, and F with the L2 flushed
-   before each call. F's registers and spills come from the build's
-   ``ptxas`` report; a spill fails the run.
+   before each call. Every kernel's registers and spills come from the
+   build's ``ptxas`` report; a spill fails the run.
 4. Slice phase, three times: ``ColvoConfig`` at full width (ResNet-18,
    B=12, 256×320, 3 frames, 4 scales, bf16 convs) by default, with
    ``loss.fused_kernel`` and with ``loss.batched_photo``, each from the same
@@ -68,6 +70,8 @@ PEAK_F32_FLOPS = 67e12
 PHOTO = (12, 3, 256, 320)  # B, C, H, W of the photometric warp
 GEO_N = 24  # S·B depth planes of the stacked geo warp
 GEO_SCALES = ((256, 320), (128, 160), (64, 80), (32, 40))
+GEO_ODD = (37, 53)  # a geo plane shape whose width takes S's one-pixel-a-thread path
+GEO_REPS = 10  # calls a CUDA graph in the per-scale times of the geo kernels
 GROUP = 4  # coordinate fields per source frame of the grouped sampler (n_scales)
 LCC_WINDOW, ALPHA = 15, 0.85
 TOL_VALUE, TOL_GRAD, TOL_SCATTER_REL = 1e-5, 1e-4, 1e-4
@@ -118,10 +122,11 @@ def _events_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 1) -> float:
     """Device time of one ``fn()``: warmed up on a side stream, captured
-    into a CUDA graph and replayed ``iters`` times between CUDA events, so
-    Python dispatch stays out of the clock."""
+    ``reps`` times into a CUDA graph and replayed ``iters`` times between
+    CUDA events, so Python dispatch stays out of the clock. With ``reps`` >
+    1 the host's rate of replays cannot set the time of a short call."""
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
@@ -130,9 +135,10 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda.current_stream().wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
+        for _ in range(reps):
+            fn()
     graph.replay()
-    return _events_ms(graph.replay, iters)
+    return _events_ms(graph.replay, iters) / reps
 
 
 def cold_ms(fn, flush: torch.Tensor) -> float:
@@ -233,78 +239,129 @@ def kernel_phase(device, photo=PHOTO, geo_n=GEO_N, geo_scales=GEO_SCALES, group=
         bound=bound(4 * (src.numel() + 2 * px + px * c), px * (12 + 6 * c)),
     )
 
-    # Geo warp: C=1 depth planes at the four scales (P3, P4), scatter (P5).
+    rows.update(geo_rows(device, gen, geo_n, geo_scales, timer, eager))
+    rows.update(grouped_rows(device, gen, photo, group, timer, eager))
+    rows.update(fused_rows(device, gen, photo, timer, eager, cold))
+    torch.backends.cudnn.allow_tf32 = True
+    return rows
+
+
+def geo_parity(ds, xs, ys, gs):
+    """The multi-plane-set S (grad and value) and T against their plain
+    versions over the plane sets ``ds``; returns the P3, P4 and P5 errors
+    and T's error over max|d_src|."""
+    got = sampler.sample_multi(ds, xs, ys, True)
+    want = sampler.sample_multi_plain(ds, xs, ys, True)
+    value = sampler.sample_multi(ds, xs, ys, False)
+    hws = [tuple(d.shape[2:]) for d in ds]
+    d_src = scatter.scatter_multi(xs, ys, gs, hws)
+    p_src = scatter.scatter_multi_plain(xs, ys, gs, hws)
+    err = {"P3": 0.0, "P4": 0.0, "P5": 0.0, "P5_rel": 0.0}
+    for (o, ddx, ddy), (po, pdx, pdy), (vo, _, _), ds_, ps in zip(got, want, value, d_src, p_src):
+        err_v = (o - po).abs().max().item()
+        err_g = max((ddx - pdx).abs().max().item(), (ddy - pdy).abs().max().item())
+        check(err_v <= TOL_VALUE, "S geo value vs plain")
+        check(err_g <= TOL_GRAD, "S geo d/dx, d/dy vs plain")
+        check(bool(torch.isfinite(o).all() and torch.isfinite(ddx).all()), "S geo finite")
+        check(bool(torch.isfinite(ds_).all()), "T finite")
+        e5 = (ds_ - ps).abs().max().item()
+        err["P3"] = max(err["P3"], err_v, err_g)
+        err["P4"] = max(err["P4"], (vo - po).abs().max().item())
+        err["P5"] = max(err["P5"], e5)
+        err["P5_rel"] = max(err["P5_rel"], e5 / ps.abs().max().item())
+    check(err["P4"] <= TOL_VALUE and err["P5_rel"] <= TOL_SCATTER_REL,
+          "S geo value-only, T vs plain")
+    return err
+
+
+def geo_rows(device, gen, geo_n, geo_scales, timer, eager):
+    """P3, P4, P5: the geo warp's C=1 depth planes at the four scales, each
+    kernel one multi-plane-set launch for all of them, against the plain
+    versions; also at ``GEO_ODD`` (the scalar path of S) and under a wild
+    warp at the two largest scales (no two of T's terms join). Timed as the
+    one launch, with the single-scale calls' times logged beside it."""
     geo = []
     for i, (gh, gw) in enumerate(geo_scales):
         d = (0.01 + torch.rand((geo_n, 1, gh, gw), generator=gen)).to(device)
         gx, gy = make_coords(geo_n, gh, gw, 10 + i, device)
         g = torch.randn((geo_n, 1, gh, gw), generator=gen).to(device)
         g[:, :, : gh // 8] = 0.0  # zero cotangent where the loss masks pixels
-        geo.append((d, gx, gy, g, _norm_grid(gx, gy, gh, gw)))
-    errs = {"P3": 0.0, "P4": 0.0, "P5": 0.0}
-    scatter_rel = 0.0
-    for d, gx, gy, g, _ in geo:
-        o, ddx, ddy = sampler.sample(d, gx, gy, True)
-        po, pdx, pdy = sampler.sample_plain(d, gx, gy, True)
-        errs["P3"] = max(errs["P3"], (o - po).abs().max().item(),
-                         (ddx - pdx).abs().max().item(), (ddy - pdy).abs().max().item())
-        check((o - po).abs().max().item() <= TOL_VALUE, "S geo value vs plain")
-        check(max((ddx - pdx).abs().max().item(), (ddy - pdy).abs().max().item()) <= TOL_GRAD,
-              "S geo d/dx, d/dy vs plain")
-        vo = sampler.sample(d, gx, gy, False)[0]
-        errs["P4"] = max(errs["P4"], (vo - po).abs().max().item())
-        ds = scatter.scatter(gx, gy, g, *d.shape[2:])
-        pds = scatter.scatter_plain(gx, gy, g, *d.shape[2:])
-        err = (ds - pds).abs().max().item()
-        errs["P5"] = max(errs["P5"], err)
-        scatter_rel = max(scatter_rel, err / pds.abs().max().item())
-        check(bool(torch.isfinite(ds).all()), "T finite")
-    log(f"S geo C=1 x{len(geo)} scales: |value,dx,dy| {errs['P3']:.3g}  "
-        f"|value-only| {errs['P4']:.3g};  T: |d_src| {errs['P5']:.3g}, "
-        f"/ max|d_src| {scatter_rel:.3g}")
-    check(errs["P4"] <= TOL_VALUE and scatter_rel <= TOL_SCATTER_REL, "S geo value-only, T vs plain")
+        geo.append((d, gx, gy, g))
+    ds, xs, ys, gs = (list(t) for t in zip(*geo))
+    hws = [tuple(d.shape[2:]) for d in ds]
+    err = geo_parity(ds, xs, ys, gs)
+    log(f"S geo C=1, {len(geo)} scales in one launch: |value,dx,dy| {err['P3']:.3g}  "
+        f"|value-only| {err['P4']:.3g};  T: |d_src| {err['P5']:.3g}, "
+        f"/ max|d_src| {err['P5_rel']:.3g}")
 
-    def all_scales(fn):
-        return lambda: [fn(*t) for t in geo]
+    # The scalar path of S (an odd width) and a warp under which T joins
+    # nothing (coords uniform over the image), in one launch each way.
+    edge = []
+    oh, ow = GEO_ODD
+    d = (0.01 + torch.rand((geo_n, 1, oh, ow), generator=gen)).to(device)
+    edge.append((d, *make_coords(geo_n, oh, ow, 20, device)))
+    for gh, gw in geo_scales[:2]:
+        d = (0.01 + torch.rand((geo_n, 1, gh, gw), generator=gen)).to(device)
+        wx = (torch.rand((geo_n, gh, gw), generator=gen) * (gw + 2) - 1).to(device)
+        wy = (torch.rand((geo_n, gh, gw), generator=gen) * (gh + 2) - 1).to(device)
+        edge.append((d, wx, wy))
+    e_ds, e_xs, e_ys = (list(t) for t in zip(*edge))
+    e_gs = [torch.randn(d.shape, generator=gen).to(device) for d in e_ds]
+    e_err = geo_parity(e_ds, e_xs, e_ys, e_gs)
+    log(f"S geo C=1 at {oh}x{ow} and a wild warp at {geo_scales[0]}, {geo_scales[1]}: "
+        f"|value,dx,dy| {e_err['P3']:.3g}  |value-only| {e_err['P4']:.3g};  T: |d_src| "
+        f"{e_err['P5']:.3g}, / max|d_src| {e_err['P5_rel']:.3g}")
+    for k in ("P3", "P4", "P5"):
+        err[k] = max(err[k], e_err[k])
 
-    geo_s_grad = all_scales(lambda d, gx, gy, g, gr: sampler.sample(d, gx, gy, True))
-    geo_s_value = all_scales(lambda d, gx, gy, g, gr: sampler.sample(d, gx, gy, False))
-    geo_t = all_scales(lambda d, gx, gy, g, gr: scatter.scatter(gx, gy, g, *d.shape[2:]))
-
-    gpx = sum(t[1].numel() for t in geo)
-    gsrc = sum(t[0].numel() for t in geo)
-    rows["P3"] = dict(
-        max_abs_err=errs["P3"],
-        ms=timer(geo_s_grad),
-        eager_ms=eager(geo_s_grad),
-        plain_ms=timer(all_scales(lambda d, gx, gy, g, gr: sampler.sample_plain(d, gx, gy, True))),
-        library_ms=None,
-        bound=bound(4 * (gsrc + 5 * gpx), 23 * gpx),
-    )
-    rows["P4"] = dict(
-        max_abs_err=errs["P4"],
-        ms=timer(geo_s_value),
-        eager_ms=eager(geo_s_value),
-        plain_ms=timer(all_scales(lambda d, gx, gy, g, gr: sampler.sample_plain(d, gx, gy, False))),
-        library_ms=timer(all_scales(
-            lambda d, gx, gy, g, gr: F.grid_sample(d, gr, "bilinear", "border", True))),
-        bound=bound(4 * (gsrc + 3 * gpx), 18 * gpx),
-    )
-    rows["P5"] = dict(
-        max_abs_err=errs["P5"],
-        ms=timer(geo_t),
-        eager_ms=eager(geo_t),
-        plain_ms=timer(all_scales(
-            lambda d, gx, gy, g, gr: scatter.scatter_plain(gx, gy, g, *d.shape[2:]))),
-        library_ms=timer(all_scales(
-            lambda d, gx, gy, g, gr: torch.ops.aten.grid_sampler_2d_backward(
-                g, d, gr, 0, 1, True, [True, False]))),
-        bound=bound(4 * (3 * gpx + gsrc), 24 * gpx),
-    )
-    rows.update(grouped_rows(device, gen, photo, group, timer, eager))
-    rows.update(fused_rows(device, gen, photo, timer, eager, cold))
-    torch.backends.cudnn.allow_tf32 = True
-    return rows
+    s_grad = lambda: sampler.sample_multi(ds, xs, ys, True)  # noqa: E731
+    s_value = lambda: sampler.sample_multi(ds, xs, ys, False)  # noqa: E731
+    t_all = lambda: scatter.scatter_multi(xs, ys, gs, hws)  # noqa: E731
+    if timer is time_ms:
+        # GEO_REPS calls a graph, so that the host's replay rate does not
+        # set the time of the short single-scale calls
+        rep = lambda fn: time_ms(fn, reps=GEO_REPS)  # noqa: E731
+        per = []
+        for d, gx, gy, g in geo:
+            per.append((rep(lambda: sampler.sample(d, gx, gy, True)),
+                        rep(lambda: sampler.sample(d, gx, gy, False)),
+                        rep(lambda: scatter.scatter(gx, gy, g, *d.shape[2:]))))
+        log(f"geo kernels, {GEO_REPS} calls a CUDA graph (ms a call; S grad / S value / T): "
+            "one scale a call " + ", ".join(
+                f"{h}x{w} {a:.4f}/{b:.4f}/{c:.4f}" for (h, w), (a, b, c) in zip(hws, per))
+            + "; their sum " + "/".join(f"{sum(t):.4f}" for t in zip(*per))
+            + f"; all scales in one call {rep(s_grad):.4f}/{rep(s_value):.4f}/{rep(t_all):.4f}")
+    gpx = sum(x.numel() for x in xs)
+    gsrc = sum(d.numel() for d in ds)
+    grids = [_norm_grid(gx, gy, *d.shape[2:]) for d, gx, gy, _ in geo]
+    return {
+        "P3": dict(
+            max_abs_err=err["P3"],
+            ms=timer(s_grad),
+            eager_ms=eager(s_grad),
+            plain_ms=timer(lambda: sampler.sample_multi_plain(ds, xs, ys, True)),
+            library_ms=None,
+            bound=bound(4 * (gsrc + 5 * gpx), 23 * gpx),
+        ),
+        "P4": dict(
+            max_abs_err=err["P4"],
+            ms=timer(s_value),
+            eager_ms=eager(s_value),
+            plain_ms=timer(lambda: sampler.sample_multi_plain(ds, xs, ys, False)),
+            library_ms=timer(lambda: [F.grid_sample(d, gr, "bilinear", "border", True)
+                                      for d, gr in zip(ds, grids)]),
+            bound=bound(4 * (gsrc + 3 * gpx), 18 * gpx),
+        ),
+        "P5": dict(
+            max_abs_err=err["P5"],
+            ms=timer(t_all),
+            eager_ms=eager(t_all),
+            plain_ms=timer(lambda: scatter.scatter_multi_plain(xs, ys, gs, hws)),
+            library_ms=timer(lambda: [torch.ops.aten.grid_sampler_2d_backward(
+                g, d, gr, 0, 1, True, [True, False]) for d, g, gr in zip(ds, gs, grids)]),
+            bound=bound(4 * (3 * gpx + gsrc), 24 * gpx),
+        ),
+    }
 
 
 def grouped_rows(device, gen, photo, group, timer, eager):
@@ -423,21 +480,28 @@ def fused_rows(device, gen, photo, timer, eager, cold):
     return rows
 
 
-def fused_ptxas() -> None:
-    """Logs F's registers from the build's ``ptxas -v`` report, and fails
-    if any of its kernels spills."""
-    report = build.ptxas_report("fused_loss")
-    entries = re.findall(r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, "
-                         r"(\d+) bytes spill loads.*?Used (\d+) registers", report, re.S)
-    check(len(entries) >= 2, f"ptxas report of F lists its kernels:\n{report}")
-    regs = {}
-    for name, stores, loads, n_regs in entries:
-        kind = "fwd" if "fwd" in name else "bwd"
-        nc = re.search(r"kernelILi(\d+)E", name)
-        regs[f"{kind} C={nc.group(1) if nc else '?'}"] = int(n_regs)
-        check(int(stores) == 0 and int(loads) == 0, f"F kernel {name} spills")
-    log(f"F kernels (ptxas -v, sm_90a; C=0: channels counted at run time): "
-        + ", ".join(f"{k} {v} registers" for k, v in sorted(regs.items())) + "; no spills")
+def kernel_ptxas() -> None:
+    """Logs every kernel's registers and stack frame from the builds'
+    ``ptxas -v`` reports, and fails if any kernel spills. A stack frame
+    in a multi-plane-set kernel would mean its descriptor table is copied
+    to local memory, not read where it was passed."""
+    for source in build.SOURCES:
+        report = build.ptxas_report(source)
+        entries = re.findall(r"Compiling entry function '(\w+)'.*?(\d+) bytes stack frame, "
+                             r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
+                             r"Used (\d+) registers", report, re.S)
+        check(len(entries) >= {"sampler": 4, "scatter": 1}.get(source, 2),
+              f"ptxas report of {source}.cu lists its kernels:\n{report}")
+        regs = {}
+        for name, stack, stores, loads, n_regs in entries:
+            kind = re.search(r"\d+([a-z_]+)_kernel", name)  # the identifier in the mangled name
+            nc = re.search(r"_kernelILi(\d+)E|_kernelILb(\d)E", name)
+            tag = (kind.group(1) if kind else name[:24]) + (
+                f" <{nc.group(1) or nc.group(2)}>" if nc else "")
+            regs[tag] = f"{n_regs} registers" + (f", {stack} B stack" if int(stack) else "")
+            check(int(stores) == 0 and int(loads) == 0, f"kernel {name} spills")
+        log(f"{source}.cu kernels (ptxas -v, sm_90a): "
+            + ", ".join(f"{k} {v}" for k, v in sorted(regs.items())) + "; no spills")
 
 
 def make_batches(cfg: ColvoConfig, device, n: int = TRAIN_STEPS + 1, n_frames: int = 24):
@@ -454,11 +518,10 @@ def make_batches(cfg: ColvoConfig, device, n: int = TRAIN_STEPS + 1, n_frames: i
 def expected_launches(cfg: ColvoConfig, n_steps: int) -> dict:
     """The kernel launches of ``n_steps`` train steps and one held-out
     no-grad loss: per step, one photometric error per (scale, source) and
-    one geo warp per scale."""
+    one geo warp for all scales (one S launch, and one T in the backward)."""
     n_scales, n_sources = cfg.model.n_scales, len(cfg.data.frame_offsets)
     pairs = n_scales * n_sources
-    counts = {"S/grad/C1": n_scales * n_steps, "T/C1": n_scales * n_steps,
-              "S/value/C1": n_scales}
+    counts = {"S/grad/C1": n_steps, "T/C1": n_steps, "S/value/C1": 1}
     if cfg.loss.fused_kernel:
         counts.update({"F/fwd/C3": pairs * (n_steps + 1), "F/bwd/C3": pairs * n_steps})
     elif cfg.loss.batched_photo:
@@ -476,7 +539,9 @@ def slice_phase(cfg: ColvoConfig, device, batches, n_steps: int = TRAIN_STEPS):
 
     # Step 1's loss, recomputed with the plain kernels on the same weights.
     with torch.no_grad(), mock.patch.object(sampler, "sample", sampler.sample_plain), \
+            mock.patch.object(sampler, "sample_multi", sampler.sample_multi_plain), \
             mock.patch.object(scatter, "scatter", scatter.scatter_plain), \
+            mock.patch.object(scatter, "scatter_multi", scatter.scatter_multi_plain), \
             mock.patch.object(fused_loss, "err", fused_loss.err_plain), \
             mock.patch.object(fused_loss, "err_bwd", fused_loss.err_bwd_plain):
         _, ref_aux = loss_fn(state.model, batches[0], cfg)
@@ -608,11 +673,11 @@ KERNELS = (
      "colvo/kernels/sampler.py:658", "S/grad/C3"),
     ("P2", "bilinear_sample[value,C=3]", "colvo_torch/kernels/csrc/sampler.cu",
      "colvo/kernels/sampler.py:664", "S/value/C3"),
-    ("P3", "bilinear_sample[grad,C=1,4 scales]", "colvo_torch/kernels/csrc/sampler.cu",
+    ("P3", "bilinear_sample_multi[grad,C=1,4 scales]", "colvo_torch/kernels/csrc/sampler.cu",
      "colvo/kernels/sampler.py:700", "S/grad/C1"),
-    ("P4", "bilinear_sample[value,C=1,4 scales]", "colvo_torch/kernels/csrc/sampler.cu",
+    ("P4", "bilinear_sample_multi[value,C=1,4 scales]", "colvo_torch/kernels/csrc/sampler.cu",
      "colvo/kernels/sampler.py:706", "S/value/C1"),
-    ("P5", "bilinear_scatter[C=1,4 scales]", "colvo_torch/kernels/csrc/scatter.cu",
+    ("P5", "bilinear_scatter_multi[C=1,4 scales]", "colvo_torch/kernels/csrc/scatter.cu",
      "colvo/kernels/scatter.py:217", "T/C1"),
     ("P6", "bilinear_sample[grad,C=3,group=4]", "colvo_torch/kernels/csrc/sampler.cu",
      "colvo/kernels/sampler.py:658", "S/grad/C3/g4"),
@@ -643,7 +708,7 @@ def main() -> int:
     t0 = time.time()
     build.build_all()
     log(f"built kernels {build.SOURCES} in {time.time() - t0:.1f} s")
-    fused_ptxas()
+    kernel_ptxas()
 
     rows = kernel_phase(device)
     batches = make_batches(ColvoConfig(), device)

@@ -7,9 +7,12 @@ error of the training loss, as in ``colvo/kernels/__init__.py``:
 * ``bilinear_sample_grouped_planes`` — the same for ``group`` coordinate
   fields per source frame in one launch of S (the grouped sampler, for
   ``loss.batched_photo``): plane ``i`` samples source ``i // group``.
-* ``bilinear_sample_full`` — gradients to the coordinates and the source
-  (the geometric-consistency depth warp): forward is S with d/dx, d/dy,
-  backward the same channel sums plus the source cotangent by kernel T.
+* ``bilinear_sample_full_multi`` — gradients to the coordinates and the
+  sources of several plane sets at once (the geometric-consistency depth
+  warp at every geo scale of a step): forward is one launch of S with
+  d/dx, d/dy, backward the same channel sums plus the source cotangents
+  by one launch of kernel T. ``bilinear_sample_full`` is its one-scale
+  call.
 * ``warp_photometric`` — the per-pixel warp + LCC + SSIM + L1 error of
   one source frame (``loss.fused_kernel``): kernel F's forward, and its
   backward for the coordinate cotangent, where LCC is affine or off; the
@@ -25,7 +28,7 @@ are what the loss calls; the NHWC forms keep the JAX layout.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Sequence
 
 import torch
 
@@ -63,21 +66,36 @@ class _FusedError(torch.autograd.Function):
         return None, None, gx, gy, None, None
 
 
-class _SampleFullGrad(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, src, x, y):
-        out, dx, dy = sampler.sample(src, x, y, with_grad=True)
-        ctx.save_for_backward(x, y, dx, dy)
-        ctx.src_hw = src.shape[2:]
-        return out
+class _SampleFullGradMulti(torch.autograd.Function):
+    """``apply(*srcs, *xs, *ys)`` → one output per plane set. Forward: one
+    launch of S with d/dx, d/dy; backward: one launch of T for the sources
+    that need a gradient, and the coordinate channel sums."""
 
     @staticmethod
-    def backward(ctx, g):
-        x, y, dx, dy = ctx.saved_tensors
-        d_src = None
-        if ctx.needs_input_grad[0]:
-            d_src = scatter.scatter(x, y, g.contiguous(), *ctx.src_hw)
-        return d_src, (g * dx).sum(1), (g * dy).sum(1)
+    def forward(ctx, *args):
+        k = len(args) // 3
+        srcs, xs, ys = args[:k], args[k:2 * k], args[2 * k:]
+        res = sampler.sample_multi(srcs, xs, ys, with_grad=True)
+        ctx.save_for_backward(*xs, *ys, *(r[1] for r in res), *(r[2] for r in res))
+        ctx.src_hws = [tuple(s.shape[2:]) for s in srcs]
+        return tuple(r[0] for r in res)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        k = len(gs)
+        saved = ctx.saved_tensors
+        xs, ys, dxs, dys = (saved[i * k:(i + 1) * k] for i in range(4))
+        d_srcs: List = [None] * k
+        need = [i for i in range(k) if ctx.needs_input_grad[i]]
+        if need:
+            got = scatter.scatter_multi([xs[i] for i in need], [ys[i] for i in need],
+                                        [gs[i].contiguous() for i in need],
+                                        [ctx.src_hws[i] for i in need])
+            for i, d in zip(need, got):
+                d_srcs[i] = d
+        gxs = [(g * dx).sum(1) for g, dx in zip(gs, dxs)]
+        gys = [(g * dy).sum(1) for g, dy in zip(gs, dys)]
+        return (*d_srcs, *gxs, *gys)
 
 
 def _needs_grad(*ts: torch.Tensor) -> bool:
@@ -127,12 +145,23 @@ def warp_photometric(src: torch.Tensor, tgt: torch.Tensor, x: torch.Tensor,
     return photometric_error(warped, tgt, alpha)
 
 
+def bilinear_sample_full_multi(srcs: Sequence[torch.Tensor], xs: Sequence[torch.Tensor],
+                               ys: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Full-gradient sampler over several plane sets in one launch each
+    way: ``srcs[i]`` (N_i, C, H_i, W_i) at ``xs[i]``, ``ys[i]`` (N_i, h_i,
+    w_i) → one (N_i, C, h_i, w_i) output per plane set, with gradients to
+    the sources and the coordinates."""
+    xs = [x.contiguous() for x in xs]
+    ys = [y.contiguous() for y in ys]
+    if _needs_grad(*srcs, *xs, *ys):
+        return list(_SampleFullGradMulti.apply(*srcs, *xs, *ys))
+    return [r[0] for r in sampler.sample_multi(srcs, xs, ys, with_grad=False)]
+
+
 def bilinear_sample_full_planes(src: torch.Tensor, x: torch.Tensor,
                                 y: torch.Tensor) -> torch.Tensor:
     """Full-gradient sampler on planes (source and coords gradients)."""
-    if _needs_grad(src, x, y):
-        return _SampleFullGrad.apply(src, x.contiguous(), y.contiguous())
-    return sampler.sample(src, x.contiguous(), y.contiguous(), with_grad=False)[0]
+    return bilinear_sample_full_multi([src], [x], [y])[0]
 
 
 def bilinear_sample_fast(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
@@ -174,6 +203,7 @@ __all__ = [
     "bilinear_sample_full",
     "bilinear_sample_planes",
     "bilinear_sample_full_planes",
+    "bilinear_sample_full_multi",
     "bilinear_sample_grouped_planes",
     "warp_photometric",
     "launch_counts",

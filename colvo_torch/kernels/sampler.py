@@ -1,9 +1,13 @@
 """S: bilinear sampling of C channel planes with optional d/dx, d/dy.
 
-``sample`` is the kernel's wrapper: a CUDA tensor launches the CUDA kernel
-(``csrc/sampler.cu``, which names the TPU kernels it replaces) and any
-error raises; a CPU tensor takes ``sample_plain``, the plain PyTorch
-gather beside it. ``launches`` counts kernel launches by variant.
+``sample`` and ``sample_multi`` are the kernels' wrappers: a CUDA tensor
+launches a CUDA kernel (``csrc/sampler.cu``, which names the TPU kernels
+it replaces) and any error raises; a CPU tensor takes ``sample_plain`` /
+``sample_multi_plain``, the plain PyTorch gathers beside them.
+``sample_multi`` samples several plane sets (the geo scales of a step) in
+one launch of the multi-plane-set kernel, which also takes every C=1 call
+of ``sample``; C>1 and grouped calls launch ``bilinear_sample_kernel``.
+``launches`` counts kernel launches by variant.
 
 Layout: src (N, C, H, W) f32 whose inner three dims are contiguous (the
 batch stride is free, so a frame slice of a snippet stack needs no copy);
@@ -16,7 +20,7 @@ from __future__ import annotations
 
 import ctypes
 from collections import Counter
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -31,6 +35,21 @@ launches: Counter = Counter()
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
+# Descriptors one launch of the multi-plane-set kernel takes (kMaxDescs).
+MAX_DESCS = 8
+
+
+class SampleDesc(ctypes.Structure):
+    """``SampleDesc`` of ``csrc/sampler.cu``, field for field."""
+    _fields_ = [("src", _P), ("x", _P), ("y", _P), ("out", _P), ("dx", _P), ("dy", _P),
+                ("src_bstride", _L), ("n", _I), ("c", _I), ("h_src", _I), ("w_src", _I),
+                ("h_out", _I), ("w_out", _I), ("vec", _I), ("block0", _I)]
+
+
+class GeoParams(ctypes.Structure):
+    """``GeoParams`` of ``csrc/sampler.cu``, passed by value."""
+    _fields_ = [("d", SampleDesc * MAX_DESCS), ("n_desc", _I), ("with_grad", _I)]
+
 
 def _lib() -> ctypes.CDLL:
     lib = build.library("sampler")
@@ -38,6 +57,8 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
         fn.restype = _I
+        lib.colvo_bilinear_sample_multi.argtypes = [GeoParams, _P]
+        lib.colvo_bilinear_sample_multi.restype = _I
     return lib
 
 
@@ -71,6 +92,12 @@ def sample_plain(src: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     return out, dt + wy * (db - dt), bot - top
 
 
+def sample_multi_plain(srcs: Sequence[torch.Tensor], xs: Sequence[torch.Tensor],
+                       ys: Sequence[torch.Tensor], with_grad: bool) -> List[Outputs]:
+    """Plain version of ``sample_multi``: ``sample_plain`` per plane set."""
+    return [sample_plain(s, x, y, with_grad) for s, x, y in zip(srcs, xs, ys)]
+
+
 def planes_contiguous(t: torch.Tensor) -> bool:
     """Whether the inner (C, H, W) dims of an (N, C, H, W) tensor are
     contiguous (the batch stride is free); the stride of a size-1 dim is
@@ -96,8 +123,70 @@ def _check(src: torch.Tensor, x: torch.Tensor, y: torch.Tensor, group: int) -> N
         raise ValueError("src and coords must share one device")
 
 
+def _sample_multi_cuda(srcs: Sequence[torch.Tensor], xs: Sequence[torch.Tensor],
+                       ys: Sequence[torch.Tensor], with_grad: bool) -> List[Outputs]:
+    if not len(srcs) == len(xs) == len(ys):
+        raise ValueError("sample_multi takes one x and one y plane stack per source")
+    for src, x, y in zip(srcs, xs, ys):
+        _check(src, x, y, 1)
+    device, c = srcs[0].device, srcs[0].shape[1]
+    if any(s.device != device for s in srcs) or any(s.shape[1] != c for s in srcs):
+        raise ValueError("sample_multi takes plane sets of one device and one channel count")
+    results: List[Outputs] = []
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for lo in range(0, len(srcs), MAX_DESCS):
+        params, outs = multi_params(srcs[lo:lo + MAX_DESCS], xs[lo:lo + MAX_DESCS],
+                                    ys[lo:lo + MAX_DESCS], with_grad)
+        with torch.cuda.device(device):
+            err = _lib().colvo_bilinear_sample_multi(params, stream)
+        if err != 0:
+            raise RuntimeError(f"bilinear_sample_multi kernel launch failed: cudaError {err}")
+        launches[f"{'grad' if with_grad else 'value'}/C{c}"] += 1
+        results += outs
+    return results
+
+
+def multi_params(srcs: Sequence[torch.Tensor], xs: Sequence[torch.Tensor],
+                 ys: Sequence[torch.Tensor], with_grad: bool) -> Tuple[GeoParams, List[Outputs]]:
+    """The descriptor table of one launch of the multi-plane-set kernel for
+    up to ``MAX_DESCS`` checked plane sets of one channel count, and its
+    outputs (one allocation a plane set). A descriptor takes four pixels a
+    thread where w_out % 4 == 0 and its coordinate and output pointers are
+    16-byte aligned."""
+    c, device = srcs[0].shape[1], srcs[0].device
+    params = GeoParams(n_desc=len(srcs), with_grad=int(with_grad))
+    results: List[Outputs] = []
+    for i, (src, x, y) in enumerate(zip(srcs, xs, ys)):
+        n, ho, wo = x.shape
+        outs = torch.empty((3 if with_grad else 1, n, c, ho, wo), dtype=torch.float32,
+                           device=device).unbind(0)
+        ptrs = [t.data_ptr() for t in (x, y, *outs)]
+        d = params.d[i]
+        d.src, d.x, d.y, d.out = src.data_ptr(), ptrs[0], ptrs[1], ptrs[2]
+        if with_grad:
+            d.dx, d.dy = ptrs[3], ptrs[4]
+        d.src_bstride, d.n, d.c = src.stride(0), n, c
+        d.h_src, d.w_src, d.h_out, d.w_out = src.shape[2], src.shape[3], ho, wo
+        d.vec = int(wo % 4 == 0 and all(p % 16 == 0 for p in ptrs))
+        results.append((outs[0], outs[1] if with_grad else None, outs[2] if with_grad else None))
+    return params, results
+
+
+def sample_multi(srcs: Sequence[torch.Tensor], xs: Sequence[torch.Tensor],
+                 ys: Sequence[torch.Tensor], with_grad: bool) -> List[Outputs]:
+    """Sample each ``srcs[i]`` (N_i, C, H_i, W_i) at (``xs[i]``, ``ys[i]``)
+    (N_i, h_i, w_i): one launch of the multi-plane-set kernel for up to
+    ``MAX_DESCS`` plane sets of one channel count on CUDA tensors, the plain
+    version on CPU tensors. Returns one (out, dx, dy) per plane set."""
+    if srcs[0].device.type == "cpu":
+        return sample_multi_plain(srcs, xs, ys, with_grad)
+    return _sample_multi_cuda(srcs, xs, ys, with_grad)
+
+
 def _sample_cuda(src: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                  with_grad: bool, group: int) -> Outputs:
+    if src.dim() == 4 and src.shape[1] == 1 and group == 1:
+        return _sample_multi_cuda([src], [x], [y], with_grad)[0]
     _check(src, x, y, group)
     _, c, h, w = src.shape
     n, ho, wo = x.shape

@@ -32,7 +32,7 @@ from colvo_torch.geometry import (
 )
 from colvo_torch.geometry.ops import _valid_mask
 from colvo_torch.kernels import (
-    bilinear_sample_full_planes,
+    bilinear_sample_full_multi,
     bilinear_sample_grouped_planes,
     bilinear_sample_planes,
     warp_photometric,
@@ -217,37 +217,41 @@ def snippet_loss(
             for s in range(n_sources):
                 err_lookup[(sc, s)] = err_g[s, :, sc]
 
+    def _geo_grid(scale: int, s: int):
+        """Native-scale geo grid for one source:
+        (pix_g, z_g, src_depth_g, h_g, w_g)."""
+        g_disp_t = disps[0][scale]
+        g_disp_s = disps[s + 1][scale]
+        if loss_cfg.geo_res_cap > 0:
+            while g_disp_t.shape[1] > loss_cfg.geo_res_cap:
+                g_disp_t = _halve(g_disp_t)
+                g_disp_s = _halve(g_disp_s)
+        h_g, w_g = g_disp_t.shape[1], g_disp_t.shape[2]
+        k_g = _scale_k(k, w_g / width, h_g / height)
+        _, depth_g = disp_to_depth(g_disp_t[..., 0], model_cfg.min_depth, model_cfg.max_depth)
+        _, src_depth_g = disp_to_depth(
+            g_disp_s[..., 0], model_cfg.min_depth, model_cfg.max_depth
+        )
+        pix_g, z_g = project(backproject(depth_g, torch.linalg.inv(k_g)), k_g, t_mats[:, s])
+        return pix_g, z_g, src_depth_g, h_g, w_g
+
+    # Geo pass: every scale's depth warps in one sampler launch (and one
+    # scatter launch in the backward). At one scale the per-source warps
+    # are shape-identical and stack on the batch axis; the scales are
+    # separate plane sets of the same launch. Exact: both kernels act on
+    # each plane on its own.
+    geo_grids: List[List[tuple]] = []
+    geo_sampled: List[Tuple[torch.Tensor, ...]] = []
+    if loss_cfg.geometric_weight > 0:
+        geo_grids = [[_geo_grid(scale, s) for s in range(n_sources)] for scale in range(n_scales)]
+        pix_stacks = [torch.cat([g[0] for g in grids]) for grids in geo_grids]
+        samp = bilinear_sample_full_multi(
+            [torch.cat([g[2] for g in grids])[:, None] for grids in geo_grids],
+            [pix[..., 0] for pix in pix_stacks], [pix[..., 1] for pix in pix_stacks])
+        geo_sampled = [torch.chunk(sm[:, 0], n_sources) for sm in samp]
+
     for scale in range(n_scales):
         disp_s = disps[0][scale]
-
-        def _geo_grid(s, disp_s=disp_s, scale=scale):
-            """Native-scale geo grid for one source:
-            (pix_g, z_g, src_depth_g, h_g, w_g)."""
-            g_disp_t = disp_s
-            g_disp_s = disps[s + 1][scale]
-            if loss_cfg.geo_res_cap > 0:
-                while g_disp_t.shape[1] > loss_cfg.geo_res_cap:
-                    g_disp_t = _halve(g_disp_t)
-                    g_disp_s = _halve(g_disp_s)
-            h_g, w_g = g_disp_t.shape[1], g_disp_t.shape[2]
-            k_g = _scale_k(k, w_g / width, h_g / height)
-            _, depth_g = disp_to_depth(g_disp_t[..., 0], model_cfg.min_depth, model_cfg.max_depth)
-            _, src_depth_g = disp_to_depth(
-                g_disp_s[..., 0], model_cfg.min_depth, model_cfg.max_depth
-            )
-            pix_g, z_g = project(backproject(depth_g, torch.linalg.inv(k_g)), k_g, t_mats[:, s])
-            return pix_g, z_g, src_depth_g, h_g, w_g
-
-        # The per-source depth warps of one scale are shape-identical: one
-        # stacked sampler launch (and one scatter launch in the backward).
-        geo_grids = None
-        geo_sampled = None
-        if loss_cfg.geometric_weight > 0:
-            geo_grids = [_geo_grid(s) for s in range(n_sources)]
-            pix_stack = torch.cat([g[0] for g in geo_grids])
-            dep_stack = torch.cat([g[2] for g in geo_grids])[:, None]
-            samp = bilinear_sample_full_planes(dep_stack, pix_stack[..., 0], pix_stack[..., 1])
-            geo_sampled = torch.chunk(samp[:, 0], n_sources)
 
         warped_errors = []
         geo_losses = []
@@ -256,10 +260,10 @@ def snippet_loss(
             valid = _valid_mask(pix, height, width) * (z > 0)
             err = err_lookup[(scale, s)] if loss_cfg.batched_photo else photometric_of(s, pix)
             if loss_cfg.geometric_weight > 0:
-                pix_g, z_g, _, h_g, w_g = geo_grids[s]
+                pix_g, z_g, _, h_g, w_g = geo_grids[scale][s]
                 gvalid = _valid_mask(pix_g, h_g, w_g)
                 g_loss, g_weight = geometry_consistency(
-                    z_g, geo_sampled[s], gvalid, behind=z_g <= 0
+                    z_g, geo_sampled[scale][s], gvalid, behind=z_g <= 0
                 )
                 if height // h_g > 1:
                     up = height // h_g

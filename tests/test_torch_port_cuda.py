@@ -90,6 +90,93 @@ def test_kernel_wrappers_reject_what_they_cannot_launch(device):
         sampler.sample(torch.zeros((1, 2, 4, 4), device=device).transpose(2, 3), x, x, True)
 
 
+def _geo_sets(device, seed, wild=False):
+    """Depth planes and coords at three scales (one of an odd width), with
+    a cotangent zeroed on a band; ``wild`` coords are uniform over the
+    source, so no two neighbours' terms share a cell."""
+    rng = np.random.default_rng(seed)
+    sets = []
+    for n, h, w in ((4, 64, 80), (4, 32, 40), (3, 37, 53)):
+        d = torch.tensor(rng.random((n, 1, h, w), dtype=np.float32) + 0.01, device=device)
+        if wild:
+            x = rng.uniform(-2, w + 2, (n, h, w)).astype(np.float32)
+            y = rng.uniform(-2, h + 2, (n, h, w)).astype(np.float32)
+        else:
+            x, y = _coords(n, h, w, seed + h)
+        g = torch.tensor(rng.normal(size=(n, 1, h, w)).astype(np.float32), device=device)
+        g[:, :, : h // 8] = 0.0
+        sets.append((d, torch.tensor(x, device=device), torch.tensor(y, device=device), g))
+    return [list(t) for t in zip(*sets)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wild", [False, True])
+def test_multi_scale_kernels_match_plain_versions(device, wild):
+    """The multi-plane-set S (grad and value) and T over three plane sets
+    in one launch each: S value ≤1e-5, d/dx, d/dy ≤1e-4 abs; T ≤1e-4 of
+    max|d_src|."""
+    ds, xs, ys, gs = _geo_sets(device, 21, wild)
+    kernels.reset_launch_counts()
+    for with_grad in (True, False):
+        got = sampler.sample_multi(ds, xs, ys, with_grad)
+        want = sampler.sample_multi_plain(ds, xs, ys, with_grad)
+        for k, p in zip(got, want):
+            torch.testing.assert_close(k[0], p[0], atol=1e-5, rtol=0)
+            if with_grad:
+                for a, b in zip(k[1:], p[1:]):
+                    torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+            else:
+                assert k[1] is None and k[2] is None
+    hws = [tuple(d.shape[2:]) for d in ds]
+    for got, want in zip(scatter.scatter_multi(xs, ys, gs, hws),
+                         scatter.scatter_multi_plain(xs, ys, gs, hws)):
+        torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max().item(), rtol=0)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {"S/grad/C1": 1, "S/value/C1": 1, "T/C1": 1}
+
+
+@pytest.mark.cuda
+def test_multi_scale_autograd_launches_one_s_and_one_t(device):
+    """bilinear_sample_full_multi over three plane sets: one S launch
+    forward, one T launch backward, and gradients equal to the CPU path's;
+    more sets than one launch takes go in several launches."""
+    sets = _geo_sets(device, 31)
+    kernels.reset_launch_counts()
+    grads = {}
+    for dev in (device, torch.device("cpu")):
+        ds, xs, ys = ([t.detach().to(dev).requires_grad_(True) for t in ts] for ts in sets[:3])
+        outs = kernels.bilinear_sample_full_multi(ds, xs, ys)
+        sum(torch.sum(torch.cos(3 * o)) for o in outs).backward()
+        grads[dev.type] = [t.grad.cpu() for t in ds + xs + ys]
+    assert kernels.launch_counts() == {"S/grad/C1": 1, "T/C1": 1}
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    n = sampler.MAX_DESCS + 1
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        outs = kernels.bilinear_sample_full_multi(sets[0][:1] * n, sets[1][:1] * n,
+                                                  sets[2][:1] * n)
+    assert len(outs) == n and all(torch.equal(o, outs[0]) for o in outs)
+    assert kernels.launch_counts() == {"S/value/C1": 2}
+
+
+@pytest.mark.cuda
+def test_multi_scale_wrappers_reject_what_they_cannot_launch(device):
+    ds, xs, ys, gs = _geo_sets(device, 41)
+    hws = [tuple(d.shape[2:]) for d in ds]
+    bad_x = [xs[0].transpose(1, 2).contiguous().transpose(1, 2)] + xs[1:]
+    with pytest.raises(ValueError):
+        sampler.sample_multi(ds, bad_x, ys, True)
+    with pytest.raises(ValueError):
+        scatter.scatter_multi(bad_x, ys, gs, hws)
+    with pytest.raises(TypeError):
+        sampler.sample_multi([ds[0].double()] + ds[1:], xs, ys, True)
+    with pytest.raises(TypeError):
+        scatter.scatter_multi(xs, ys, [gs[0].double()] + gs[1:], hws)
+    with pytest.raises(ValueError):
+        sampler.sample_multi(ds, xs[:2], ys, False)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("group", [1, 4])
 def test_grouped_sampler_matches_plain_version(device, group):

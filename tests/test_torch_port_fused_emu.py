@@ -11,6 +11,9 @@ ranges and at windows that take every branch. The shim reports 4 SMs, so
 a frame splits into several row ranges. Float arithmetic differs from the
 card's (no fused multiply-adds, exact divisions), so the card's own check
 stays ``chip_smoke.py``; the tolerances are the same.
+``tests/test_torch_port_geo_emu.py`` runs the sampler and scatter sources
+against the same shim (``SHIM``), which also carries float4, float
+atomics, memset and the warp shuffles those use.
 """
 
 import ctypes
@@ -29,10 +32,13 @@ from colvo_torch.losses.photometric import lcc_calibrate
 SHIM = r"""
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
+#include <memory>
 #include <thread>
 #include <vector>
 using std::max;
@@ -47,9 +53,12 @@ struct dim3 {
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 struct Index { unsigned x = 0, y = 0, z = 0; };
-inline thread_local Index threadIdx, blockIdx;
+struct alignas(16) float4 { float x, y, z, w; };
+inline thread_local Index threadIdx, blockIdx, blockDim;
 inline thread_local std::barrier<>* block_barrier = nullptr;
 inline thread_local float* block_smem = nullptr;
+inline thread_local std::unique_ptr<std::barrier<>>* warp_barriers = nullptr;
+inline thread_local int* warp_scratch = nullptr;
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -66,19 +75,50 @@ template <class K> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, 
   return 0;
 }
 inline int cudaGetLastError() { return 0; }
+inline int cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
+  return 0;
+}
+inline float atomicAdd(float* p, float v) { return std::atomic_ref<float>(*p).fetch_add(v); }
+// A warp's threads meet at their warp's barrier (blocks hold whole warps):
+// each lane posts a 32-bit value and reads lane ``src``'s.
+template <class T> T shim_exchange(T v, unsigned src) {
+  static_assert(sizeof(T) == 4);
+  const unsigned w = threadIdx.x / 32;
+  std::memcpy(&warp_scratch[threadIdx.x], &v, 4);
+  warp_barriers[w]->arrive_and_wait();
+  T r;
+  std::memcpy(&r, &warp_scratch[32 * w + src], 4);
+  warp_barriers[w]->arrive_and_wait();
+  return r;
+}
+template <class T> T __shfl_up_sync(unsigned, T v, unsigned delta) {
+  const unsigned lane = threadIdx.x % 32;
+  return shim_exchange(v, lane >= delta ? lane - delta : lane);
+}
+template <class T> T __shfl_down_sync(unsigned, T v, unsigned delta) {
+  const unsigned lane = threadIdx.x % 32;
+  return shim_exchange(v, lane + delta < 32 ? lane + delta : lane);
+}
 template <class T> T __ldg(const T* p) { return *p; }
+template <class T> T __ldcs(const T* p) { return *p; }
+template <class T> void __stcs(T* p, T v) { *p = v; }
 inline unsigned __umulhi(unsigned a, unsigned b) {
   return static_cast<unsigned>((static_cast<unsigned long long>(a) * b) >> 32);
 }
 inline float __fdividef(float a, float b) { return a / b; }
 inline void __syncthreads() { block_barrier->arrive_and_wait(); }
-template <class K, class P>
-void shim_launch(K kernel, dim3 grid, int threads, size_t bytes, P p) {
+template <class K, class... A>
+void shim_launch(K kernel, dim3 grid, int threads, size_t bytes, A... args) {
   for (unsigned z = 0; z < grid.z; ++z)
     for (unsigned y = 0; y < grid.y; ++y)
       for (unsigned x = 0; x < grid.x; ++x) {
         std::vector<float> smem(bytes / sizeof(float), std::nanf(""));
         std::barrier<> bar(threads);
+        std::vector<std::unique_ptr<std::barrier<>>> warps;
+        for (int w = 0; w < (threads + 31) / 32; ++w)
+          warps.emplace_back(new std::barrier<>(min(32, threads - 32 * w)));
+        std::vector<int> scratch(threads);
         std::vector<std::thread> pool;
         for (int t = 0; t < threads; ++t)
           pool.emplace_back([&, t] {
@@ -86,9 +126,12 @@ void shim_launch(K kernel, dim3 grid, int threads, size_t bytes, P p) {
             blockIdx.x = x;
             blockIdx.y = y;
             blockIdx.z = z;
+            blockDim.x = threads;
             block_barrier = &bar;
             block_smem = smem.data();
-            kernel(p);
+            warp_barriers = warps.data();
+            warp_scratch = scratch.data();
+            kernel(args...);
           });
         for (auto& th : pool) th.join();
       }

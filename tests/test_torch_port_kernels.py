@@ -2,7 +2,8 @@
 interpret mode on the CPU, as tests/test_kernels.py does): the plain
 versions behind the CPU path of the samplers (plain, grouped, full
 gradient), value, coordinate gradient and source gradient, with
-out-of-bounds and ±1e20 coords, and of the fused photometric error and its
+out-of-bounds and ±1e20 coords, the full-gradient sampler also over
+several plane sets in one call, and of the fused photometric error and its
 analytic coordinate backward. The CUDA kernels themselves run only on a
 card (test_torch_port_cuda.py, and chip_smoke.py at the training
 shapes)."""
@@ -94,6 +95,46 @@ def test_full_grad_sampler_matches_pallas(case, h, w, c):
     # taps per source pixel, in another order than the reference's
     np.testing.assert_allclose(ti.grad.numpy(), np.asarray(gi), atol=1e-4)
     np.testing.assert_allclose(tc.grad.numpy(), np.asarray(gc), atol=1e-4)
+
+
+# (h, w) of the plane sets of one multi-scale call; 30 is no multiple of 4
+MULTI_SCALES = ((16, 128), (16, 40), (8, 30))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_full_grad_multi_sampler_matches_pallas(case):
+    """bilinear_sample_full_multi (P3/P4 + scatter P5, one call over
+    plane sets of three shapes) vs bilinear_sample_fullgrad per plane set:
+    value ≤1e-5, source and coords gradients ≤1e-4 abs of Σ cos(3·out)
+    over all sets."""
+    scale, huge = CASES[case]
+    rng = np.random.default_rng(12)
+    imgs = [rng.random((2, h, w, 1), dtype=np.float32) for h, w in MULTI_SCALES]
+    coords = [_coords(2, h, w, 13 + i, scale, huge) for i, (h, w) in enumerate(MULTI_SCALES)]
+    loss = lambda i, cr: jnp.sum(jnp.cos(3 * bilinear_sample_fullgrad(i, cr)))  # noqa: E731
+    refs = []
+    with pltpu.force_tpu_interpret_mode():
+        for img, crd in zip(imgs, coords):
+            refs.append((bilinear_sample_fullgrad(jnp.asarray(img), jnp.asarray(crd)),
+                         *jax.grad(loss, argnums=(0, 1))(img, crd)))
+    tis = [_t(img, True) for img in imgs]
+    tcs = [_t(crd, True) for crd in coords]
+    outs = kernels.bilinear_sample_full_multi(
+        [ti.permute(0, 3, 1, 2) for ti in tis], [tc[..., 0] for tc in tcs],
+        [tc[..., 1] for tc in tcs])
+    assert len(outs) == len(MULTI_SCALES)
+    sum(torch.sum(torch.cos(3 * o)) for o in outs).backward()
+    for out, ti, tc, (ref, gi, gc) in zip(outs, tis, tcs, refs):
+        np.testing.assert_allclose(out.detach().permute(0, 2, 3, 1).numpy(), np.asarray(ref),
+                                   atol=1e-5)
+        np.testing.assert_allclose(ti.grad.numpy(), np.asarray(gi), atol=1e-4)
+        np.testing.assert_allclose(tc.grad.numpy(), np.asarray(gc), atol=1e-4)
+    with torch.no_grad():  # the value-only variant gives the same samples
+        for out, ti, tc in zip(kernels.bilinear_sample_full_multi(
+                [ti.permute(0, 3, 1, 2) for ti in tis], [tc[..., 0] for tc in tcs],
+                [tc[..., 1] for tc in tcs]), tis, tcs):
+            np.testing.assert_allclose(out.numpy(), kernels.bilinear_sample_full_planes(
+                ti.permute(0, 3, 1, 2), tc[..., 0], tc[..., 1]).numpy(), atol=0)
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -211,6 +252,9 @@ def test_cpu_path_launches_no_kernel():
     coords = _t(_coords(1, 8, 8, 7, 1.0, False), True)
     img = _t(np.ones((1, 8, 8, 1), np.float32), True)
     kernels.bilinear_sample_full(img, coords).sum().backward()
+    planes = img.permute(0, 3, 1, 2)
+    sum(o.sum() for o in kernels.bilinear_sample_full_multi(
+        [planes, planes], [coords[..., 0]] * 2, [coords[..., 1]] * 2)).backward()
     kernels.bilinear_sample_fast(img, coords).sum().backward()
     planes = img.detach().permute(0, 3, 1, 2)
     kernels.bilinear_sample_grouped_planes(planes, coords[..., 0], coords[..., 1], 1).sum().backward()
@@ -228,6 +272,10 @@ def test_non_cpu_tensors_never_take_the_plain_path():
         sampler.sample(src, x, x, True)
     with pytest.raises(ValueError, match="CUDA"):
         scatter.scatter(x, x, src, 4, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        sampler.sample_multi([src, src], [x, x], [x, x], False)
+    with pytest.raises(ValueError, match="CUDA"):
+        scatter.scatter_multi([x, x], [x, x], [src, src], [(4, 4), (4, 4)])
     with pytest.raises(ValueError, match="CUDA"):
         sampler.sample(src, x, x, True, 2)
     with pytest.raises(ValueError, match="CUDA"):

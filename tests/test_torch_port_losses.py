@@ -263,6 +263,35 @@ def test_photometric_knobs_equal_default_in_port(knob, base):
         assert _rel(got.numpy(), want.numpy()) < 1e-4
 
 
+@pytest.mark.parametrize("geo_res_cap", [0, 32])
+def test_multi_scale_geo_pass_equals_per_scale_plain_samplers(monkeypatch, geo_res_cap):
+    """The loss's one multi-scale geo call equals a sampler called scale by
+    scale: geometry.ops.bilinear_sample under torch autograd (gradients to
+    the source depth and the coordinates). loss/geometric and the loss
+    ≤1e-6 relative, gradients ≤1e-5 relative L2; with geo_res_cap=32 two
+    plane sets share a shape."""
+    from colvo_torch.geometry.ops import bilinear_sample
+    from colvo_torch.losses import total
+
+    knobs = {"geo_res_cap": geo_res_cap}
+    want_l, want_aux, want_g = _port_loss(knobs, True)
+    calls = []
+
+    def per_scale(srcs, xs, ys):
+        calls.append(len(srcs))
+        return [bilinear_sample(src.permute(0, 2, 3, 1), torch.stack([x, y], -1))
+                .permute(0, 3, 1, 2) for src, x, y in zip(srcs, xs, ys)]
+
+    monkeypatch.setattr(total, "bilinear_sample_full_multi", per_scale)
+    got_l, got_aux, got_g = _port_loss(knobs, True)
+    assert calls == [4]
+    np.testing.assert_allclose(got_aux["loss/geometric"].item(),
+                               want_aux["loss/geometric"].item(), rtol=1e-6)
+    np.testing.assert_allclose(got_l.item(), want_l.item(), rtol=1e-6)
+    for got, want in zip(got_g, want_g):
+        assert _rel(got.numpy(), want.numpy()) < 1e-5
+
+
 @pytest.mark.parametrize("knobs,match", [
     ({"fused_kernel": True, "batched_photo": True}, "batched_photo"),
     ({"fused_kernel": True, "compute_dtype": "bfloat16"}, "compute_dtype"),
