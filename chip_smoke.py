@@ -31,7 +31,17 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
    bucket, the device's busy share, peak memory.
 5. Serving phase, after the default path's steps:
    ``InferenceRunner.infer_coupled`` on frame pairs.
-6. Prints the kernel table as one JSON line, then the device line
+6. VO phase, on the same weights: ``run_vo`` streams a rendered 64-frame
+   sequence at full width (uint8 RGB in, float16 wire); its trajectory
+   and depths must be sane, its float32 wire must agree with per-pair
+   ``infer_coupled``, the float16 and uint8 wires and I420 input must stay
+   within their bounds, symmetric pose must keep the forward translation,
+   and the native pose chain must equal the numpy one. ATE/RPE, polyp
+   errors and a stitched cloud (with a PLY round trip) follow, as in the
+   reference's ``evaluate_synthetic``; no kernel may launch. Then
+   frames/s of each input format and wire (at least 30), the layers of
+   one chunk, the card's busy share and peak memory.
+7. Prints the kernel table as one JSON line, then the device line
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -45,6 +55,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from unittest import mock
@@ -668,6 +679,233 @@ def serving_phase(cfg: ColvoConfig, state, device, pairs: int = 4, iters: int = 
     return rate
 
 
+VO_FRAMES, VO_CHUNK, VO_SEED = 64, 16, 999  # evaluate_synthetic renders its sequence at seed 999
+VO_MIN_FPS = 30.0  # the coupled-serving north star (PERF.md §2)
+VO_RUNS = 3  # timed run_vo calls after one warm-up; the median is reported
+# The float32-wire stream against per-pair infer_coupled on the card: bf16
+# convs at batch 16 against batch 2 may take other cuDNN algorithms, whose
+# float32 sums round to bf16 differently, and the differences carry through
+# the network. Relative depth error, and rel6 error over max|rel6|; on the
+# H100 with 6-step weights they measured 1.5e-2 and 7.2e-4. The same bound
+# holds symmetric pose's translation (a batch of 2W pairs) to the forward
+# reading's (measured 4.6e-4).
+TOL_VO_DEPTH_REL, TOL_VO_REL6 = 5e-2, 5e-3
+TOL_F16_REL = 2.0**-11  # half a float16 ulp, relative
+# i420 against rgb: 4:2:0 chroma subsampling changes the input (the
+# reference's own test of the two: poses 2e-2 abs, depths 0.1 rel + 2e-2)
+TOL_I420_POSE, TOL_I420_DEPTH = 2e-2, (0.1, 2e-2)
+VO_MODES = (("rgb", "float16"), ("rgb", "uint8"), ("i420", "float16"), ("i420", "uint8"))
+
+
+def _median_fps(fn, n_frames: int) -> float:
+    """Frames/s of ``fn()`` on the host clock: one warm-up call, then the
+    median of ``VO_RUNS`` calls."""
+    fn()
+    times = []
+    for _ in range(VO_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return n_frames / float(np.median(times))
+
+
+def vo_phase(cfg: ColvoConfig, state, device, smi: str, timed: bool = True) -> dict:
+    """Streaming VO on the trained weights at ``cfg``'s size: run_vo over a
+    rendered sequence, its checks against per-pair serving, across wires
+    and input formats and with symmetric pose, the evaluation on top
+    (ATE/RPE, polyps, stitched cloud, PLY), and its times. No kernel of
+    the training path may launch. Returns frames/s by mode (none unless
+    ``timed``, which needs a CUDA device)."""
+    from colvo_torch.data import render_sequence
+    from colvo_torch.evaluation import evaluate_pose
+    from colvo_torch.vo import (PolypDetection, StreamingVO, VOResult, load_ply,
+                                localize_polyps, run_vo, save_ply, stitch_pointclouds, umeyama)
+    from colvo_torch.vo.driver import chain_relative_poses, chain_relative_poses_np
+    from colvo_torch.vo.stream import rgb_to_i420
+
+    h, w = cfg.data.height, cfg.data.width
+    t_phase = t0 = time.time()
+    seq = render_sequence(n_frames=VO_FRAMES, height=h, width=w, seed=VO_SEED)
+    u8 = np.clip(seq.frames * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    inputs = {"rgb": list(u8), "i420": list(rgb_to_i420(u8))}
+    log(f"VO: rendered {VO_FRAMES} frames at {h}x{w} in {time.time() - t0:.1f} s")
+    runner = InferenceRunner(cfg, state.model.state_dict(), device=device)
+    stream = lambda fmt="rgb", wire="float32", **kw: StreamingVO(  # noqa: E731
+        runner, chunk_size=VO_CHUNK, depth_dtype=wire, input_format=fmt, **kw).run(inputs[fmt])
+    reset_launch_counts()
+
+    vo = run_vo(runner, inputs["rgb"], keyframe_every=1, chunk_size=VO_CHUNK)
+    rot = vo.poses[:, :3, :3]
+    check(vo.poses.shape == (VO_FRAMES, 4, 4) and vo.poses.dtype == np.float64, "VO poses shape")
+    check(np.abs(rot @ rot.transpose(0, 2, 1) - np.eye(3)).max() <= 1e-9, "VO rotations orthonormal")
+    check(len(vo.depths) == VO_FRAMES and all(d.shape == (h, w) and np.isfinite(d).all()
+                                              for d in vo.depths), "VO depths finite")
+
+    # The float32 wire against per-pair serving (batch 2, the same /255).
+    d32, p32 = stream()
+    f32 = [f.astype(np.float32) / 255.0 for f in inputs["rgb"]]
+    pairs = [runner.infer_coupled(a[None], b[None]) for a, b in zip(f32[:-1], f32[1:])]
+    want_d = np.stack([p[0][0] for p in pairs] + [pairs[-1][1][0]])
+    want_p = np.stack([np.concatenate([p[2][0], p[3][0]]) for p in pairs])
+    err_d = float(np.abs(np.stack(d32) / want_d - 1).max())
+    err_p = float(np.abs(p32 - want_p).max() / np.abs(want_p).max())
+    log(f"VO f32 wire vs per-pair infer_coupled: depth max rel {err_d:.3g}, "
+        f"rel6 max abs / max|rel6| {err_p:.3g} (max|rel6| {np.abs(want_p).max():.3g})")
+    check(err_d <= TOL_VO_DEPTH_REL and err_p <= TOL_VO_REL6, "VO stream vs per-pair serving")
+
+    for wire in ("float16", "uint8"):
+        d, p = stream(wire=wire)
+        check(np.array_equal(p, p32), f"VO poses equal on the {wire} and float32 wires")
+        if wire == "float16":
+            err = max(float(np.abs(a / b - 1).max()) for a, b in zip(d, d32))
+            check(err <= TOL_F16_REL, f"VO f16 wire within {TOL_F16_REL:.3g} rel")
+        else:
+            err = 0.0
+            for a, b in zip(d, d32):  # in disparity, in steps of 1/255 of the frame's span,
+                # less the float32 rounding of decoding lo + q·step
+                step = ((1 / b).max() - (1 / b).min()) / 255.0
+                dev = np.abs(1 / a - 1 / b).max() - 4 * np.spacing((1 / b).max())
+                err = max(err, float(dev / step))
+            # (1e-3 of a step: the float32 rounding of the device's division)
+            check(err <= 0.5 + 1e-3, "VO uint8 wire within half a quantisation step")
+        log(f"VO {wire} wire vs float32: max error {err:.3g} "
+            f"({'relative depth' if wire == 'float16' else 'disparity steps'}); poses equal")
+    d_y, p_y = stream("i420")
+    err_py = float(np.abs(p_y - p32).max())
+    err_dy = max(float((np.abs(a - b) - TOL_I420_DEPTH[0] * np.abs(b)).max()) for a, b in zip(d_y, d32))
+    log(f"VO i420 vs rgb: rel6 max abs {err_py:.3g}, depth max |Δ| − 0.1·|d| {err_dy:.3g}")
+    check(err_py <= TOL_I420_POSE and err_dy <= TOL_I420_DEPTH[1], "VO i420 close to rgb")
+    _, p_sym = stream(symmetric_pose=True)
+    err_t = float(np.abs(p_sym[:, 3:] - p32[:, 3:]).max() / np.abs(p32[:, 3:]).max())
+    err_r = float(np.abs(p_sym[:, :3] - p32[:, :3]).max())
+    log(f"VO symmetric pose: translation vs forward reading max abs / max|t| {err_t:.3g}; "
+        f"rotation moved by up to {err_r:.3g}")
+    check(err_t <= TOL_VO_REL6, "VO symmetric pose keeps the forward translation")
+    err_chain = float(np.abs(chain_relative_poses(p32) - chain_relative_poses_np(p32)).max())
+    check(err_chain <= 1e-12, f"native chain vs numpy chain {err_chain:.3g}")
+
+    # evaluate_synthetic's pose, polyp and reconstruction steps.
+    metrics = evaluate_pose(vo.poses, seq.poses.astype(np.float64))
+    rng = np.random.default_rng(5)
+    k_inv = np.linalg.inv(seq.k.astype(np.float64))
+    dets, gts = [], []
+    for fid in (VO_FRAMES // 4, VO_FRAMES // 2, 3 * VO_FRAMES // 4):
+        cx, cy = int(rng.integers(w // 4, 3 * w // 4)), int(rng.integers(h // 4, 3 * h // 4))
+        dets.append(PolypDetection(frame_id=fid, box=(cx - 6, cy - 6, cx + 6, cy + 6)))
+        pose = seq.poses[fid].astype(np.float64)
+        gts.append(pose[:3, :3] @ (k_inv @ np.array([cx, cy, 1.0]) * seq.depths[fid][cy, cx])
+                   + pose[:3, 3])
+    r, t, s = umeyama(vo.poses[:, :3, 3], seq.poses[:, :3, 3])
+    apose = vo.poses.copy()
+    apose[:, :3, 3] = (s * (r @ vo.poses[:, :3, 3].T)).T + t
+    apose[:, :3, :3] = r @ vo.poses[:, :3, :3]
+    aligned = VOResult(poses=apose, depths=[d * s for d in vo.depths], keyframe_ids=vo.keyframe_ids)
+    errs = [loc.error for loc in localize_polyps(aligned, seq.k, dets, np.stack(gts))]
+    metrics.update({f"polyp/e{i + 1}": e for i, e in enumerate(errs)})
+    metrics["polyp/e_mean"] = float(np.mean(errs))
+    t0 = time.perf_counter()
+    cloud = stitch_pointclouds(vo, seq.k, frames=inputs["rgb"], voxel=0.002,
+                               max_depth=cfg.model.max_depth)
+    stitch_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        save_ply(cloud, os.path.join(tmp, "cloud.ply"))
+        n_back = len(load_ply(os.path.join(tmp, "cloud.ply")))
+    check(all(np.isfinite(v) for v in metrics.values()), f"VO metrics finite: {metrics}")
+    check(len(cloud) > 0 and np.isfinite(cloud.points).all() and n_back == len(cloud),
+          "VO cloud non-empty, finite, PLY round trip")
+    log("VO evaluation (6-step weights: finite, not accurate): " + " ".join(
+        f"{k}={v:.5g}" for k, v in metrics.items())
+        + f"; cloud {len(cloud)} points at voxel 0.002 (stitch {1e3 * stitch_s:.1f} ms)")
+    counts = launch_counts()
+    check(counts == {}, f"the VO path launched training kernels: {counts}")
+
+    if not timed:
+        return {}
+    # Times (host clock for frames/s; the card's name and limit beside them).
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # the training state and the runner's weights
+    fps = {"run_vo rgb/float16": _median_fps(
+        lambda: run_vo(runner, inputs["rgb"], keyframe_every=1, chunk_size=VO_CHUNK), VO_FRAMES)}
+    peak, held = torch.cuda.max_memory_allocated() / 2**30, held / 2**30
+    for fmt, wire in VO_MODES:
+        fps[f"stream {fmt}/{wire}"] = _median_fps(lambda: stream(fmt, wire), VO_FRAMES)
+    fps["stream rgb/float16 symmetric"] = _median_fps(
+        lambda: stream("rgb", "float16", symmetric_pose=True), VO_FRAMES)
+    log(f"VO frames/s ({VO_FRAMES} frames at {h}x{w}, chunks of {VO_CHUNK}, host clock, median "
+        f"of {VO_RUNS} after a warm-up; {smi}): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in fps.items()))
+    check(min(fps.values()) >= VO_MIN_FPS, f"VO frames/s under {VO_MIN_FPS}: {fps}")
+    vo_stage_times(runner, inputs["rgb"], p32, smi)
+    vo_busy(lambda: run_vo(runner, inputs["rgb"], keyframe_every=1, chunk_size=VO_CHUNK), smi)
+    log(f"VO peak device memory over run_vo: {peak:.3f} GiB, {peak - held:.3f} GiB above the "
+        f"{held:.3f} GiB held before it; the VO phase took {time.time() - t_phase:.1f} s")
+    return fps
+
+
+def vo_stage_times(runner, frames, rel6, smi: str) -> None:
+    """The layers of one chunk (rgb uint8 in, float16 wire out): H2D from
+    pinned memory, the chunk step (eager, and as CUDA-graph replays), D2H
+    of the wire into pinned memory (CUDA events), the host decode and the
+    native chain of the whole sequence (host clock)."""
+    from colvo_torch.vo import StreamingVO, chain_relative_poses
+
+    sv = StreamingVO(runner, chunk_size=VO_CHUNK)
+    hw = frames[0].shape[:2]
+    pinned = torch.from_numpy(np.stack(frames[1:1 + VO_CHUNK])).pin_memory()
+    with torch.inference_mode():
+        _, ci, cb = sv.init_step(torch.from_numpy(frames[0][None]).cuda())
+        dev = pinned.cuda()
+        wire = sv.chunk_step(ci, cb, dev)[0]
+        out = torch.empty(wire.shape, dtype=wire.dtype, pin_memory=True)
+        h2d = eager_ms(lambda: pinned.to("cuda", non_blocking=True))
+        step_eager = eager_ms(lambda: sv.chunk_step(ci, cb, dev))
+        step_graph = time_ms(lambda: sv.chunk_step(ci, cb, dev))
+        d2h = eager_ms(lambda: out.copy_(wire, non_blocking=True))
+    torch.cuda.synchronize()
+    buf = out.numpy()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        sv.decode_wire(buf, hw)
+    decode = (time.perf_counter() - t0) / 20 * 1e3
+    t0 = time.perf_counter()
+    for _ in range(20):
+        chain_relative_poses(rel6)
+    chain = (time.perf_counter() - t0) / 20 * 1e3
+    log(f"VO layers, one chunk of {VO_CHUNK} ({smi}): H2D {h2d:.4f} ms ({pinned.numel() / 2**20:.2f} "
+        f"MiB, CUDA events); chunk step {step_eager:.3f} ms eager, {step_graph:.3f} ms on the "
+        f"device (CUDA-graph replays); D2H {d2h:.4f} ms ({wire.numel() / 2**20:.2f} MiB wire); "
+        f"host decode {decode:.3f} ms; native chain of {len(rel6)} poses {chain:.3f} ms (host clock)")
+
+
+def vo_busy(fn, smi: str) -> None:
+    """The card's busy share over one ``fn()`` (device time of kernels and
+    copies under ``torch.profiler`` over the host clock of the call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for evt in prof.events():
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
+            kernels[evt.name] = kernels.get(evt.name, 0.0) + evt.device_time_total / 1e3
+    busy = sum(kernels.values())
+    if busy == 0.0:
+        log("VO busy share: the profiler recorded no device time; not measured")
+        return
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    log(f"VO busy share over one run_vo ({smi}): device {busy:.2f} ms of {wall:.2f} ms "
+        f"({100 * busy / wall:.1f} %, profiled); top: "
+        + "; ".join(f"{ms:.2f} ms {name[:60]}" for name, ms in top))
+
+
 KERNELS = (
     ("P1", "bilinear_sample[grad,C=3]", "colvo_torch/kernels/csrc/sampler.cu",
      "colvo/kernels/sampler.py:658", "S/grad/C3"),
@@ -725,6 +963,7 @@ def main() -> int:
         first[label] = metrics[0]
         if label == "default":
             serving_phase(cfg, state, device)
+            vo_phase(cfg, state, device, smi)
         else:
             for k, v in first["default"].items():
                 check(k == "grad_norm" or abs(first[label][k] - v) <= 1e-3 * max(abs(v), 1e-6),

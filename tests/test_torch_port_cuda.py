@@ -11,7 +11,11 @@ import pytest
 import torch
 
 from colvo_torch import kernels
+from colvo_torch.config import ColvoConfig
 from colvo_torch.kernels import fused_loss, sampler, scatter
+from colvo_torch.models import ColVOModel
+from colvo_torch.runtime import InferenceRunner
+from colvo_torch.vo import StreamingVO
 
 
 @pytest.fixture
@@ -266,3 +270,61 @@ def test_fused_and_grouped_wrappers_reject_what_they_cannot_launch(device):
         fused_loss.err(src, tgt.cpu(), x, y, 15, 0.85)
     with pytest.raises(ValueError):
         sampler.sample(src, x, y, True, 4)  # 2 coordinate planes for 2 frames × 4
+
+
+def _vo_runner(device):
+    """An f32 runner at 64×96 over Flax-like random weights."""
+    cfg = ColvoConfig()
+    cfg.model.dtype = "float32"
+    cfg.data.height, cfg.data.width = 64, 96
+    model = ColVOModel(cfg.model)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    return InferenceRunner(cfg, model.state_dict(), device=device)
+
+
+def _u8_frames(n, seed=0):
+    """``n`` random uint8 frames at 64×96, made one at a time."""
+    rng = np.random.default_rng(seed)
+    for _ in range(n):
+        yield rng.integers(0, 256, (64, 96, 3), dtype=np.uint8)
+
+
+@pytest.mark.cuda
+def test_stream_pinned_buffer_reuse_keeps_every_chunk(device):
+    """20 chunks of 2 frames cycle the 8 pinned staging and wire buffers
+    more than twice; depths and poses equal those of 2 chunks of 20 (conv
+    rounding only: TF32 off, batch sizes differ)."""
+    runner = _vo_runner(device)
+    frames = list(_u8_frames(41, seed=1))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        small = StreamingVO(runner, chunk_size=2, depth_dtype="float32", fetch_workers=1)
+        assert small.max_in_flight == 8
+        d2, p2 = small.run(frames)
+        d20, p20 = StreamingVO(runner, chunk_size=20, depth_dtype="float32").run(frames)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert p2.shape == (40, 6) and len(d2) == 41
+    np.testing.assert_allclose(p2, p20, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(np.stack(d2), np.stack(d20), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_stream_device_memory_flat_over_1000_frames(device):
+    """keep_depths=False over 1000 frames peaks no higher on the device than
+    over 200, and leaves nothing allocated behind."""
+    runner = _vo_runner(device)
+    sv = StreamingVO(runner, chunk_size=16)
+    sv.run(_u8_frames(64), keep_depths=False)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    peaks = {}
+    for n in (200, 1000):
+        torch.cuda.reset_peak_memory_stats()
+        depths, rel = sv.run(_u8_frames(n), keep_depths=False)
+        torch.cuda.synchronize()
+        peaks[n] = torch.cuda.max_memory_allocated()
+        assert depths == [] and rel.shape == (n - 1, 6) and np.isfinite(rel).all()
+        assert torch.cuda.memory_allocated() == base
+    assert peaks[1000] <= peaks[200]

@@ -35,6 +35,8 @@ def test_importing_every_module_loads_no_jax_or_colvo():
     assert "colvo_torch.kernels.sampler" in result["imported"]
     assert "colvo_torch.kernels.fused_loss" in result["imported"]
     assert "colvo_torch.runtime.train_step" in result["imported"]
+    for name in ("colvo_torch.vo.stream", "colvo_torch.native", "colvo_torch.evaluation.pose"):
+        assert name in result["imported"]
     assert [m for m in result["loaded"] if _forbidden(m)] == []
 
 
