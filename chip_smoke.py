@@ -41,7 +41,19 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
    reference's ``evaluate_synthetic``; no kernel may launch. Then
    frames/s of each input format and wire (at least 30), the layers of
    one chunk, the card's busy share and peak memory.
-7. Prints the kernel table as one JSON line, then the device line
+7. Loop phase: the training entry point at full width, in process through
+   ``colvo_torch.cli``: ``train`` for 8 steps on the synthetic dataset
+   (metrics every 2 steps, checkpoints every 4, the profiler over steps
+   5-7, the eval hook at step 7), ``export``, ``train --resume`` to step
+   10. The metrics rows, the eval hook's panels, the checkpoints, the
+   resume, the step-8 checkpoint against the live state bit for bit, the
+   export and run 1's launch counts (the slice's per step, times 8) are
+   checked; loop ms/step against the slice's, the card's busy share over
+   the profiled steps, peak memory and the producer thread's ms a batch
+   are printed. Then the dispatch-side NaN stop and a basin restart at
+   64×96.
+8. Prints the kernel table as one JSON line (launches over the slice
+   runs and loop run 1), then the device line
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -57,6 +69,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from collections import Counter
 from unittest import mock
 
@@ -545,7 +558,8 @@ def expected_launches(cfg: ColvoConfig, n_steps: int) -> dict:
 def slice_phase(cfg: ColvoConfig, device, batches, n_steps: int = TRAIN_STEPS):
     """Train steps at ``cfg``'s size + a held-out no-grad loss on
     ``batches[n_steps]``; returns the state, the metrics by step, the
-    launch counts and the median ms/step."""
+    launch counts, the median ms/step (CUDA events) and the median host
+    time of a ``train_step`` call (its dispatch)."""
     state = init_state(cfg, device=device)
 
     # Step 1's loss, recomputed with the plain kernels on the same weights.
@@ -561,11 +575,13 @@ def slice_phase(cfg: ColvoConfig, device, batches, n_steps: int = TRAIN_STEPS):
     reset_launch_counts()
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               if device.type == "cuda" else None for _ in range(n_steps)]
-    metrics = []
+    metrics, host_s = [], []
     for i in range(n_steps):
         if events[i]:
             events[i][0].record()
+        t0 = time.perf_counter()
         metrics.append(train_step(state, batches[i], cfg))
+        host_s.append(time.perf_counter() - t0)
         if events[i]:
             events[i][1].record()
     with torch.no_grad():
@@ -586,14 +602,15 @@ def slice_phase(cfg: ColvoConfig, device, batches, n_steps: int = TRAIN_STEPS):
     log("step 1 vs plain kernels: " + " ".join(
         f"{k} {metrics[0][k]:.6g}/{v:.6g}" for k, v in ref_aux.items()))
     log(f"held-out loss (no grad): {eval_loss.item():.6g}; launches: {counts}")
-    med = float("nan")
+    med, host_med = float("nan"), 1e3 * float(np.median(host_s[1:]))
     if device.type == "cuda":
         busy = profile_step(state, batches[0], cfg)
         med = float(np.median(step_ms[1:]))
         log(f"train step: {med:.2f} ms/step (median of steps 2..{n_steps}, CUDA events; "
             f"all: {[round(t, 2) for t in step_ms]}); device busy {busy:.2f} ms of it "
-            f"({100 * busy / med:.1f} %, kernel time of the profiled step)")
-    return state, metrics, counts, med
+            f"({100 * busy / med:.1f} %, kernel time of the profiled step); a train_step call "
+            f"returns after {host_med:.2f} ms on the host clock (median, its dispatch)")
+    return state, metrics, counts, med, host_med
 
 
 # Kernel-name keywords of the buckets in the step breakdown, first match wins.
@@ -906,6 +923,260 @@ def vo_busy(fn, smi: str) -> None:
         + "; ".join(f"{ms:.2f} ms {name[:60]}" for name, ms in top))
 
 
+LOOP_STEPS, LOOP_RESUME_TO = 8, 10  # run 1 of the CLI, then run 2 resumes to this step
+LOOP_ARGS = ["--train.log_every=2", "--train.ckpt_every_steps=4"]
+LOOP_PROFILE = (5, 7)  # train.profile_steps of run 1
+LOOP_SMALL = (64, 96)  # the NaN-stop and restart runs' frames
+LOOP_ALONE_BATCHES = 5  # batches the producer's code builds alone, timed
+
+
+def _png_shape(path: str) -> tuple:
+    """Decode an 8-bit RGB PNG with zlib alone; returns its array's shape."""
+    with open(path, "rb") as f:
+        data = f.read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path} is a PNG")
+    pos, idat, hdr = 8, b"", None
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            hdr = body
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h = int.from_bytes(hdr[:4], "big"), int.from_bytes(hdr[4:8], "big")
+    check(hdr[8:10] == b"\x08\x02", f"{path}: 8-bit RGB")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    return rows[:, 1:].reshape(h, w, 3).shape
+
+
+def trace_busy(path: str) -> tuple:
+    """(device-busy ms, window ms) of a ``torch.profiler`` Chrome trace: the
+    union of its kernel, copy and memset intervals, over the span of all
+    its events."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    dev = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, -float("inf")
+    for a, b in dev:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    span = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
+    return busy / 1e3, span / 1e3
+
+
+def _timed_batches(real, times):
+    """``batch_iterator`` whose every ``next`` is timed on the host clock
+    (in the prefetcher's producer thread, so GIL waits are in the time)."""
+    def wrapped(*args, **kwargs):
+        it = real(*args, **kwargs)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            times.append(time.perf_counter() - t0)
+            yield batch
+    return wrapped
+
+
+def loop_phase(device, smi: str, slice_ms: float, slice_dispatch_ms: float) -> dict:
+    """The training entry point at full width, in process through the CLI:
+    run 1 trains ``LOOP_STEPS`` steps on the synthetic dataset (logging
+    every 2, checkpoints every 4, the profiler over ``LOOP_PROFILE``, the
+    eval hook at the epoch's end, step 7), ``export`` writes the weights,
+    run 2 resumes to ``LOOP_RESUME_TO``. The producer thread's batch time
+    and each ``train_step`` call's host time are taken during run 1, and
+    the producer's again alone on run 1's dataset. Then the dispatch-side
+    NaN stop and a basin restart at ``LOOP_SMALL``. Returns run 1's kernel
+    launches."""
+    import contextlib
+    import io
+
+    from colvo_torch import cli, pipelines
+    from colvo_torch.runtime import CheckpointManager, params_from_flax
+    from colvo_torch.runtime import loop as loop_mod
+
+    t_phase = time.time()
+    cfg = ColvoConfig()
+    runs, datasets, producer_s, calls = [], [], [], []
+    real_train, real_step = pipelines.train_loop, loop_mod.train_step
+
+    def recording(cfg_, dataset, **kwargs):
+        datasets.append(dataset)
+        out = real_train(cfg_, dataset, **kwargs)
+        runs.append(out[1])
+        return out
+
+    def timed_step(*args):
+        t0 = time.perf_counter()
+        out = real_step(*args)
+        calls.append((t0, time.perf_counter()))
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.object(pipelines, "train_loop", recording):
+        log_dir, ckpt_dir = os.path.join(tmp, "log"), os.path.join(tmp, "ckpt")
+        common = LOOP_ARGS + ["--log-dir", log_dir, f"--train.ckpt_dir={ckpt_dir}",
+                              "--device", device.type]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.time()
+        with mock.patch.object(loop_mod, "batch_iterator",
+                               _timed_batches(loop_mod.batch_iterator, producer_s)), \
+                mock.patch.object(loop_mod, "train_step", timed_step):
+            check(cli.main(["train", "--max-steps", str(LOOP_STEPS),
+                            "--train.profile_steps={}:{}".format(*LOOP_PROFILE)] + common) == 0,
+                  "cli train, run 1")
+        run1_s = time.time() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        per_step = Counter(expected_launches(cfg, LOOP_STEPS)) - Counter(expected_launches(cfg, 0))
+        check(counts == dict(per_step), f"loop run 1 launches {counts} == {dict(per_step)}")
+
+        # The checkpoint of step 8 holds run 1's final state bit for bit.
+        state = runs[0]
+        check(state.step == LOOP_STEPS, f"run 1 ended at step {state.step}")
+        check(sorted(int(d) for d in os.listdir(ckpt_dir)) == [4, 8], "checkpoints at 4 and 8")
+        payload, _, _ = CheckpointManager(ckpt_dir).load(LOOP_STEPS)
+        live = {f"model/{k}": v for k, v in state.model.state_dict().items()}
+        saved = {f"model/{k}": v for k, v in payload["model"].items()}
+        for i, s in state.optimizer.state_dict()["state"].items():
+            live.update({f"adam/{i}/{k}": v for k, v in s.items()})
+            saved.update({f"adam/{i}/{k}": v for k, v in payload["optimizer"]["state"][i].items()})
+        check(live.keys() == saved.keys() and all(
+            torch.equal(live[k].cpu(), saved[k]) for k in live),
+            "the step-8 checkpoint equals run 1's state bit for bit (model, Adam moments)")
+        out = os.path.join(tmp, "weights.npz")
+        check(cli.main(["export", ckpt_dir, out]) == 0, "cli export")
+        with np.load(out) as f:
+            exported = params_from_flax({k: f[k] for k in f.files}, cfg.model)
+        model_sd = state.model.state_dict()
+        check(all(torch.equal(v, model_sd[k].cpu()) for k, v in exported.items()),
+              "the export maps back onto the model, no key left over, bit for bit")
+        del state, payload, live, saved, model_sd
+        runs.clear()
+        it = batch_iterator(datasets.pop(), cfg.data, seed=cfg.train.seed)
+        alone_s = []
+        for _ in range(LOOP_ALONE_BATCHES):
+            t0 = time.perf_counter()
+            next(it)
+            alone_s.append(time.perf_counter() - t0)
+
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            check(cli.main(["train", "--resume", "--max-steps", str(LOOP_RESUME_TO)] + common)
+                  == 0, "cli train --resume, run 2")
+        run2_s = time.time() - t0
+        log(buf.getvalue().rstrip())
+        check(f"resumed from step {LOOP_STEPS}" in buf.getvalue() and runs[0].step == LOOP_RESUME_TO,
+              "run 2 resumed at step 8 and ended at 10")
+        runs.clear()
+
+        with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        losses = [r for r in rows if "loss/total" in r]
+        evals = [r for r in rows if "eval/abs_rel" in r]
+        walls = [r for r in rows if "wall_steps_per_sec" in r]
+        check([r["step"] for r in losses] == [2, 4, 6, 8, 10], f"loss rows {losses}")
+        check(all(np.isfinite(v) for r in losses for k, v in r.items() if k.startswith("loss/")),
+              "every logged loss finite")
+        check([r["step"] for r in evals] == [7] and "eval/ate" in evals[0]
+              and all(np.isfinite(v) for v in evals[0].values()), f"eval rows {evals}")
+        check([r["step"] for r in walls] == [8, 10], f"wall rows {walls}")
+        for tag in ("disp", "automask", "warp_error"):
+            shape = _png_shape(os.path.join(log_dir, f"panels_{tag}_00000007.png"))
+            check(shape == (cfg.data.height, cfg.data.width, 3), f"panel {tag} {shape}")
+        busy, window = trace_busy(os.path.join(
+            log_dir, "trace_steps_{}_{}.json".format(*LOOP_PROFILE)))
+    sps = [round(r["steps_per_sec"], 3) for r in rows if "steps_per_sec" in r]
+    log(f"eval hook at step 7: " + " ".join(
+        f"{k}={v:.5g}" for k, v in evals[0].items() if k.startswith("eval/")))
+    loop_ms = 1e3 / walls[0]["wall_steps_per_sec"]
+    log(f"loop ({smi}): run 1 {loop_ms:.2f} ms/step over {LOOP_STEPS} steps (wall_steps_per_sec, "
+        f"eval hook, profiler window and checkpoints included) against the default slice's "
+        f"{slice_ms:.2f} ms/step (median, CUDA events, same process): {loop_ms - slice_ms:+.2f} ms; "
+        f"run 2 {1e3 / walls[1]['wall_steps_per_sec']:.2f} ms/step over "
+        f"{LOOP_RESUME_TO - LOOP_STEPS} steps; the logger's stamped steps/s {sps}")
+    log(f"loop: the card busy {busy:.2f} ms of the {window:.2f} ms profiled window (steps "
+        "{}-{}, {:.1f} %); peak memory over run 1 {:.2f} GiB; run 1 took {:.1f} s, run 2 {:.1f} s "
+        "(rendering, init, steps)".format(*LOOP_PROFILE, 100 * busy / window, peak, run1_s, run2_s))
+    log(f"loop: the producer thread built a batch (B={cfg.data.batch_size}, augment) in "
+        f"{1e3 * np.median(producer_s):.1f} ms (median of {len(producer_s)}, host clock, "
+        f"while training; all {[round(1e3 * t, 1) for t in producer_s]}), and "
+        f"{1e3 * np.median(alone_s):.1f} ms alone (median of {len(alone_s)}, the main thread, "
+        f"nothing else running; all {[round(1e3 * t, 1) for t in alone_s]})")
+    dispatch = [1e3 * (b - a) for a, b in calls]
+    gaps = [1e3 * (b[0] - a[0]) for a, b in zip(calls, calls[1:])]
+    log(f"loop: a train_step call returned after {np.median(dispatch[1:]):.2f} ms on the host "
+        f"clock in run 1 (median of steps 2-{LOOP_STEPS}; the slice's {slice_dispatch_ms:.2f}); "
+        f"one call started every {np.median(gaps):.2f} ms (median; all "
+        f"{[round(g, 1) for g in gaps]}; the eval hook runs between steps 7 and 8)")
+    loop_small_runs(device)
+    log(f"the loop phase took {time.time() - t_phase:.1f} s")
+    return counts
+
+
+def loop_small_runs(device) -> None:
+    """The dispatch-side NaN stop and a basin restart, at ``LOOP_SMALL``."""
+    from colvo_torch.data import SnippetDataset, render_sequence
+    from colvo_torch.runtime import loop as loop_mod
+
+    h, w = LOOP_SMALL
+    seq = render_sequence(n_frames=16, height=h, width=w, seed=3)
+    poisoned = seq.frames.copy()
+    poisoned[2] = np.nan
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = ColvoConfig()
+        cfg.data.height, cfg.data.width, cfg.data.batch_size = h, w, 4
+        cfg.train.log_every, cfg.train.dispatch_ahead_windows = 1, 1
+        cfg.train.ckpt_dir = os.path.join(tmp, "nan_ckpt")
+        calls = []
+        real_step = loop_mod.train_step
+
+        def counted(state, batch, cfg_):
+            calls.append(state.step + 1)
+            return real_step(state, batch, cfg_)
+
+        ds = SnippetDataset([poisoned], [seq.k], cfg.data.frame_offsets)
+        raised = None
+        try:
+            with mock.patch.object(loop_mod, "train_step", counted):
+                loop_mod.train(cfg, ds, log_dir=os.path.join(tmp, "nan_log"), max_steps=30,
+                               device=device)
+        except RuntimeError as e:
+            raised = str(e)
+        check(raised is not None and "non-finite loss at step" in raised,
+              f"the poisoned run raised the dispatch-side stop: {raised}")
+        bad = int(raised.rsplit(" ", 1)[-1])
+        windows = cfg.train.dispatch_ahead_windows + 1
+        check(calls[-1] - bad <= windows * cfg.train.log_every,
+              f"NaN stop within {windows} log windows: step {bad} retired at {calls[-1]}")
+        log(f"loop NaN stop at {h}x{w}: non-finite loss of step {bad} raised after "
+            f"{calls[-1]} dispatched steps")
+
+        cfg = ColvoConfig()
+        cfg.data.height, cfg.data.width, cfg.data.batch_size = h, w, 4
+        cfg.train.log_every = cfg.train.ckpt_every_steps = 2
+        cfg.train.ckpt_dir = os.path.join(tmp, "restart_ckpt")
+        cfg.train.restart_metric, cfg.train.restart_threshold = "loss/total", 1e-9
+        cfg.train.restart_check_step, cfg.train.restart_max = 3, 1
+        ds = SnippetDataset([seq.frames], [seq.k], cfg.data.frame_offsets)
+        _, state = loop_mod.train(cfg, ds, log_dir=os.path.join(tmp, "restart_log"),
+                                  max_steps=6, device=device)
+        with open(os.path.join(tmp, "restart_log", "metrics.jsonl")) as f:
+            restarts = [json.loads(line) for line in f if "restart/attempt" in line]
+        check(len(restarts) == 1 and restarts[0]["restart/new_seed"] == cfg.train.seed + 1000
+              and state.step == 6, f"one restart, then 6 steps: {restarts}, step {state.step}")
+        log(f"loop restart at {h}x{w}: fired once at step {restarts[0]['step']} "
+            f"(loss/total {restarts[0]['restart/metric_value']:.4g}), ended at step {state.step}")
+
+
 KERNELS = (
     ("P1", "bilinear_sample[grad,C=3]", "colvo_torch/kernels/csrc/sampler.cu",
      "colvo/kernels/sampler.py:658", "S/grad/C3"),
@@ -950,13 +1221,14 @@ def main() -> int:
 
     rows = kernel_phase(device)
     batches = make_batches(ColvoConfig(), device)
-    counts, first, step_ms = Counter(), {}, {}
+    counts, first, step_ms, dispatch_ms = Counter(), {}, {}, {}
     for label, knobs in PATHS:
         log(f"--- slice: {label} ---")
         cfg = ColvoConfig()
         for k, v in knobs.items():
             setattr(cfg.loss, k, v)
-        state, metrics, path_counts, step_ms[label] = slice_phase(cfg, device, batches)
+        state, metrics, path_counts, step_ms[label], dispatch_ms[label] = slice_phase(
+            cfg, device, batches)
         expect = expected_launches(cfg, TRAIN_STEPS)
         check(path_counts == expect, f"{label} launch counts {path_counts} == {expect}")
         counts.update(path_counts)
@@ -973,6 +1245,12 @@ def main() -> int:
         del state  # the next path's peak memory holds its own state only
     log("train ms/step (median of steps 2.., CUDA events): " + ", ".join(
         f"{k} {v:.2f}" for k, v in step_ms.items()))
+    log("--- loop: cli train, export, train --resume ---")
+    counts.update(loop_phase(device, smi, step_ms["default"], dispatch_ms["default"]))
+
+    # Nothing of JAX came in, not even through a library the port imports.
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "colvo"))
+    check(loaded == [], f"modules of JAX or colvo loaded: {loaded[:8]}")
 
     table = []
     for key, name, src, replaces, counter in KERNELS:

@@ -129,6 +129,15 @@ class ColvoConfig:
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
 
+    def dump(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(self.to_dict(), f, indent=2, default=list)
+
+    @classmethod
+    def load(cls, path: str) -> "ColvoConfig":
+        with open(path) as f:
+            return cls.from_dict(json.load(f))
+
     @classmethod
     def from_dict(cls, d: dict) -> "ColvoConfig":
         cfg = cls()

@@ -1,8 +1,9 @@
 """Host data code (numpy only): synthetic colon renderer, snippets,
-augmentation and intrinsics."""
+augmentation and intrinsics; and the device prefetcher."""
 
 from colvo_torch.data.augment import augment_snippet, color_jitter
 from colvo_torch.data.intrinsics import Intrinsics, scale_intrinsics
+from colvo_torch.data.prefetch import prefetch_to_device
 from colvo_torch.data.snippets import Snippet, SnippetDataset, batch_iterator, synthetic_dataset
 from colvo_torch.data.synthetic import (
     ColonSequence,
@@ -19,6 +20,7 @@ __all__ = [
     "SnippetDataset",
     "synthetic_dataset",
     "batch_iterator",
+    "prefetch_to_device",
     "augment_snippet",
     "color_jitter",
     "ColonSequence",

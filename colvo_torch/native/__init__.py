@@ -2,8 +2,10 @@
 chaining) through ``ctypes``, a copy of ``colvo/native``.
 
 The library is compiled with ``g++`` on first use into ``_build/``
-(git-ignored), named by a hash of the source and flags, so a changed
-source rebuilds. There is no fallback: a failed build or load raises.
+(git-ignored), named by a hash of the source, the flags and the host CPU's
+target (``-march=native`` fits the binary to the CPU that built it), so a
+changed source, or a checkout that moved to another host, rebuilds. There
+is no fallback: a failed build or load raises.
 The numpy plain versions live beside their callers and serve the tests
 only.
 """
@@ -34,8 +36,19 @@ _F32P = ctypes.POINTER(ctypes.c_float)
 _F64P = ctypes.POINTER(ctypes.c_double)
 
 
+def _cpu_identity() -> bytes:
+    """What ``-march=native`` resolves to on this host: the compiler's
+    list of target options with their values."""
+    try:
+        proc = subprocess.run([CXX, "-march=native", "-Q", "--help=target"],
+                              capture_output=True, check=True)
+    except (OSError, subprocess.CalledProcessError) as e:
+        raise RuntimeError(f"cannot ask {CXX!r} for the host CPU's target: {e}") from e
+    return proc.stdout
+
+
 def _target() -> Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + SRC.read_bytes())
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + _cpu_identity() + SRC.read_bytes())
     return BUILD_DIR / f"voxel-{h.hexdigest()[:16]}.so"
 
 

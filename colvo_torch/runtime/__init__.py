@@ -1,7 +1,11 @@
-"""Train step, inference runner and weight conversion."""
+"""Train step, training loop, checkpoints, metrics, inference runner and
+weight conversion."""
 
-from colvo_torch.runtime.convert import export_npz, flax_params, params_from_flax
+from colvo_torch.runtime.checkpoint import CheckpointManager
+from colvo_torch.runtime.convert import export_npz, flax_params, load_npz, params_from_flax
 from colvo_torch.runtime.infer import InferenceRunner
+from colvo_torch.runtime.loop import train
+from colvo_torch.runtime.metrics import AsyncMetricsLogger, MetricsWriter
 from colvo_torch.runtime.train_step import (
     TrainState,
     clip_by_global_norm,
@@ -22,8 +26,13 @@ __all__ = [
     "geo_scale",
     "clip_by_global_norm",
     "to_device",
+    "train",
+    "CheckpointManager",
+    "MetricsWriter",
+    "AsyncMetricsLogger",
     "InferenceRunner",
     "params_from_flax",
     "export_npz",
+    "load_npz",
     "flax_params",
 ]

@@ -4,6 +4,7 @@
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Dict, Mapping
 
@@ -99,3 +100,14 @@ def export_npz(state_dict: Mapping[str, torch.Tensor], path: str) -> str:
         path += ".npz"
     np.savez(path, **flax_params(state_dict))
     return path
+
+
+def load_npz(path: str, model_cfg: ModelConfig | None = None) -> Dict[str, torch.Tensor]:
+    """Read a flat ``.npz`` (written by :func:`export_npz` or the
+    reference's ``export_params``) into a port ``state_dict`` through
+    :func:`params_from_flax`. A path without the suffix finds the file
+    ``np.savez`` wrote."""
+    if not os.path.exists(path) and os.path.exists(path + ".npz"):
+        path += ".npz"
+    with np.load(path) as data:
+        return params_from_flax({k: data[k] for k in data.files}, model_cfg)

@@ -1,0 +1,237 @@
+"""Training loop (port of ``colvo/runtime/loop.py``).
+
+Epochs over the snippet dataset with device prefetch, periodic
+checkpoints, async metrics, the NaN guards, basin detect-and-restart, the
+profiler window and the eval hook, on one device. No step of the loop
+waits for the device, except the bounded dispatch-ahead drain, the one
+fetch of the restart check, the eval hook and the end of the run.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from collections import deque
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from colvo_torch import resolve_device
+from colvo_torch.config import ColvoConfig
+from colvo_torch.data import SnippetDataset, batch_iterator
+from colvo_torch.data.prefetch import prefetch_to_device
+from colvo_torch.runtime.checkpoint import CheckpointManager
+from colvo_torch.runtime.metrics import AsyncMetricsLogger, DeviceScalars, MetricsWriter
+from colvo_torch.runtime.train_step import init_state, train_step
+
+# Host→device prefetch depth of the numpy loader.
+_PREFETCH = 2
+
+
+def _check_supported(cfg: ColvoConfig) -> None:
+    if cfg.data.loader == "device":
+        raise NotImplementedError(
+            "data.loader='device' (the device-resident corpus) is not ported yet: "
+            "ROADMAP.md §A.2")
+    if cfg.data.loader == "grain":
+        raise NotImplementedError(
+            "data.loader='grain' (the checkpointable multi-worker loader) is not ported "
+            "yet: ROADMAP.md §A.4")
+    if cfg.data.loader != "numpy":
+        raise ValueError(f"unknown data.loader {cfg.data.loader!r}")
+    if cfg.mesh.data_parallel not in (1, -1):
+        raise NotImplementedError(
+            f"mesh.data_parallel={cfg.mesh.data_parallel}: data parallelism is not "
+            "ported yet (ROADMAP.md §A.5); the loop runs on one device")
+
+
+def train(
+    cfg: ColvoConfig,
+    dataset: SnippetDataset,
+    log_dir: str = "runs/train",
+    max_steps: Optional[int] = None,
+    eval_hook: Optional[Callable] = None,
+    eval_hook_factory: Optional[Callable] = None,
+    resume: bool = False,
+    device: str | torch.device = "cuda",
+):
+    """Full training entry. Returns (model, final state)."""
+    _check_supported(cfg)
+    device = resolve_device(device)
+    # Sanitizer mode: the first op that makes a NaN raises, with the
+    # forward op's trace. (train.deterministic on CUDA raises in init_state.)
+    with torch.autograd.set_detect_anomaly(bool(cfg.train.debug_nans)):
+        return _train(cfg, dataset, log_dir, max_steps, eval_hook, eval_hook_factory,
+                      resume, device)
+
+
+def _train(cfg, dataset, log_dir, max_steps, eval_hook, eval_hook_factory, resume, device):
+    steps_per_epoch = max(1, len(dataset) // cfg.data.batch_size)
+    total_steps = (
+        max_steps if max_steps is not None else steps_per_epoch * cfg.train.epochs
+    )
+
+    state = init_state(cfg, device=device, steps_per_epoch=steps_per_epoch)
+    if eval_hook is None and eval_hook_factory is not None and cfg.train.eval_every_epochs > 0:
+        eval_hook = eval_hook_factory(cfg, state.model)
+    eval_every = max(1, steps_per_epoch * max(cfg.train.eval_every_epochs, 1))
+
+    ckpt = CheckpointManager(
+        cfg.train.ckpt_dir, keep=cfg.train.ckpt_keep,
+        save_interval_steps=cfg.train.ckpt_every_steps,
+    )
+    start_step = 0
+    if resume and ckpt.latest_step() is not None:
+        state, start_step, _ = ckpt.restore(state, with_loader_state=True)
+        print(f"resumed from step {start_step}", flush=True)
+
+    # The fetch of logged scalars runs on the logger's thread, behind a
+    # CUDA event of its own (metrics.py).
+    logger = AsyncMetricsLogger(MetricsWriter(log_dir),
+                                fps_scale=float(cfg.data.batch_size))
+
+    profile_window = None
+    if cfg.train.profile_steps:
+        a, _, b = cfg.train.profile_steps.partition(":")
+        profile_window = (int(a), int(b))
+    prof = None
+
+    batches = batch_iterator(dataset, cfg.data, seed=cfg.train.seed)
+    # Skip already-consumed batches on resume (a position-only
+    # approximation: it reproduces the stream only inside the first epoch).
+    for _ in range(start_step % steps_per_epoch):
+        next(batches)
+    stream = prefetch_to_device(batches, size=_PREFETCH, device=device)
+
+    step = start_step
+    inflight: deque = deque()  # (step, DeviceScalars) awaiting retirement
+
+    def drain_inflight(down_to: int = 0) -> None:
+        """Retire queued loss fetches (each waits for its own event) down
+        to ``down_to`` entries; raise on any non-finite value. Called with
+        0 before the final checkpoint and at loop exit, so that a NaN in
+        the last dispatch-ahead windows cannot escape the dispatch-side stop
+        and checkpoint poisoned weights."""
+        while len(inflight) > down_to:
+            s_old, fetched = inflight.popleft()
+            loss = fetched.values().get("loss/total")
+            if loss is not None and not np.isfinite(loss):
+                raise RuntimeError(f"aborting: non-finite loss at step {s_old}")
+
+    # Basin detect-and-restart: one blocking fetch of train.restart_metric
+    # at train.restart_check_step; over the threshold, reinit with a
+    # derived seed and reset the step clock. The data stream is not
+    # restarted: replaying the same batches under a new init keeps the
+    # attempts comparable.
+    restarts_used = 0
+    restart_checked = False
+
+    wall_t0 = time.time()
+    try:
+        for batch in stream:
+            if step >= total_steps:
+                break
+            if profile_window and step == profile_window[0]:
+                activities = [torch.profiler.ProfilerActivity.CPU]
+                if device.type == "cuda":
+                    activities.append(torch.profiler.ProfilerActivity.CUDA)
+                prof = torch.profiler.profile(activities=activities)
+                prof.start()
+            metrics = train_step(state, batch, cfg)
+            step += 1
+
+            if prof is not None and step == profile_window[1]:
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                prof.stop()
+                prof.export_chrome_trace(os.path.join(
+                    log_dir, f"trace_steps_{profile_window[0]}_{profile_window[1]}.json"))
+                prof = None
+
+            if logger.error is not None:
+                raise RuntimeError("the metrics thread failed") from logger.error
+            if logger.bad_steps >= cfg.train.max_bad_steps:
+                raise RuntimeError(
+                    f"aborting: {logger.bad_steps} consecutive non-finite losses"
+                )
+            if step % cfg.train.log_every == 0 or step == total_steps:
+                # One device→host copy serves the logger and the drain;
+                # steps_per_sec/fps are stamped by the logger thread.
+                fetched = DeviceScalars(metrics)
+                logger.log(step, fetched)
+                # Bounded dispatch-ahead: retire the loss from N windows back,
+                # so a crawling or diverged device cannot queue an unbounded
+                # run of steps, and a NaN stops the loop on the dispatch side.
+                inflight.append((step, fetched))
+                drain_inflight(max(int(cfg.train.dispatch_ahead_windows), 1))
+
+            if (cfg.train.restart_threshold > 0 and not restart_checked
+                    and restarts_used < cfg.train.restart_max
+                    and step >= cfg.train.restart_check_step):
+                restart_checked = True
+                name = cfg.train.restart_metric
+                if name not in metrics:
+                    raise ValueError(
+                        f"train.restart_metric {name!r} not in step metrics "
+                        f"{sorted(metrics)}"
+                    )
+                val = float(metrics[name])  # one blocking fetch
+                if val > cfg.train.restart_threshold:
+                    restarts_used += 1
+                    new_seed = cfg.train.seed + 1000 * restarts_used
+                    logger.log(step, {
+                        "restart/attempt": float(restarts_used),
+                        "restart/metric_value": val,
+                        "restart/new_seed": float(new_seed),
+                    })
+                    print(f"[restart {restarts_used}/{cfg.train.restart_max}] "
+                          f"{name}={val:.4g} > {cfg.train.restart_threshold} "
+                          f"at step {step}; reinit with seed {new_seed}",
+                          flush=True)
+                    inflight.clear()  # the discarded attempt's fetches
+                    state = init_state(cfg, seed=new_seed, device=device,
+                                       steps_per_epoch=steps_per_epoch)
+                    ckpt.reset()  # on the checkpoint worker, after earlier saves
+                    step = 0
+                    start_step = 0
+                    restart_checked = False
+                    wall_t0 = time.time()
+                    continue
+
+            if step % cfg.train.ckpt_every_steps == 0 or step == total_steps:
+                if step == total_steps:
+                    # Final checkpoint: retire every queued loss first, so a
+                    # late NaN aborts before poisoned weights are saved.
+                    drain_inflight(0)
+                # Snapshot on the compute stream, written by the manager's
+                # worker: the next step's in-place update cannot race it.
+                ckpt.save(step, state)
+
+            if eval_hook is not None and step % eval_every == 0:
+                # Hook contract: (step, state, writer) → optional scalars,
+                # logged as eval/* rows beside the training rows; panels go
+                # straight to writer.log_image.
+                scalars = eval_hook(step, state, logger.writer)
+                if scalars:
+                    logger.log(step, scalars)
+
+        drain_inflight(0)  # early break / non-aligned final step
+        ckpt.wait()
+        # End of run: the one deliberate device sync. Wall time over
+        # executed steps is the unambiguous rate.
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall = time.time() - wall_t0
+        if step > start_step and wall > 0:
+            logger.log(step, {
+                "wall_steps_per_sec": (step - start_step) / wall,
+                "wall_fps": (step - start_step) * cfg.data.batch_size / wall,
+            })
+    finally:
+        if prof is not None:
+            prof.stop()
+        stream.close()
+        ckpt.close()
+        logger.close()
+    return state.model, state

@@ -95,6 +95,7 @@ def run_vo(
     frames: Iterable[np.ndarray],
     keyframe_every: int = 1,
     renorm_every: int = 50,
+    batch_pairs: int = 1,
     chunk_size: int = 16,
     depth_dtype: str = "float16",
     input_format: str = "rgb",
@@ -112,6 +113,8 @@ def run_vo(
         keyframe_every: keep the depth map of every k-th frame (frame 0
             always).
         renorm_every: renormalise the chained rotation every k frames.
+        batch_pairs: unused; kept in fifth place, as in the reference, so
+            that positional calls bind the same parameters.
         chunk_size, depth_dtype, symmetric_pose: see :class:`StreamingVO`.
 
     Self-supervised monocular VO is scale-ambiguous: the trajectory is in

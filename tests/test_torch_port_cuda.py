@@ -328,3 +328,123 @@ def test_stream_device_memory_flat_over_1000_frames(device):
         assert depths == [] and rel.shape == (n - 1, 6) and np.isfinite(rel).all()
         assert torch.cuda.memory_allocated() == base
     assert peaks[1000] <= peaks[200]
+
+
+def _host_batches(n, seed=5):
+    """``n`` numpy batches shaped like the loader's, made one at a time;
+    ``frames_clean`` is ``frames`` (no augmentation), as the loader gives."""
+    rng = np.random.default_rng(seed)
+    for _ in range(n):
+        frames = rng.random((4, 3, 64, 96, 3), dtype=np.float32)
+        yield {"frames": frames, "frames_clean": frames,
+               "k": rng.random((3, 3), dtype=np.float32)}
+
+
+@pytest.mark.cuda
+def test_prefetcher_equals_the_numpy_stream_with_flat_memory(device):
+    """50 batches through 2 slots arrive in order, equal to the numpy
+    stream, while the consumer's stream is kept busy. Device memory is
+    flat: over 10 batches and over 50 it peaks at no more than size + 3
+    batches (the queue, the one the producer holds at its put, the one
+    being yielded, and the one the consumer still holds until the yield
+    rebinds its loop variable), and it is all freed after."""
+    from colvo_torch.data import prefetch_to_device
+
+    size = 2
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    per_batch = None
+    for n in (10, 50):
+        torch.cuda.reset_peak_memory_stats()
+        want = _host_batches(n)
+        count = 0
+        for got in prefetch_to_device(_host_batches(n), size=size, device=device):
+            torch.cuda._sleep(2_000_000)  # a step's worth of queued work
+            ref = next(want)
+            assert got["frames_clean"] is got["frames"]
+            for key in ("frames", "k"):
+                assert got[key].device.type == "cuda" and got[key].dtype == torch.float32
+                np.testing.assert_array_equal(got[key].cpu().numpy(), ref[key])
+            if per_batch is None:  # the allocator rounds each block to 512 bytes
+                per_batch = sum(-(-t.numel() * t.element_size() // 512) * 512
+                                for t in (got["frames"], got["k"]))
+            count += 1
+        del got  # the loop variable holds the last batch
+        assert count == n
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated() - base <= (size + 3) * per_batch, n
+        assert torch.cuda.memory_allocated() == base
+
+
+@pytest.mark.cuda
+def test_async_logger_fetch_does_not_wait_for_later_steps(device, tmp_path):
+    """The logger writes step k's row while the work of steps k+1..k+3 is
+    still queued on the stream: its fetch waits on step k's own event."""
+    import json
+    import time
+
+    from colvo_torch.runtime import AsyncMetricsLogger, MetricsWriter
+
+    writer = MetricsWriter(str(tmp_path), also_stdout=False)
+    logger = AsyncMetricsLogger(writer)
+    loss = torch.full((), 0.25, device=device) * 2
+    torch.cuda.synchronize()
+    logger.log(1, {"loss/total": loss, "grad_norm": loss + 1})
+    for _ in range(3):  # steps k+1..k+3: about a second of device time each
+        torch.cuda._sleep(1_500_000_000)
+    path = tmp_path / "metrics.jsonl"
+    deadline = time.time() + 30
+    while time.time() < deadline and not path.read_text():
+        time.sleep(0.005)
+    still_queued = not torch.cuda.current_stream().query()
+    rows = [json.loads(line) for line in path.read_text().splitlines()]
+    torch.cuda.synchronize()
+    logger.close()
+    assert rows and rows[0]["step"] == 1
+    assert rows[0]["loss/total"] == 0.5 and rows[0]["grad_norm"] == 1.5
+    assert still_queued
+
+
+@pytest.mark.cuda
+def test_snapshot_before_an_in_place_adam_step_restores_pre_step_values(device, tmp_path):
+    """A snapshot queued behind a long kernel, then an in-place Adam step:
+    the checkpoint holds the values from before the step."""
+    from colvo_torch.runtime import CheckpointManager, TrainState
+
+    torch.manual_seed(0)
+    model = torch.nn.Sequential(torch.nn.Linear(64, 64), torch.nn.Tanh(),
+                                torch.nn.Linear(64, 8)).to(device)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+    x = torch.randn((16, 64), device=device)
+    for _ in range(2):
+        opt.zero_grad()
+        model(x).square().sum().backward()
+        opt.step()
+    state = TrainState(model, opt, 2, 10)
+
+    def tensors(s):
+        out = {f"m/{k}": v.detach().clone() for k, v in s.model.state_dict().items()}
+        for i, st in s.optimizer.state_dict()["state"].items():
+            out.update({f"o/{i}/{k}": v.detach().clone() for k, v in st.items()})
+        return out
+
+    before = tensors(state)
+    mgr = CheckpointManager(str(tmp_path / "ckpt"))
+    torch.cuda._sleep(500_000_000)  # the snapshot's copies wait behind this
+    mgr.save(2, state)
+    opt.zero_grad()
+    model(x).square().sum().backward()
+    opt.step()  # in place, queued after the snapshot's copies
+    mgr.wait()
+    after = tensors(state)
+    assert any(not torch.equal(after[k], before[k]) for k in before if k.startswith("m/"))
+    fresh_model = torch.nn.Sequential(torch.nn.Linear(64, 64), torch.nn.Tanh(),
+                                      torch.nn.Linear(64, 8)).to(device)
+    fresh = TrainState(fresh_model, torch.optim.Adam(fresh_model.parameters(), lr=1e-2), 0, 1)
+    restored, step = mgr.restore(fresh)
+    mgr.close()
+    assert step == 2 and restored.step == 2
+    got = tensors(restored)
+    assert sorted(got) == sorted(before)
+    for k in before:
+        assert torch.equal(got[k].cpu(), before[k].cpu()), k

@@ -277,3 +277,34 @@ def test_native_rejects_malformed_arrays():
         native.voxel_downsample(np.zeros((5, 3), np.float32), 0.1, np.zeros((4, 3)))
     with pytest.raises(ValueError):
         native.voxel_downsample(np.zeros((5, 3), np.float32), 0.0)
+
+
+def test_native_library_name_follows_the_host_cpu(monkeypatch):
+    """The library is built with -march=native, so two CPUs must never
+    share one build: two CPU identities give two library paths, and one
+    identity gives one."""
+    paths = []
+    for cpu in (b"-march=  skylake-avx512", b"-march=  znver4", b"-march=  skylake-avx512"):
+        monkeypatch.setattr(native, "_cpu_identity", lambda cpu=cpu: cpu)
+        paths.append(native._target())
+    assert paths[0] != paths[1] and paths[0] == paths[2]
+    assert all(p.parent == native.BUILD_DIR for p in paths)
+    monkeypatch.undo()
+    assert b"-march=" in native._cpu_identity()
+
+
+@pytest.mark.parametrize("pair", ["run_vo", "StreamingVO.__init__", "StreamingVO.run"])
+def test_signatures_match_the_reference(pair):
+    """Parameter names, order, kinds and defaults equal colvo's, so that
+    positional calls bind the same parameters (run_vo's fifth is the
+    reference's unused batch_pairs)."""
+    import inspect
+
+    got, want = {
+        "run_vo": (run_vo, jax_run_vo),
+        "StreamingVO.__init__": (StreamingVO.__init__, JaxStreamingVO.__init__),
+        "StreamingVO.run": (StreamingVO.run, JaxStreamingVO.run),
+    }[pair]
+    describe = lambda fn: [(p.name, p.kind, p.default)  # noqa: E731
+                           for p in inspect.signature(fn).parameters.values()]
+    assert describe(got) == describe(want)
