@@ -52,9 +52,18 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
    the profiled steps, peak memory and the producer thread's ms a batch
    are printed. Then the dispatch-side NaN stop and a basin restart at
    64×96.
-8. Prints the kernel table as one JSON line (launches over the slice
-   runs and loop run 1), then the device line
-   ``{"ok": true, "device": {...}}`` last.
+8. Device-loader phase: run 3 of ``cli train`` with ``data.loader=device``
+   on the loop phase's dataset, as run 1 and checked as it is, with its
+   ms/step beside run 1's, the interval between steps, the busy share,
+   peak memory and the store's upload; a store of 100 × 100 frames at
+   256×320 (2.46 GB of uint8, tiled): its upload, one batch's gather +
+   augment, its memory; ``make_scan_train`` at K=4 against 4 eager train
+   steps fed the same indices and augmentation draws (step 1's loss terms
+   to 1e-3 relative), 3 replays (the counter, fresh indices, launches =
+   captured × replays), the chunk's ms/step, busy share and peak memory.
+9. Prints the kernel table as one JSON line (launches over the slice
+   runs, loop run 1, the device-loader run and the chunk's checked
+   replays), then the device line ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It also fails without a CUDA card, or where ``colvo_torch`` is absent.
@@ -645,6 +654,9 @@ def profile_step(state, batch, cfg: ColvoConfig) -> float:
         torch.cuda.synchronize()
     step_ms = start.elapsed_time(end)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(os.path.join(tmp, "step.json"))
+        log("profiled step, the host: " + trace_host(os.path.join(tmp, "step.json")))
     kernels = {}
     for evt in prof.events():
         if (evt.device_type == torch.autograd.DeviceType.CUDA
@@ -896,9 +908,10 @@ def vo_stage_times(runner, frames, rel6, smi: str) -> None:
         f"host decode {decode:.3f} ms; native chain of {len(rel6)} poses {chain:.3f} ms (host clock)")
 
 
-def vo_busy(fn, smi: str) -> None:
-    """The card's busy share over one ``fn()`` (device time of kernels and
-    copies under ``torch.profiler`` over the host clock of the call)."""
+def busy_share(fn) -> tuple:
+    """(device ms, host ms, kernels by name) of one ``fn()`` after a warm-up
+    call: the device time of kernels and copies under ``torch.profiler``
+    and the host clock of the call, which ends in a synchronize."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -913,7 +926,12 @@ def vo_busy(fn, smi: str) -> None:
         if (evt.device_type == torch.autograd.DeviceType.CUDA
                 and not getattr(evt, "is_user_annotation", False)):
             kernels[evt.name] = kernels.get(evt.name, 0.0) + evt.device_time_total / 1e3
-    busy = sum(kernels.values())
+    return sum(kernels.values()), wall, kernels
+
+
+def vo_busy(fn, smi: str) -> None:
+    """The card's busy share over one ``fn()``."""
+    busy, wall, kernels = busy_share(fn)
     if busy == 0.0:
         log("VO busy share: the profiler recorded no device time; not measured")
         return
@@ -967,6 +985,31 @@ def trace_busy(path: str) -> tuple:
     return busy / 1e3, span / 1e3
 
 
+def trace_host(path: str, top: int = 6) -> str:
+    """The host side of a ``torch.profiler`` Chrome trace: the CUDA runtime
+    and driver calls with the most time summed over the window (a call
+    that blocks, a synchronize or an allocation shows here), then the
+    outermost ATen ops of each thread by summed time."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    calls, n_calls, outer = Counter(), Counter(), Counter()
+    for e in events:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver"):
+            calls[e["name"]] += e["dur"] / 1e3
+            n_calls[e["name"]] += 1
+    ops = sorted((e for e in events if e.get("cat") == "cpu_op"),
+                 key=lambda e: (e.get("tid"), e["ts"]))
+    end, tid = -float("inf"), None
+    for e in ops:
+        if e.get("tid") != tid or e["ts"] >= end:
+            outer[e["name"]] += e["dur"] / 1e3
+            end, tid = e["ts"] + e["dur"], e.get("tid")
+    return ("runtime calls " + "; ".join(f"{k} {v:.2f} ms x{n_calls[k]}"
+                                         for k, v in calls.most_common(top))
+            + " | outermost ops " + "; ".join(f"{k[:48]} {v:.2f} ms"
+                                              for k, v in outer.most_common(top)))
+
+
 def _timed_batches(real, times):
     """``batch_iterator`` whose every ``next`` is timed on the host clock
     (in the prefetcher's producer thread, so GIL waits are in the time)."""
@@ -992,7 +1035,7 @@ def loop_phase(device, smi: str, slice_ms: float, slice_dispatch_ms: float) -> d
     and each ``train_step`` call's host time are taken during run 1, and
     the producer's again alone on run 1's dataset. Then the dispatch-side
     NaN stop and a basin restart at ``LOOP_SMALL``. Returns run 1's kernel
-    launches."""
+    launches, its dataset and its ms/step."""
     import contextlib
     import io
 
@@ -1060,7 +1103,7 @@ def loop_phase(device, smi: str, slice_ms: float, slice_dispatch_ms: float) -> d
               "the export maps back onto the model, no key left over, bit for bit")
         del state, payload, live, saved, model_sd
         runs.clear()
-        it = batch_iterator(datasets.pop(), cfg.data, seed=cfg.train.seed)
+        it = batch_iterator(datasets[0], cfg.data, seed=cfg.train.seed)
         alone_s = []
         for _ in range(LOOP_ALONE_BATCHES):
             t0 = time.perf_counter()
@@ -1092,8 +1135,9 @@ def loop_phase(device, smi: str, slice_ms: float, slice_dispatch_ms: float) -> d
         for tag in ("disp", "automask", "warp_error"):
             shape = _png_shape(os.path.join(log_dir, f"panels_{tag}_00000007.png"))
             check(shape == (cfg.data.height, cfg.data.width, 3), f"panel {tag} {shape}")
-        busy, window = trace_busy(os.path.join(
-            log_dir, "trace_steps_{}_{}.json".format(*LOOP_PROFILE)))
+        trace = os.path.join(log_dir, "trace_steps_{}_{}.json".format(*LOOP_PROFILE))
+        busy, window = trace_busy(trace)
+        host = trace_host(trace)
     sps = [round(r["steps_per_sec"], 3) for r in rows if "steps_per_sec" in r]
     log(f"eval hook at step 7: " + " ".join(
         f"{k}={v:.5g}" for k, v in evals[0].items() if k.startswith("eval/")))
@@ -1117,9 +1161,10 @@ def loop_phase(device, smi: str, slice_ms: float, slice_dispatch_ms: float) -> d
         f"clock in run 1 (median of steps 2-{LOOP_STEPS}; the slice's {slice_dispatch_ms:.2f}); "
         f"one call started every {np.median(gaps):.2f} ms (median; all "
         f"{[round(g, 1) for g in gaps]}; the eval hook runs between steps 7 and 8)")
+    log("loop: the host over the profiled window: " + host)
     loop_small_runs(device)
     log(f"the loop phase took {time.time() - t_phase:.1f} s")
-    return counts
+    return counts, datasets[0], loop_ms
 
 
 def loop_small_runs(device) -> None:
@@ -1175,6 +1220,270 @@ def loop_small_runs(device) -> None:
               and state.step == 6, f"one restart, then 6 steps: {restarts}, step {state.step}")
         log(f"loop restart at {h}x{w}: fired once at step {restarts[0]['step']} "
             f"(loss/total {restarts[0]['restart/metric_value']:.4g}), ended at step {state.step}")
+
+
+STORE_SHAPE = (100, 100)  # sequences × frames: the corpus colvo/data/device_store.py:5-7 sizes
+CHUNK_K, CHUNK_REPLAYS, CHUNK_TIMED = 4, 3, 5  # steps a chunk; checked and timed replays
+TOL_CHUNK_REL = 1e-3  # step 1's loss terms, chunk against eager (the slice's path check)
+
+
+def device_loader_phase(device, smi: str, dataset, numpy_loop_ms: float, slice_ms: float,
+                        slice_dispatch_ms: float) -> Counter:
+    """The device-resident corpus and the captured chunk at full width: run
+    3 of ``cli train`` on ``data.loader=device`` (``device_loop_run``); a
+    store of ``STORE_SHAPE`` frames (``store_times``); ``make_scan_train``
+    at ``CHUNK_K`` against eager steps on the same draws (``chunk_check``).
+    Returns the launches of run 3 and of the checked replays."""
+    t_phase = time.time()
+    counts = Counter(device_loop_run(device, smi, dataset, numpy_loop_ms, slice_dispatch_ms))
+    store_times(device, smi, dataset)
+    counts.update(chunk_check(device, smi, dataset, slice_ms))
+    log(f"the device-loader phase took {time.time() - t_phase:.1f} s")
+    return counts
+
+
+def device_loop_run(device, smi: str, dataset, numpy_loop_ms: float,
+                    slice_dispatch_ms: float) -> dict:
+    """``cli train --data.loader=device`` in process on the loop phase's
+    dataset, as run 1 (``LOOP_STEPS`` steps, metrics every 2, checkpoints
+    every 4, the profiler over ``LOOP_PROFILE``, the eval hook at step 7):
+    its rows, panels, checkpoints and launches checked; loop ms/step beside
+    run 1's, the interval between ``train_step`` calls, the card's busy
+    share over the profiled window, peak memory and the store's upload.
+    Returns its launches."""
+    from colvo_torch import cli, pipelines
+    from colvo_torch.runtime import loop as loop_mod
+
+    cfg = ColvoConfig()
+    runs, calls, uploads = [], [], []
+    real_train, real_step, real_store = (pipelines.train_loop, loop_mod.train_step,
+                                         loop_mod.DeviceSnippetStore)
+
+    def recording(cfg_, dataset_, **kwargs):
+        out = real_train(cfg_, dataset_, **kwargs)
+        runs.append(out[1])
+        return out
+
+    def timed_step(*args):
+        t0 = time.perf_counter()
+        out = real_step(*args)
+        calls.append((t0, time.perf_counter()))
+        return out
+
+    def timed_store(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store = real_store(*args, **kwargs)
+        torch.cuda.synchronize()
+        uploads.append((time.perf_counter() - t0, store.frames.numel()))
+        return store
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.object(pipelines, "build_dataset", lambda cfg_: dataset), \
+            mock.patch.object(pipelines, "train_loop", recording), \
+            mock.patch.object(loop_mod, "train_step", timed_step), \
+            mock.patch.object(loop_mod, "DeviceSnippetStore", timed_store):
+        log_dir, ckpt_dir = os.path.join(tmp, "log"), os.path.join(tmp, "ckpt")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.time()
+        check(cli.main(["train", "--max-steps", str(LOOP_STEPS), "--data.loader=device",
+                        "--train.profile_steps={}:{}".format(*LOOP_PROFILE)] + LOOP_ARGS
+                       + ["--log-dir", log_dir, f"--train.ckpt_dir={ckpt_dir}",
+                          "--device", device.type]) == 0, "cli train --data.loader=device")
+        run_s = time.time() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        per_step = Counter(expected_launches(cfg, LOOP_STEPS)) - Counter(expected_launches(cfg, 0))
+        check(counts == dict(per_step), f"device-loader run launches {counts} == {dict(per_step)}")
+        check(runs[0].step == LOOP_STEPS, f"the device-loader run ended at step {runs[0].step}")
+        check(sorted(int(d) for d in os.listdir(ckpt_dir)) == [4, 8], "checkpoints at 4 and 8")
+        runs.clear()
+        with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        losses = [r for r in rows if "loss/total" in r]
+        evals = [r for r in rows if "eval/abs_rel" in r]
+        walls = [r for r in rows if "wall_steps_per_sec" in r]
+        check([r["step"] for r in losses] == [2, 4, 6, 8], f"device-loader loss rows {losses}")
+        check(all(np.isfinite(v) for r in losses for k, v in r.items() if k.startswith("loss/")),
+              "every logged loss finite (device loader)")
+        check([r["step"] for r in evals] == [7] and "eval/ate" in evals[0]
+              and all(np.isfinite(v) for v in evals[0].values()), f"eval rows {evals}")
+        check([r["step"] for r in walls] == [8], f"wall rows {walls}")
+        for tag in ("disp", "automask", "warp_error"):
+            shape = _png_shape(os.path.join(log_dir, f"panels_{tag}_00000007.png"))
+            check(shape == (cfg.data.height, cfg.data.width, 3), f"panel {tag} {shape}")
+        trace = os.path.join(log_dir, "trace_steps_{}_{}.json".format(*LOOP_PROFILE))
+        busy, window = trace_busy(trace)
+        host = trace_host(trace)
+    loop_ms = 1e3 / walls[0]["wall_steps_per_sec"]
+    (upload_s, n_bytes), = uploads
+    dispatch = [1e3 * (b - a) for a, b in calls]
+    gaps = [1e3 * (b[0] - a[0]) for a, b in zip(calls, calls[1:])]
+    log(f"device loader ({smi}): {loop_ms:.2f} ms/step over {LOOP_STEPS} steps "
+        f"(wall_steps_per_sec, eval hook, profiler window and checkpoints included) against "
+        f"the numpy loader's run 1 {numpy_loop_ms:.2f} ms/step in the same process; the store "
+        f"took {1e3 * upload_s:.1f} ms to build and upload {n_bytes / 1e6:.1f} MB of uint8 "
+        f"frames; the run took {run_s:.1f} s")
+    log(f"device loader: one train_step call started every {np.median(gaps):.2f} ms (median; "
+        f"all {[round(g, 1) for g in gaps]}), a call returned after {np.median(dispatch[1:]):.2f} "
+        f"ms on the host clock (median of steps 2-{LOOP_STEPS}; the slice's "
+        f"{slice_dispatch_ms:.2f}); the card busy {busy:.2f} ms of the {window:.2f} ms profiled "
+        "window (steps {}-{}, {:.1f} %); peak memory {:.2f} GiB".format(
+            *LOOP_PROFILE, 100 * busy / window, peak))
+    log("device loader: the host over the profiled window: " + host)
+    return counts
+
+
+def store_times(device, smi: str, dataset) -> None:
+    """A store of ``STORE_SHAPE`` frames at the dataset's size, tiled from
+    its frames (content does not matter here): the upload, one batch's
+    gather + augment (eager by CUDA events; on the device by CUDA-graph
+    replays, with the default generator, which a capture registers), and
+    the device memory the store holds."""
+    from colvo_torch.data import DeviceSnippetStore, device_augment
+    from colvo_torch.data.device_store import gather
+
+    cfg = ColvoConfig()
+    n_seq, n_frames = STORE_SHAPE
+    base = (np.clip(np.concatenate(dataset.sequences), 0, 1) * 255).round().astype(np.uint8)
+    sequences = [base[np.arange(i * n_frames, (i + 1) * n_frames) % len(base)]
+                 for i in range(n_seq)]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    store = DeviceSnippetStore(sequences, [dataset.intrinsics[0]] * n_seq,
+                               cfg.data.frame_offsets, device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    store_bytes = torch.cuda.memory_allocated() - held
+    flat = np.concatenate(sequences)
+    del sequences
+    t0 = time.perf_counter()
+    copy = torch.from_numpy(flat).to(device)
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t0
+    del copy, flat
+    gen = torch.cuda.default_generators[device.index or 0]
+    idx = torch.randint(0, store.n_snippets, (cfg.data.batch_size,), device=device)
+    batch = lambda: device_augment(gather(store.frames, store.table, idx), gen, cfg.data)  # noqa: E731
+    aug, clean = batch()
+    check(aug.shape == clean.shape == (cfg.data.batch_size, 1 + len(cfg.data.frame_offsets),
+                                       cfg.data.height, cfg.data.width, 3)
+          and bool(torch.isfinite(aug).all()) and 0 <= aug.min().item() <= aug.max().item() <= 1,
+          "device batch shape and range")
+    eager, graphed = eager_ms(batch), time_ms(batch)
+    moved = aug.numel() * (1 + 4 + 4)  # uint8 read once; aug and clean written in float32
+    bound_ms, _ = bound(moved, 0)
+    log(f"store at {n_seq} x {n_frames} frames of {cfg.data.height}x{cfg.data.width} ({smi}): "
+        f"{store.n_snippets} snippets; built and uploaded in {1e3 * build_s:.1f} ms "
+        f"({store.frames.numel() / 1e9:.3f} GB of uint8; the H2D copy alone "
+        f"{1e3 * h2d_s:.1f} ms, {store.frames.numel() / h2d_s / 1e9:.2f} GB/s from pageable "
+        f"memory); it holds {store_bytes / 2**30:.3f} GiB of device memory")
+    log(f"store: gather + augment of one batch (B={cfg.data.batch_size}) {eager:.4f} ms eager "
+        f"(CUDA events), {graphed:.4f} ms on the device (CUDA-graph replays); bound "
+        f"{bound_ms:.4f} ms ({moved / 1e6:.1f} MB moved at {PEAK_BYTES_S / 1e12:.2f} TB/s)")
+
+
+def chunk_check(device, smi: str, dataset, slice_ms: float) -> dict:
+    """``make_scan_train`` at ``CHUNK_K`` on the default path at full width,
+    from the same weights and generator state as ``CHUNK_K`` eager
+    ``train_step``s fed the indices and augmentation draws the chunk makes:
+    the same indices, finite metrics, step 1's loss terms to
+    ``TOL_CHUNK_REL``. Then ``CHUNK_REPLAYS`` replays: the counter advances
+    by ``CHUNK_K`` each, each draws other indices, and the launches are
+    the captured ones × replays. The chunk's ms/step (CUDA events over
+    replays) beside the slice's eager step, the card's busy share over one
+    replay, peak memory. Returns the checked replays' launches."""
+    from colvo_torch.data import DeviceSnippetStore, device_augment
+    from colvo_torch.data.device_store import gather
+    from colvo_torch.runtime import make_scan_train
+
+    cfg = ColvoConfig()
+    store = DeviceSnippetStore(dataset.sequences, dataset.intrinsics, cfg.data.frame_offsets,
+                               device=device)
+    state, eager_state = init_state(cfg, device=device), init_state(cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(cfg.train.seed)
+    chunk = make_scan_train(state, cfg, CHUNK_K)
+    rng = gen.get_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state, first = chunk(state, store.frames, store.table, store.k, gen)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    first_peak = torch.cuda.max_memory_allocated()
+    check(chunk.graph is not None and state.step == CHUNK_K, "the first call captured K steps")
+
+    replay = torch.Generator(device=device)
+    replay.set_state(rng)
+    torch.cuda.reset_peak_memory_stats()
+    before_eager = torch.cuda.memory_allocated()
+    eager, drawn = [], []
+    for _ in range(CHUNK_K):
+        idx = torch.randint(0, store.n_snippets, (cfg.data.batch_size,), generator=replay,
+                            device=device)
+        aug, clean = device_augment(gather(store.frames, store.table, idx), replay, cfg.data)
+        eager.append(train_step(eager_state, {"frames": aug, "frames_clean": clean,
+                                              "k": store.k}, cfg))
+        drawn.append(idx)
+    torch.cuda.synchronize()
+    eager_extra = torch.cuda.max_memory_allocated() - before_eager
+    check(torch.equal(torch.stack(drawn), chunk.indices), "the chunk drew the eager steps' indices")
+    got = {k: v.tolist() for k, v in first.items()}
+    want = [{k: v.item() for k, v in m.items()} for m in eager]
+    check(all(np.isfinite(v) for vs in got.values() for v in vs), "chunk metrics finite")
+    check(all(np.isfinite(v) for m in want for v in m.values()), "eager metrics finite")
+    for k, v in want[0].items():
+        if k != "grad_norm":
+            check(abs(got[k][0] - v) <= TOL_CHUNK_REL * max(abs(v), 1e-6),
+                  f"chunk step 1 {k}: {got[k][0]} vs eager {v}")
+    for i in range(CHUNK_K):
+        log(f"chunk vs eager, step {i + 1}: " + " ".join(
+            f"{k} {got[k][i]:.6g}/{want[i][k]:.6g}" for k in ("loss/total", "loss/photometric",
+                                                              "loss/geometric", "grad_norm")))
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    steps, draws = [], [chunk.indices.clone()]
+    for _ in range(CHUNK_REPLAYS):
+        state, metrics = chunk(state, store.frames, store.table, store.k, gen)
+        steps.append((state.step, chunk.step.clone()))
+        draws.append(chunk.indices.clone())
+    counts = launch_counts()
+    torch.cuda.synchronize()
+    replay_peak = torch.cuda.max_memory_allocated()
+    check(all(host == CHUNK_K * (r + 2) and int(dev) == host for r, (host, dev) in enumerate(steps)),
+          f"the step counter advanced by {CHUNK_K} a replay: {steps}")
+    check(all(not torch.equal(a, b) for a, b in zip(draws, draws[1:])),
+          "successive replays drew other indices")
+    check(bool(torch.isfinite(metrics["loss/total"]).all()), "replayed metrics finite")
+    want_counts = Counter(expected_launches(cfg, CHUNK_K * CHUNK_REPLAYS)) - Counter(
+        expected_launches(cfg, 0))
+    check(counts == dict(want_counts)
+          and Counter({k: v * CHUNK_REPLAYS for k, v in chunk.captured_launches.items()}) == counts,
+          f"replayed launches {counts} == captured {chunk.captured_launches} x {CHUNK_REPLAYS}")
+    step = lambda: chunk(state, store.frames, store.table, store.k, gen)  # noqa: E731
+    chunk_ms = _events_ms(step, CHUNK_TIMED) / CHUNK_K
+    busy, wall, _ = busy_share(step)
+    gib = lambda b: b / 2**30  # noqa: E731
+    # the graph's pool holds one step's activations, not K steps'
+    check(first_peak - held <= 2 * eager_extra,
+          f"chunk capture peak {gib(first_peak - held):.2f} GiB over {gib(eager_extra):.2f} GiB "
+          "of one eager step")
+    log(f"chunk ({smi}): K={CHUNK_K}, {chunk_ms:.2f} ms/step (CUDA events over {CHUNK_TIMED} "
+        f"replays) against the slice's eager {slice_ms:.2f} ms/step; the card busy {busy:.2f} ms "
+        f"of one replay's {wall:.2f} ms ({100 * busy / wall:.1f} %, profiled); the first call "
+        f"(warm-up, capture, one replay) took {first_s:.2f} s")
+    log(f"chunk launches: captured {chunk.captured_launches} x {CHUNK_REPLAYS} replays = {counts}")
+    log(f"chunk memory: {gib(held):.2f} GiB held before (two states, the store); peak "
+        f"{gib(first_peak):.2f} GiB over the first call ({gib(first_peak - held):.2f} above), "
+        f"{gib(replay_peak):.2f} GiB over {CHUNK_REPLAYS} replays; one eager step peaks "
+        f"{gib(eager_extra):.2f} GiB above what it starts with; reserved "
+        f"{gib(torch.cuda.memory_reserved()):.2f} GiB")
+    return counts
 
 
 KERNELS = (
@@ -1246,7 +1555,12 @@ def main() -> int:
     log("train ms/step (median of steps 2.., CUDA events): " + ", ".join(
         f"{k} {v:.2f}" for k, v in step_ms.items()))
     log("--- loop: cli train, export, train --resume ---")
-    counts.update(loop_phase(device, smi, step_ms["default"], dispatch_ms["default"]))
+    loop_counts, dataset, loop_ms = loop_phase(device, smi, step_ms["default"],
+                                               dispatch_ms["default"])
+    counts.update(loop_counts)
+    log("--- device loader: cli train data.loader=device, the store, the captured chunk ---")
+    counts.update(device_loader_phase(device, smi, dataset, loop_ms, step_ms["default"],
+                                      dispatch_ms["default"]))
 
     # Nothing of JAX came in, not even through a library the port imports.
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "colvo"))

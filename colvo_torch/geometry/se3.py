@@ -80,8 +80,8 @@ def matrix_to_axis_angle(rot: torch.Tensor) -> torch.Tensor:
 def _rt_to_mat(rot: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) rotation + (..., 3) translation → (..., 4, 4)."""
     top = torch.cat([rot, t[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=rot.dtype, device=rot.device)
-    bottom = bottom.expand(rot.shape[:-2] + (1, 4))
+    bottom = torch.zeros(rot.shape[:-2] + (1, 4), dtype=rot.dtype, device=rot.device)
+    bottom[..., 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -198,6 +198,17 @@ def reset_launch_counts() -> None:
     fused_loss.launches.clear()
 
 
+def add_launch_counts(counts: Dict[str, int], times: int = 1) -> None:
+    """Add ``times`` × ``counts`` (keyed as ``launch_counts`` gives them):
+    the launches of a CUDA graph replayed ``times`` times. The wrappers
+    count a launch where Python calls them, so a captured launch is
+    counted at capture, which launches nothing, and not at a replay."""
+    counters = {"S": sampler.launches, "T": scatter.launches, "F": fused_loss.launches}
+    for key, n in counts.items():
+        kernel, _, variant = key.partition("/")
+        counters[kernel][variant] += n * times
+
+
 __all__ = [
     "bilinear_sample_fast",
     "bilinear_sample_full",
@@ -208,4 +219,5 @@ __all__ = [
     "warp_photometric",
     "launch_counts",
     "reset_launch_counts",
+    "add_launch_counts",
 ]

@@ -19,6 +19,7 @@ by default in the reference (``photo_native``, ``geo_full_res``,
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Tuple
 
 import torch
@@ -83,8 +84,7 @@ def _check_config(cfg: LossConfig) -> None:
 
 def _scale_k(k: torch.Tensor, sx: float, sy: float) -> torch.Tensor:
     """Rescale (…, 3, 3) intrinsics for a resized grid."""
-    s = torch.tensor([sx, sy, 1.0], dtype=k.dtype, device=k.device)
-    return k * s[:, None]
+    return torch.stack([k[..., 0, :] * sx, k[..., 1, :] * sy, k[..., 2, :]], dim=-2)
 
 
 def _halve(x: torch.Tensor) -> torch.Tensor:
@@ -232,7 +232,7 @@ def snippet_loss(
         _, src_depth_g = disp_to_depth(
             g_disp_s[..., 0], model_cfg.min_depth, model_cfg.max_depth
         )
-        pix_g, z_g = project(backproject(depth_g, torch.linalg.inv(k_g)), k_g, t_mats[:, s])
+        pix_g, z_g = project(backproject(depth_g, torch.linalg.inv_ex(k_g).inverse), k_g, t_mats[:, s])
         return pix_g, z_g, src_depth_g, h_g, w_g
 
     # Geo pass: every scale's depth warps in one sampler launch (and one
@@ -312,8 +312,8 @@ def snippet_loss(
         t_mag = torch.mean(torch.linalg.norm(poses[..., 3:].float(), dim=-1))
         d_mean = torch.mean(full_depth.float())
         log_r = torch.log(t_mag + 1e-12) - torch.log(d_mean + 1e-12)
-        lo = float(torch.log(torch.tensor(loss_cfg.gauge_lo)))
-        hi = float(torch.log(torch.tensor(loss_cfg.gauge_hi)))
+        lo = math.log(loss_cfg.gauge_lo)
+        hi = math.log(loss_cfg.gauge_hi)
         gauge = torch.square(torch.clamp(lo - log_r, min=0.0)) + torch.square(
             torch.clamp(log_r - hi, min=0.0)
         )

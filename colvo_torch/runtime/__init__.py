@@ -11,8 +11,11 @@ from colvo_torch.runtime.train_step import (
     clip_by_global_norm,
     geo_scale,
     init_state,
+    geo_scale_t,
     learning_rate,
+    learning_rate_t,
     loss_fn,
+    make_scan_train,
     to_device,
     train_step,
 )
@@ -21,9 +24,12 @@ __all__ = [
     "TrainState",
     "init_state",
     "train_step",
+    "make_scan_train",
     "loss_fn",
     "learning_rate",
     "geo_scale",
+    "learning_rate_t",
+    "geo_scale_t",
     "clip_by_global_norm",
     "to_device",
     "train",

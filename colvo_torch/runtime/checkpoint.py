@@ -159,7 +159,18 @@ class CheckpointManager:
         when ``with_loader_state``."""
         payload, step, loader_state = self.load(step)
         state_like.model.load_state_dict(payload["model"])
-        state_like.optimizer.load_state_dict(payload["optimizer"])
+        opt = state_like.optimizer
+        live = [(g["lr"], g["capturable"]) for g in opt.param_groups]
+        opt.load_state_dict(payload["optimizer"])
+        # The learning rate's holder (a device tensor that each step
+        # overwrites, on CUDA) and capturability are the live optimizer's,
+        # whatever device saved the checkpoint; Adam's step counts follow.
+        for group, (lr, capturable) in zip(opt.param_groups, live):
+            group["lr"], group["capturable"] = lr, capturable
+            for p in group["params"]:
+                if "step" in opt.state.get(p, {}):
+                    opt.state[p]["step"] = opt.state[p]["step"].to(
+                        p.device if capturable else "cpu")
         state_like.step = payload["step"]
         state_like.steps_per_epoch = payload["steps_per_epoch"]
         if with_loader_state:

@@ -1,8 +1,9 @@
 """Training loop (port of ``colvo/runtime/loop.py``).
 
-Epochs over the snippet dataset with device prefetch, periodic
-checkpoints, async metrics, the NaN guards, basin detect-and-restart, the
-profiler window and the eval hook, on one device. No step of the loop
+Epochs over the snippet dataset with device prefetch (or from a corpus
+held on the device, ``data.loader="device"``), periodic checkpoints, async
+metrics, the NaN guards, basin detect-and-restart, the profiler window and
+the eval hook, on one device. No step of the loop
 waits for the device, except the bounded dispatch-ahead drain, the one
 fetch of the restart check, the eval hook and the end of the run.
 """
@@ -20,6 +21,7 @@ import torch
 from colvo_torch import resolve_device
 from colvo_torch.config import ColvoConfig
 from colvo_torch.data import SnippetDataset, batch_iterator
+from colvo_torch.data.device_store import DeviceSnippetStore
 from colvo_torch.data.prefetch import prefetch_to_device
 from colvo_torch.runtime.checkpoint import CheckpointManager
 from colvo_torch.runtime.metrics import AsyncMetricsLogger, DeviceScalars, MetricsWriter
@@ -30,15 +32,11 @@ _PREFETCH = 2
 
 
 def _check_supported(cfg: ColvoConfig) -> None:
-    if cfg.data.loader == "device":
-        raise NotImplementedError(
-            "data.loader='device' (the device-resident corpus) is not ported yet: "
-            "ROADMAP.md §A.2")
     if cfg.data.loader == "grain":
         raise NotImplementedError(
             "data.loader='grain' (the checkpointable multi-worker loader) is not ported "
             "yet: ROADMAP.md §A.4")
-    if cfg.data.loader != "numpy":
+    if cfg.data.loader not in ("numpy", "device"):
         raise ValueError(f"unknown data.loader {cfg.data.loader!r}")
     if cfg.mesh.data_parallel not in (1, -1):
         raise NotImplementedError(
@@ -97,12 +95,22 @@ def _train(cfg, dataset, log_dir, max_steps, eval_hook, eval_hook_factory, resum
         profile_window = (int(a), int(b))
     prof = None
 
-    batches = batch_iterator(dataset, cfg.data, seed=cfg.train.seed)
+    if cfg.data.loader == "device":
+        # The corpus on the device as uint8, uploaded once; a batch is
+        # gathered and augmented there, so the host only dispatches.
+        store = DeviceSnippetStore(dataset.sequences, dataset.intrinsics,
+                                   cfg.data.frame_offsets, device=device)
+        batches = store.batches(cfg.data, seed=cfg.train.seed)
+    else:
+        batches = batch_iterator(dataset, cfg.data, seed=cfg.train.seed)
     # Skip already-consumed batches on resume (a position-only
     # approximation: it reproduces the stream only inside the first epoch).
     for _ in range(start_step % steps_per_epoch):
         next(batches)
-    stream = prefetch_to_device(batches, size=_PREFETCH, device=device)
+    if cfg.data.loader == "device":
+        stream = batches  # already on the device
+    else:
+        stream = prefetch_to_device(batches, size=_PREFETCH, device=device)
 
     step = start_step
     inflight: deque = deque()  # (step, DeviceScalars) awaiting retirement

@@ -5,20 +5,31 @@ global-norm clip → Adam with the family step-decay schedule (optional
 linear warmup) and the geo-weight ramp. Parameters are float32; convs
 compute in ``model.dtype``. The step updates the model and optimizer in
 place (PyTorch style) and returns device tensors without synchronising.
+
+``make_scan_train`` folds K such steps over a device-resident corpus into
+one chunk; on CUDA the chunk is one CUDA graph, replayed once a call. On
+CUDA, Adam is capturable and reads its learning rate from a device tensor,
+so no step reads a host scalar.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from colvo_torch import resolve_device
 from colvo_torch.config import ColvoConfig
+from colvo_torch.data.device_store import device_augment, gather
+from colvo_torch.kernels import add_launch_counts, launch_counts, reset_launch_counts
 from colvo_torch.losses import snippet_loss
 from colvo_torch.models import ColVOModel
+
+# Eager steps a chunk runs on a side stream before its capture.
+_WARMUP_STEPS = 2
 
 
 @dataclass
@@ -48,6 +59,29 @@ def geo_scale(cfg: ColvoConfig, step: int) -> float:
     return 1.0
 
 
+def learning_rate_t(cfg: ColvoConfig, step: torch.Tensor,
+                    steps_per_epoch: int = 1000) -> torch.Tensor:
+    """``learning_rate`` of an int64 step tensor, on its device and without
+    a host sync: computed in float64 in the host function's order (so the
+    two agree exactly), returned as float32."""
+    t = cfg.train
+    s = step.to(torch.float64)
+    after = s - t.warmup_steps if t.warmup_steps > 0 else s
+    decay_step = t.lr_decay_epochs * steps_per_epoch
+    lr = torch.where(after >= decay_step, torch.full_like(s, t.lr * t.lr_decay_factor), t.lr)
+    if t.warmup_steps > 0:
+        lr = torch.where(s < t.warmup_steps, t.lr * s / t.warmup_steps, lr)
+    return lr.to(torch.float32)
+
+
+def geo_scale_t(cfg: ColvoConfig, step: torch.Tensor) -> torch.Tensor | float:
+    """``geo_scale`` of an int64 step tensor, on its device (float32)."""
+    if cfg.loss.geo_ramp_steps > 0:
+        ramp = (step.to(torch.float64) + 1.0) / cfg.loss.geo_ramp_steps
+        return torch.clamp(ramp, max=1.0).to(torch.float32)
+    return 1.0
+
+
 def init_state(
     cfg: ColvoConfig,
     seed: int | None = None,
@@ -69,10 +103,16 @@ def init_state(
     model.reset_parameters(gen)
     model.to(device)
     params = list(model.parameters())
-    if cfg.train.weight_decay > 0:
-        opt = torch.optim.AdamW(params, lr=cfg.train.lr, weight_decay=cfg.train.weight_decay)
+    if device.type == "cuda":
+        # the learning rate as a device tensor, which each step overwrites:
+        # the update reads no host scalar and can be captured
+        kw = {"lr": torch.full((), cfg.train.lr, device=device), "capturable": True}
     else:
-        opt = torch.optim.Adam(params, lr=cfg.train.lr)
+        kw = {"lr": cfg.train.lr}
+    if cfg.train.weight_decay > 0:
+        opt = torch.optim.AdamW(params, weight_decay=cfg.train.weight_decay, **kw)
+    else:
+        opt = torch.optim.Adam(params, **kw)
     return TrainState(model, opt, 0, steps_per_epoch)
 
 
@@ -88,7 +128,7 @@ def loss_fn(model: ColVOModel, batch: Mapping[str, torch.Tensor], cfg: ColvoConf
     disps, poses = model(batch["frames"])
     k = batch["k"]
     loss, aux = snippet_loss(
-        disps, poses, batch["frames"], k, torch.linalg.inv(k), cfg.loss, cfg.model,
+        disps, poses, batch["frames"], k, torch.linalg.inv_ex(k).inverse, cfg.loss, cfg.model,
         frames_clean=batch.get("frames_clean"), geo_scale=geo_scale,
     )
     aux.pop("depth/full", None)
@@ -104,23 +144,177 @@ def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
     return norm
 
 
+def _set_learning_rate(opt: torch.optim.Optimizer, lr: float | torch.Tensor) -> None:
+    """Write ``lr`` into every parameter group: in place where the group
+    holds a device tensor (capturable Adam), else as a float."""
+    for group in opt.param_groups:
+        if not isinstance(group["lr"], torch.Tensor):
+            group["lr"] = float(lr)
+        elif isinstance(lr, torch.Tensor):
+            group["lr"].copy_(lr)
+        else:
+            group["lr"].fill_(lr)
+
+
+def _update(state: TrainState, batch: Mapping[str, torch.Tensor], cfg: ColvoConfig,
+            geo: float | torch.Tensor, lr: float | torch.Tensor,
+            set_to_none: bool = True) -> Dict[str, torch.Tensor]:
+    """Forward, loss, backward, clip and Adam on ``batch``; the metrics."""
+    model, opt = state.model, state.optimizer
+    model.train()
+    opt.zero_grad(set_to_none=set_to_none)
+    loss, aux = loss_fn(model, batch, cfg, geo)
+    loss.backward()
+    params = [p for p in model.parameters() if p.grad is not None]
+    grad_norm = clip_by_global_norm([p.grad for p in params], cfg.train.grad_clip)
+    _set_learning_rate(opt, lr)
+    opt.step()
+    metrics = {k: v.detach() for k, v in aux.items()}
+    metrics["grad_norm"] = grad_norm
+    return metrics
+
+
 def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
                cfg: ColvoConfig) -> Dict[str, torch.Tensor]:
     """One optimisation step on ``batch`` ({frames, frames_clean, k} on the
     state's device); updates ``state`` in place and returns the metrics
     (aux terms and ``grad_norm``) as device scalars."""
-    model, opt = state.model, state.optimizer
-    model.train()
-    opt.zero_grad(set_to_none=True)
-    loss, aux = loss_fn(model, batch, cfg, geo_scale(cfg, state.step))
-    loss.backward()
-    params = [p for p in model.parameters() if p.grad is not None]
-    grad_norm = clip_by_global_norm([p.grad for p in params], cfg.train.grad_clip)
-    lr = learning_rate(cfg, state.step, state.steps_per_epoch)
-    for group in opt.param_groups:
-        group["lr"] = lr
-    opt.step()
+    metrics = _update(state, batch, cfg, geo_scale(cfg, state.step),
+                      learning_rate(cfg, state.step, state.steps_per_epoch))
     state.step += 1
-    metrics = {k: v.detach() for k, v in aux.items()}
-    metrics["grad_norm"] = grad_norm
     return metrics
+
+
+class ScanTrain:
+    """K train steps over a device-resident corpus as one chunk; see
+    ``make_scan_train``.
+
+    Attributes:
+        step: the chunk's int64 step counter on the device; each step's
+            learning rate and geo ramp are computed from it.
+        indices: (n_steps, B) int64, the snippets the last chunk drew.
+        captured_launches: the kernel launches of one replay (CUDA).
+    """
+
+    def __init__(self, state: TrainState, cfg: ColvoConfig, n_steps: int):
+        self.state, self.cfg, self.n_steps = state, cfg, n_steps
+        self.device = next(state.model.parameters()).device
+        self.step = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.indices = torch.zeros((n_steps, cfg.data.batch_size), dtype=torch.int64,
+                                   device=self.device)
+        self.captured_launches: Dict[str, int] = {}
+        self.graph = None
+        self._inputs: Tuple = ()
+        self._metrics: Dict[str, torch.Tensor] = {}
+
+    def _steps(self, frames_u8: torch.Tensor, table: torch.Tensor, k: torch.Tensor,
+               generator: torch.Generator, n: int) -> Dict[str, torch.Tensor]:
+        """``n`` steps, each: B snippet indices drawn with replacement, the
+        uint8 gather and scale, the augmentation, forward, loss, backward,
+        clip, Adam; the device counter advances. The gradients are zeroed
+        in place, not freed, so that a capture reuses their memory."""
+        cfg, state = self.cfg, self.state
+        out = []
+        for i in range(n):
+            idx = torch.randint(0, table.shape[0], (cfg.data.batch_size,), generator=generator,
+                                device=self.device)
+            self.indices[i].copy_(idx)
+            clean = gather(frames_u8, table, idx)
+            aug, clean = (device_augment(clean, generator, cfg.data) if cfg.data.augment
+                          else (clean, clean))
+            out.append(_update(state, {"frames": aug, "frames_clean": clean, "k": k}, cfg,
+                               geo_scale_t(cfg, self.step),
+                               learning_rate_t(cfg, self.step, state.steps_per_epoch),
+                               set_to_none=False))
+            self.step.add_(1)
+        return {key: torch.stack([m[key] for m in out]) for key in out[0]}
+
+    def _capture(self, frames_u8, table, k, generator) -> None:
+        """Warm up on a side stream (kernel builds, cuDNN's choices, the
+        gradients and Adam's moments come into being), put back the
+        weights, the moments and the generator, then capture ``n_steps``
+        steps into one graph. The capture launches nothing, so the launch
+        counters are set back to what they read before it. A failed
+        capture raises."""
+        state = self.state
+        params = list(state.model.parameters())
+        opt = state.optimizer
+        weights = [p.detach().clone() for p in params]
+        moments = {p: {key: v.clone() for key, v in opt.state[p].items()}
+                   for p in params if p in opt.state}
+        rng = generator.get_state()
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self.step.fill_(state.step)
+            self._steps(frames_u8, table, k, generator, _WARMUP_STEPS)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        with torch.no_grad():
+            for p, w in zip(params, weights):
+                p.copy_(w)
+            for p in params:  # a moment made by the warm-up starts at zero
+                for key, v in opt.state[p].items():
+                    if p in moments:
+                        v.copy_(moments[p][key])
+                    else:
+                        v.zero_()
+        generator.set_state(rng)
+        del weights, moments
+
+        graph = torch.cuda.CUDAGraph()
+        if hasattr(graph, "register_generator_state"):
+            graph.register_generator_state(generator)
+        self.step.fill_(state.step)
+        before = launch_counts()
+        with torch.cuda.graph(graph):
+            self._metrics = self._steps(frames_u8, table, k, generator, self.n_steps)
+        self.captured_launches = dict(Counter(launch_counts()) - Counter(before))
+        reset_launch_counts()
+        add_launch_counts(before)
+        self.graph, self._inputs = graph, (frames_u8, table, k, generator)
+
+    def __call__(self, state: TrainState, frames_u8: torch.Tensor, table: torch.Tensor,
+                 k: torch.Tensor, generator: torch.Generator):
+        if state is not self.state:
+            raise ValueError("a chunk trains the state it was made for")
+        inputs = (frames_u8, table, k, generator)
+        if self.device.type != "cuda":
+            self.step.fill_(state.step)
+            metrics = self._steps(*inputs, self.n_steps)
+        else:
+            if self.graph is None:
+                self._capture(*inputs)
+            elif any(a is not b for a, b in zip(inputs, self._inputs)):
+                raise ValueError("a captured chunk reads the frames, table, k and generator "
+                                 "it was captured with")
+            self.step.fill_(state.step)
+            self.graph.replay()
+            add_launch_counts(self.captured_launches)
+            metrics = {key: v.clone() for key, v in self._metrics.items()}
+        state.step += self.n_steps
+        return state, metrics
+
+
+def make_scan_train(state: TrainState, cfg: ColvoConfig, n_steps: int) -> ScanTrain:
+    """A chunk of ``n_steps`` train steps over a device-resident corpus (port
+    of ``colvo/runtime/train_step.py::make_scan_train``).
+
+    Returns ``chunk_fn(state, frames_u8, table, k, generator) → (state,
+    metrics)``, each metric stacked to ``(n_steps,)``. Each step draws B
+    snippet indices with replacement from ``generator`` (uniform, as the
+    reference's ``lax.scan`` body), gathers and scales the uint8 frames,
+    runs ``device_augment`` when ``cfg.data.augment``, then forward,
+    ``snippet_loss``, backward, the global-norm clip and Adam, with the
+    learning rate and the geo ramp computed on the device from the chunk's
+    step counter.
+
+    On CUDA the first call warms up on a side stream, restores the state,
+    captures the ``n_steps`` steps into one ``torch.cuda.CUDAGraph`` (with
+    ``generator`` registered with it) and replays it; each later call is
+    one replay, so the host dispatches once a chunk, as the reference's
+    jitted scan does. The graph reads the tensors it was captured with:
+    later calls pass the same state, frames, table, k and generator. A
+    capture that fails raises; nothing falls back to eager steps. On the
+    CPU the same steps run eagerly.
+    """
+    return ScanTrain(state, cfg, n_steps)

@@ -448,3 +448,111 @@ def test_snapshot_before_an_in_place_adam_step_restores_pre_step_values(device, 
     assert sorted(got) == sorted(before)
     for k in before:
         assert torch.equal(got[k].cpu(), before[k].cpu()), k
+
+
+def _chunk_setup(device, n_steps=3):
+    """A 64×96 f32 two-scale config with augmentation on, its store of one
+    rendered 12-frame sequence (11 snippets), a state from seed 0 and its
+    chunk of ``n_steps`` steps."""
+    from colvo_torch.data import DeviceSnippetStore, render_sequence
+    from colvo_torch.runtime import init_state, make_scan_train
+
+    cfg = ColvoConfig()
+    cfg.model.dtype = "float32"
+    cfg.model.n_scales = 2
+    cfg.data.height, cfg.data.width, cfg.data.batch_size = 64, 96, 2
+    cfg.data.frame_offsets = (1,)
+    seq = render_sequence(n_frames=12, height=64, width=96, seed=3)
+    store = DeviceSnippetStore([seq.frames], [seq.k], cfg.data.frame_offsets, device=device)
+    state = init_state(cfg, seed=0, device=device)
+    return cfg, store, state, make_scan_train(state, cfg, n_steps)
+
+
+@pytest.mark.cuda
+def test_replayed_chunk_equals_eager_steps_on_the_same_draws(device):
+    """The first call captures and replays: its indices are those an eager
+    run draws from the same generator state, its launches are one geo S
+    and one T a step plus the photometric S, and its metrics equal 3 eager
+    train_steps on the same batches and augmentation draws from the same
+    weights (TF32 off): step 1's terms to 1e-5 relative and grad_norm to
+    1e-4 (T adds with atomics, in another order each run); the loss terms
+    of steps 2 and 3 at the reference's widening tolerances for equivalent
+    programs run apart (1e-3, 1e-2; tests/test_device_store.py:149-152).
+    grad_norm after step 1 is not compared: the two runs' weights then
+    differ in their last bits, and a near-tie automask decision that
+    comes out the other way moves it by ~2e-3 (PERF.md §6)."""
+    from colvo_torch.data.device_store import device_augment, gather
+    from colvo_torch.runtime import init_state, train_step
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg, store, state, chunk = _chunk_setup(device)
+        eager_state = init_state(cfg, seed=0, device=device)
+        gen = torch.Generator(device=device).manual_seed(3)
+        rng = gen.get_state()
+        state, metrics = chunk(state, store.frames, store.table, store.k, gen)
+        assert chunk.graph is not None and state.step == 3 and int(chunk.step) == 3
+        assert chunk.captured_launches == {"S/grad/C3": 6, "S/grad/C1": 3, "T/C1": 3}
+        replay = torch.Generator(device=device)
+        replay.set_state(rng)
+        eager = []
+        for i in range(3):
+            idx = torch.randint(0, store.n_snippets, (2,), generator=replay, device=device)
+            assert torch.equal(idx, chunk.indices[i]), i
+            aug, clean = device_augment(gather(store.frames, store.table, idx), replay, cfg.data)
+            eager.append(train_step(eager_state, {"frames": aug, "frames_clean": clean,
+                                                  "k": store.k}, cfg))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for i, want in enumerate(eager):
+        for key, v in want.items():
+            if key == "grad_norm" and i > 0:
+                continue
+            tol = (1e-4 if key == "grad_norm" else 1e-5, 1e-3, 1e-2)[i]
+            torch.testing.assert_close(metrics[key][i], v, rtol=tol, atol=1e-7,
+                                       msg=lambda m, k=key, s=i + 1: f"{k} at step {s}: {m}")
+    assert torch.equal(gen.get_state(), replay.get_state())
+
+
+@pytest.mark.cuda
+def test_chunk_replays_keep_device_memory_flat(device):
+    """After the capture, 50 replays peak no higher than 10 and leave no
+    more allocated than before them."""
+    _, store, state, chunk = _chunk_setup(device, n_steps=2)
+    gen = torch.Generator(device=device).manual_seed(0)
+    chunk(state, store.frames, store.table, store.k, gen)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    peaks = {}
+    for n in (10, 50):
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(n):
+            _, metrics = chunk(state, store.frames, store.table, store.k, gen)
+        assert torch.isfinite(metrics["loss/total"]).all()
+        del metrics
+        torch.cuda.synchronize()
+        peaks[n] = torch.cuda.max_memory_allocated()
+        assert torch.cuda.memory_allocated() == base
+    assert peaks[50] <= peaks[10]
+    assert state.step == 2 * 61
+
+
+@pytest.mark.cuda
+def test_two_replays_draw_different_indices_from_the_registered_generator(device):
+    """Each replay advances the generator registered with the graph, so
+    successive chunks train on other snippets; a chunk refuses inputs other
+    than those it was captured with."""
+    _, store, state, chunk = _chunk_setup(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    chunk(state, store.frames, store.table, store.k, gen)
+    drawn = []
+    for _ in range(2):
+        before = gen.get_state()
+        chunk(state, store.frames, store.table, store.k, gen)
+        drawn.append(chunk.indices.clone())
+        assert not torch.equal(gen.get_state(), before)
+    assert not torch.equal(drawn[0], drawn[1])
+    assert all(0 <= int(i) < store.n_snippets for d in drawn for i in d.flatten())
+    with pytest.raises(ValueError, match="captured with"):
+        chunk(state, store.frames.clone(), store.table, store.k, gen)

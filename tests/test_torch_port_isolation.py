@@ -40,7 +40,7 @@ def test_importing_every_module_loads_no_jax_or_colvo():
     for name in ("colvo_torch.vo.stream", "colvo_torch.native", "colvo_torch.evaluation.pose"):
         assert name in result["imported"]
     for name in ("runtime.loop", "runtime.checkpoint", "runtime.metrics", "data.prefetch",
-                 "pipelines", "cli", "evaluation.viz"):
+                 "data.device_store", "pipelines", "cli", "evaluation.viz"):
         assert f"colvo_torch.{name}" in result["imported"]
     assert [m for m in result["loaded"] if _forbidden(m)] == []
     assert [m for m in result["loaded"] if m.split(".")[0] in ABSENT_ON_THE_CARD] == []

@@ -222,7 +222,6 @@ def test_restart_metric_must_be_a_step_metric(tmp_path):
 
 
 @pytest.mark.parametrize("knob,value,error", [
-    ("data.loader", "device", NotImplementedError),
     ("data.loader", "grain", NotImplementedError),
     ("data.loader", "torch", ValueError),
     ("mesh.data_parallel", 2, NotImplementedError),
