@@ -61,7 +61,23 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
    steps fed the same indices and augmentation draws (step 1's loss terms
    to 1e-3 relative), 3 replays (the counter, fresh indices, launches =
    captured × replays), the chunk's ms/step, busy share and peak memory.
-9. Prints the kernel table as one JSON line (launches over the slice
+9. Serving-CLI phase, on the default path's 6-step weights exported to
+   ``.npz``: the VO phase's 64-frame sequence written as PNG frame dirs at
+   256×320 and at 432×540 with the port's codec (the card's host has no
+   cv2), then in process through ``colvo_torch.cli``: ``infer`` (its
+   depths bit for bit the runner's, 64 PNGs), ``vo`` on the 432×540 dir
+   (the area resize; trajectory, rotations, PLY round trip, figures),
+   ``viz``, ``recon``, ``eval`` (the reference's ``metrics.json`` keys,
+   finite; three figures), ``eval --data`` on a two-sequence benchmark
+   dir (.npy depth, KITTI poses, 9-float K; 16-bit PNG depth, TUM poses,
+   4-float K; the GT round trip), ``import-torch`` of a synthetic family
+   checkpoint with ``vo`` and ``eval --data`` on its ``norm="none"``
+   weights, whose float32 forward on the card equals the CPU's to 1e-4.
+   No S, T or F launch. Prints the codec's, the resize's and I420's ms a
+   frame (reading 256×320 PNG frames must reach 30 frames/s), ``infer``'s
+   and ``vo``'s frames/s with their layers, ``vo``'s busy share, peak
+   memory.
+10. Prints the kernel table as one JSON line (launches over the slice
    runs, loop run 1, the device-loader run and the chunk's checked
    replays), then the device line ``{"ok": true, "device": {...}}`` last.
 
@@ -71,6 +87,7 @@ It also fails without a CUDA card, or where ``colvo_torch`` is absent.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -78,7 +95,6 @@ import subprocess
 import sys
 import tempfile
 import time
-import zlib
 from collections import Counter
 from unittest import mock
 
@@ -949,23 +965,10 @@ LOOP_ALONE_BATCHES = 5  # batches the producer's code builds alone, timed
 
 
 def _png_shape(path: str) -> tuple:
-    """Decode an 8-bit RGB PNG with zlib alone; returns its array's shape."""
-    with open(path, "rb") as f:
-        data = f.read()
-    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path} is a PNG")
-    pos, idat, hdr = 8, b"", None
-    while pos < len(data):
-        n = int.from_bytes(data[pos:pos + 4], "big")
-        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
-        if tag == b"IHDR":
-            hdr = body
-        elif tag == b"IDAT":
-            idat += body
-        pos += 12 + n
-    w, h = int.from_bytes(hdr[:4], "big"), int.from_bytes(hdr[4:8], "big")
-    check(hdr[8:10] == b"\x08\x02", f"{path}: 8-bit RGB")
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
-    return rows[:, 1:].reshape(h, w, 3).shape
+    """Decode a PNG file with the port's codec; returns its array's shape."""
+    from colvo_torch.data.png import read_png
+
+    return read_png(path).shape
 
 
 def trace_busy(path: str) -> tuple:
@@ -1486,6 +1489,378 @@ def chunk_check(device, smi: str, dataset, slice_ms: float) -> dict:
     return counts
 
 
+SERVE_FRAMES, SERVE_SEED = 64, 999  # the VO phase's sequence, as files
+SERVE_BIG = (432, 540)  # a second frame dir that the area resize brings down by 1.6875
+SERVE_BENCH = 24  # frames a benchmark sequence (the sequence's first and second 24)
+SERVE_MIN_READ_FPS = 30.0  # reading 256×320 PNG frames: at least the video rate
+TOL_NONE_CPU_REL = 1e-4  # norm="none" f32 forward, card against CPU, of the max
+# metrics.json of evaluate_synthetic: the depth metrics, ATE/RPE at deltas 1
+# and 5 (48 frames), the three polyp errors and their mean (the CPU tests
+# hold these keys equal to the reference's)
+EVAL_POSE_KEYS = ("ate", "rpe_trans", "rpe_rot_deg", "rpe_trans_5", "rpe_rot_deg_5")
+EVAL_POLYP_KEYS = ("polyp/e1", "polyp/e2", "polyp/e3", "polyp/e_mean")
+
+
+def family_checkpoint(seed: int = 0) -> dict:
+    """A synthetic family checkpoint: the state dicts of a torchvision
+    ResNet-18 (3- and 6-channel, with its ``fc`` head), a Monodepth2 depth
+    decoder and a Monodepth2 pose decoder (K=2), random weights and random
+    BatchNorm statistics, under the family's keys."""
+    g = torch.Generator().manual_seed(seed)
+
+    def conv(sd, name, cout, cin, k, bias=False):
+        sd[f"{name}.weight"] = torch.randn(cout, cin, k, k, generator=g) * (2.0 / (cin * k * k)) ** 0.5
+        if bias:
+            sd[f"{name}.bias"] = 0.05 * torch.randn(cout, generator=g)
+
+    def bn(sd, name, c):
+        sd[f"{name}.weight"] = torch.rand(c, generator=g) + 0.5
+        sd[f"{name}.bias"] = 0.2 * torch.randn(c, generator=g)
+        sd[f"{name}.running_mean"] = 0.3 * torch.randn(c, generator=g)
+        sd[f"{name}.running_var"] = 2 * torch.rand(c, generator=g) + 0.5
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(100)
+
+    def resnet18(cin):
+        sd = {}
+        conv(sd, "conv1", 64, cin, 7)
+        bn(sd, "bn1", 64)
+        cin = 64
+        for li, width in enumerate((64, 128, 256, 512)):
+            for bi in range(2):
+                t = f"layer{li + 1}.{bi}"
+                conv(sd, f"{t}.conv1", width, cin, 3)
+                bn(sd, f"{t}.bn1", width)
+                conv(sd, f"{t}.conv2", width, width, 3)
+                bn(sd, f"{t}.bn2", width)
+                if cin != width:
+                    conv(sd, f"{t}.downsample.0", width, cin, 1)
+                    bn(sd, f"{t}.downsample.1", width)
+                cin = width
+        sd["fc.weight"], sd["fc.bias"] = torch.randn(1000, 512, generator=g), torch.zeros(1000)
+        return sd
+
+    enc, dec = (64, 64, 128, 256, 512), (16, 32, 64, 128, 256)
+    depth, cin, n = {}, enc[-1], 0
+    for i in range(4, -1, -1):
+        conv(depth, f"decoder.{n}.conv.conv", dec[i], cin, 3, bias=True)
+        cin = dec[i] + (enc[i - 1] if i > 0 else 0)
+        conv(depth, f"decoder.{n + 1}.conv.conv", dec[i], cin, 3, bias=True)
+        cin, n = dec[i], n + 2
+    for s in range(4):
+        conv(depth, f"decoder.{10 + s}.conv", 1, dec[s], 3, bias=True)
+    pose = {}
+    for i, (cout, cin_, k) in enumerate(((256, 512, 1), (256, 256, 3), (256, 256, 3), (12, 256, 1))):
+        conv(pose, f"net.{i}", cout, cin_, k, bias=True)
+    return {"encoder": resnet18(3), "depth": depth, "pose_encoder": resnet18(6), "pose": pose}
+
+
+def _rot_to_quat(r: np.ndarray) -> tuple:
+    """A rotation matrix → its unit quaternion (x, y, z, w) (Shepperd)."""
+    t = np.trace(r)
+    if t > 0:
+        s = 2 * np.sqrt(t + 1)
+        return (r[2, 1] - r[1, 2]) / s, (r[0, 2] - r[2, 0]) / s, (r[1, 0] - r[0, 1]) / s, s / 4
+    i = int(np.argmax(np.diag(r)))
+    j, k = (i + 1) % 3, (i + 2) % 3
+    s = 2 * np.sqrt(1 + r[i, i] - r[j, j] - r[k, k])
+    q = np.empty(4)
+    q[i], q[j], q[k] = s / 4, (r[j, i] + r[i, j]) / s, (r[k, i] + r[i, k]) / s
+    q[3] = (r[k, j] - r[j, k]) / s
+    return tuple(q)
+
+
+def write_benchmark(root: str, seq, write_png) -> dict:
+    """Two sequences of the rendered ``seq`` in the benchmark layout:
+    ``seq_a`` (frames 0..23) with .npy depth, KITTI 3×4 poses and 9-float K;
+    ``seq_b`` (frames 24..47) with 16-bit PNG depth and ``depth_scale.txt``,
+    TUM poses and 4-float K. Returns each one's rendered frames, depths and
+    poses, and its depth PNG's scale (0 for .npy)."""
+    gt = {}
+    for n, name in enumerate(("seq_a", "seq_b")):
+        sl = slice(n * SERVE_BENCH, (n + 1) * SERVE_BENCH)
+        frames, depths, poses = seq.frames[sl], seq.depths[sl], seq.poses[sl].astype(np.float64)
+        d = os.path.join(root, name)
+        os.makedirs(os.path.join(d, "rgb"))
+        os.makedirs(os.path.join(d, "depth"))
+        scale = float(depths.max()) / 65535.0
+        for i, (f, z) in enumerate(zip(frames, depths)):
+            write_png(os.path.join(d, "rgb", f"{i:06d}.png"),
+                      np.clip(f * 255 + 0.5, 0, 255).astype(np.uint8))
+            if n == 0:
+                np.save(os.path.join(d, "depth", f"{i:06d}.npy"), z)
+            else:
+                write_png(os.path.join(d, "depth", f"{i:06d}.png"),
+                          np.clip(z / scale, 0, 65535).astype(np.uint16))
+        k = seq.k.astype(np.float64)
+        if n == 0:
+            np.savetxt(os.path.join(d, "poses.txt"), poses[:, :3, :].reshape(-1, 12))
+            np.savetxt(os.path.join(d, "intrinsics.txt"), k.reshape(-1))
+        else:
+            rows = [[i, *p[:3, 3], *_rot_to_quat(p[:3, :3])] for i, p in enumerate(poses)]
+            np.savetxt(os.path.join(d, "poses.txt"), rows)
+            np.savetxt(os.path.join(d, "depth_scale.txt"), [scale])
+            np.savetxt(os.path.join(d, "intrinsics.txt"), [k[0, 0], k[1, 1], k[0, 2], k[1, 2]])
+        gt[name] = (frames, depths, poses, scale if n else 0.0)
+    return gt
+
+
+class _TimedSource:
+    """A frame source whose reading (``list(src)``) is timed into ``times``."""
+
+    def __init__(self, src, times: Counter):
+        self.src, self.times = src, times
+
+    def __len__(self):
+        return len(self.src)
+
+    def __iter__(self):
+        t0 = time.perf_counter()
+        frames = list(self.src)
+        self.times["read"] += time.perf_counter() - t0
+        return iter(frames)
+
+
+def _timed(fn, times: Counter, key: str):
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        times[key] += time.perf_counter() - t0
+        return out
+    return run
+
+
+def serving_cli_phase(device, smi: str, weights: dict) -> None:
+    """The serving CLI end to end, in process through ``colvo_torch.cli``
+    at full width on the card, on files: ``infer`` on a 256×320 PNG frame
+    dir, ``vo`` on a 432×540 one (the area resize), ``recon``, ``viz``,
+    ``eval`` on a rendered sequence and on a two-sequence benchmark dir,
+    ``import-torch`` of a synthetic family checkpoint and ``vo`` and
+    ``eval --data`` on its ``norm="none"`` weights. No S, T or F launch. Prints
+    the codec's and the resize's ms a frame, the commands' frames/s, the
+    layers of ``vo``, its busy share and peak memory."""
+    from colvo_torch import cli, pipelines
+    from colvo_torch.config import ModelConfig
+    from colvo_torch.data import render_sequence
+    from colvo_torch.data.benchmark import load_benchmark_sequence
+    from colvo_torch.data.png import read_png, write_png
+    from colvo_torch.data.sources import FrameDirSource, _resize, rgb_to_i420_cv2
+    from colvo_torch.evaluation import DEPTH_METRIC_NAMES
+    from colvo_torch.runtime import export_npz, load_npz
+    from colvo_torch.vo import load_ply
+
+    t_phase = time.time()
+    dev = ["--device", device.type]
+    cfg = ColvoConfig()
+    h, w = cfg.data.height, cfg.data.width
+    seq = render_sequence(n_frames=SERVE_FRAMES, height=h, width=w, seed=SERVE_SEED)
+    u8 = np.clip(seq.frames * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    render_s = time.time() - t_phase
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        small, big = os.path.join(tmp, "frames_256"), os.path.join(tmp, "frames_432")
+        os.makedirs(small)
+        os.makedirs(big)
+        t0 = time.perf_counter()
+        for i, f in enumerate(u8):
+            write_png(os.path.join(small, f"{i:06d}.png"), f)
+            write_png(os.path.join(big, f"{i:06d}.png"), _resize(f, SERVE_BIG[1], SERVE_BIG[0]))
+        write_ms = (time.perf_counter() - t0) * 1e3 / (2 * SERVE_FRAMES)
+        weights_npz = export_npz(weights, os.path.join(tmp, "weights.npz"))
+
+        # the host layers, a frame at a time
+        files = sorted(os.listdir(small))
+        t0 = time.perf_counter()
+        decoded = [read_png(os.path.join(small, f)) for f in files]
+        decode_ms = (time.perf_counter() - t0) * 1e3 / len(files)
+        check(all(np.array_equal(a, b) for a, b in zip(decoded, u8)), "PNG frames round trip")
+        t0 = time.perf_counter()
+        decoded_big = [read_png(os.path.join(big, f)) for f in sorted(os.listdir(big))]
+        decode_big_ms = (time.perf_counter() - t0) * 1e3 / SERVE_FRAMES
+        t0 = time.perf_counter()
+        resized = [_resize(f, w, h) for f in decoded_big]
+        resize_ms = (time.perf_counter() - t0) * 1e3 / SERVE_FRAMES
+        t0 = time.perf_counter()
+        packed = [rgb_to_i420_cv2(f) for f in decoded]
+        i420_ms = (time.perf_counter() - t0) * 1e3 / SERVE_FRAMES
+        check(resized[0].shape == (h, w, 3) and packed[0].shape == (h * 3 // 2, w), "host layers' shapes")
+        read_fps = 1e3 / decode_ms
+        log(f"serving host layers (host clock, a frame): PNG decode {decode_ms:.2f} ms at {h}x{w} "
+            f"({read_fps:.1f} frames/s), {decode_big_ms:.2f} ms at {SERVE_BIG[0]}x{SERVE_BIG[1]}; "
+            f"area resize {SERVE_BIG[0]}x{SERVE_BIG[1]} -> {h}x{w} {resize_ms:.2f} ms; I420 packing "
+            f"{i420_ms:.2f} ms; PNG encode {write_ms:.2f} ms; the {SERVE_FRAMES}-frame render "
+            f"{render_s:.1f} s")
+        check(read_fps >= SERVE_MIN_READ_FPS,
+              f"reading {h}x{w} PNG frames at {read_fps:.1f} frames/s, under {SERVE_MIN_READ_FPS}")
+
+        # infer, its layers timed: bit for bit the runner's depth over the same frames
+        out, infer_times = os.path.join(tmp, "infer"), Counter()
+        make_runner = _timed(pipelines.make_runner, infer_times, "runner")
+
+        def timed_runner(*args, **kwargs):
+            runner = make_runner(*args, **kwargs)
+            runner.infer_depth = _timed(runner.infer_depth, infer_times, "forward")
+            return runner
+
+        with mock.patch.object(pipelines, "open_source", lambda *a, **k: _TimedSource(
+                FrameDirSource(*a[:3], pixel_format=k.get("pixel_format", "float")), infer_times)), \
+                mock.patch.object(pipelines, "make_runner", timed_runner), \
+                mock.patch.object(pipelines, "colormap_depth", _timed(
+                    pipelines.colormap_depth, infer_times, "colormap")), \
+                mock.patch.object(pipelines, "write_png", _timed(
+                    pipelines.write_png, infer_times, "png")):
+            t0 = time.perf_counter()
+            check(cli.main(["infer", small, "--weights", weights_npz, "--out", out] + dev) == 0,
+                  "cli infer")
+            infer_s = time.perf_counter() - t0
+        depths = np.load(os.path.join(out, "depths.npy"))
+        check(depths.shape == (SERVE_FRAMES, h, w) and np.isfinite(depths).all()
+              and (depths > 0).all(), f"infer depths.npy {depths.shape} finite and positive")
+        runner = InferenceRunner(cfg, load_npz(weights_npz, cfg.model), device=device)
+        want = np.stack([runner.infer_depth(f[None])[0][0] for f in FrameDirSource(small, w, h)])
+        check(np.array_equal(depths, want), "infer depths equal InferenceRunner.infer_depth bit for bit")
+        pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+        check(len(pngs) == SERVE_FRAMES and all(
+            read_png(os.path.join(out, f)).shape == (h, w, 3) for f in pngs), "infer PNGs decode")
+        del runner
+
+        # vo on the 432×540 dir, its layers timed; recon on the 256×320 dir; viz
+        vo_dir, times = os.path.join(tmp, "vo"), Counter()
+        patches = [mock.patch.object(pipelines, "open_source", lambda *a, **k: _TimedSource(
+            FrameDirSource(a[0], *a[1:3], pixel_format=k.get("pixel_format", "float")), times))]
+        patches += [mock.patch.object(pipelines, name, _timed(getattr(pipelines, name), times, key))
+                    for name, key in (("make_runner", "runner"), ("run_vo", "run_vo"),
+                                      ("stitch_pointclouds", "stitch"), ("save_ply", "ply"),
+                                      ("viz_recon", "figures"), ("viz_trajectory", "figures"))]
+        clouds = []
+        real_save = pipelines.save_ply
+        patches.append(mock.patch.object(pipelines, "save_ply", _timed(
+            lambda cloud, path: (clouds.append(cloud), real_save(cloud, path)), times, "ply")))
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            for p in patches:
+                stack.enter_context(p)
+            check(cli.main(["vo", big, "--weights", weights_npz, "--out", vo_dir] + dev) == 0, "cli vo")
+        vo_s = time.perf_counter() - t0
+        poses = np.load(os.path.join(vo_dir, "trajectory.npy"))
+        rot = poses[:, :3, :3]
+        check(poses.shape == (SERVE_FRAMES, 4, 4) and np.isfinite(poses).all(), "vo trajectory.npy")
+        check(np.abs(rot @ rot.transpose(0, 2, 1) - np.eye(3)).max() <= 1e-9,
+              "vo rotations orthonormal")
+        back = load_ply(os.path.join(vo_dir, "reconstruction.ply"))
+        check(len(back) == len(clouds[0]) > 0
+              and np.abs(back.points - clouds[0].points).max() <= 1e-6
+              and np.abs(back.colors - clouds[0].colors).max() <= 1 / 255 + 1e-6,
+              "vo PLY round trip (6 decimals, uint8 colours)")
+        check(_png_shape(os.path.join(vo_dir, "reconstruction.png")) == (780, 1040, 3)
+              and _png_shape(os.path.join(vo_dir, "trajectory.png")) == (780, 910, 3),
+              "vo figures decode")
+        os.remove(os.path.join(vo_dir, "trajectory.png"))
+        check(cli.main(["viz", vo_dir] + dev) == 0
+              and _png_shape(os.path.join(vo_dir, "trajectory.png")) == (780, 910, 3), "cli viz")
+        rec_dir = os.path.join(tmp, "recon")
+        check(cli.main(["recon", small, "--weights", weights_npz, "--out", rec_dir] + dev) == 0
+              and np.load(os.path.join(rec_dir, "trajectory.npy")).shape == (SERVE_FRAMES, 4, 4)
+              and len(load_ply(os.path.join(rec_dir, "reconstruction.ply"))) > 0, "cli recon")
+        layers = " ".join(f"{k} {v * 1e3:.1f}" for k, v in times.items())
+        infer_layers = " ".join(f"{k} {v * 1e3:.1f}" for k, v in infer_times.items())
+        log(f"serving CLI ({smi}; host clock, {SERVE_FRAMES} frames): infer {SERVE_FRAMES / infer_s:.1f} "
+            f"frames/s ({infer_s:.2f} s; layers, ms: {infer_layers}); vo {SERVE_FRAMES / vo_s:.1f} frames/s ({vo_s:.2f} s, "
+            f"{SERVE_BIG[0]}x{SERVE_BIG[1]} PNG in); vo layers, ms: {layers}; cloud "
+            f"{len(clouds[0])} points")
+
+        # eval on a rendered sequence and on a benchmark dir
+        ev = os.path.join(tmp, "eval")
+        check(cli.main(["eval", "--weights", weights_npz, "--out", ev] + dev) == 0, "cli eval")
+        with open(os.path.join(ev, "metrics.json")) as f:
+            metrics = json.load(f)
+        keys = list(DEPTH_METRIC_NAMES) + list(EVAL_POSE_KEYS) + list(EVAL_POLYP_KEYS)
+        check(sorted(metrics) == sorted(keys), f"eval metrics.json keys {sorted(metrics)}")
+        check(all(np.isfinite(v) for v in metrics.values()), f"eval metrics finite: {metrics}")
+        for fig, shape in (("qualitative_depth.png", (676, 910, 3)),
+                           ("trajectory_predictions.png", (780, 910, 3)),
+                           ("colon_reconstruction.png", (780, 1040, 3))):
+            check(_png_shape(os.path.join(ev, fig)) == shape, f"eval {fig} decodes")
+        log("eval (6-step weights: finite, not accurate): " + " ".join(
+            f"{k}={v:.5g}" for k, v in metrics.items()))
+        bench = os.path.join(tmp, "bench")
+        gt = write_benchmark(bench, seq, write_png)
+        for name, (g_frames, g_depth, g_poses, scale) in gt.items():
+            # 16-bit PNG depth truncates to a multiple of its scale; .npy is exact
+            loaded = load_benchmark_sequence(os.path.join(bench, name), w, h)
+            err = np.abs(loaded.gt_depths - g_depth).max()
+            check(err <= scale, f"{name} GT depth round trip: {err:.3g} (scale {scale:.3g})")
+            check(np.abs(loaded.gt_poses - g_poses).max() <= 1e-6, f"{name} GT poses round trip")
+            check(loaded.frames.shape == (SERVE_BENCH, h, w, 3)
+                  and np.abs(loaded.frames - g_frames).max() <= 0.5 / 255 + 1e-6,
+                  f"{name} frames round trip")
+        evb = os.path.join(tmp, "eval_bench")
+        check(cli.main(["eval", "--data", bench, "--weights", weights_npz, "--out", evb] + dev) == 0,
+              "cli eval --data")
+        with open(os.path.join(evb, "metrics.json")) as f:
+            bm = json.load(f)
+        want_keys = {f"{p}/{kind}/{k}" for p in ("seq_a", "seq_b", "mean")
+                     for kind, ks in (("depth", DEPTH_METRIC_NAMES), ("pose", EVAL_POSE_KEYS))
+                     for k in ks}
+        check(set(bm) == want_keys and all(np.isfinite(v) for v in bm.values()),
+              f"eval --data keys and values: {sorted(set(bm) ^ want_keys)}")
+        log("eval --data (2 x 24 frames): " + " ".join(
+            f"{k}={bm[k]:.5g}" for k in ("mean/depth/abs_rel", "mean/pose/ate", "seq_a/pose/ate",
+                                         "seq_b/pose/ate")))
+
+        # import-torch, then vo and eval on the norm="none" weights
+        fam = os.path.join(tmp, "family")
+        os.makedirs(fam)
+        for name, sd in family_checkpoint().items():
+            torch.save(sd, os.path.join(fam, f"{name}.pth"))
+        imported = os.path.join(tmp, "imported.npz")
+        check(cli.main(["import-torch", fam, imported] + dev) == 0, "cli import-torch")
+        none_args = ["--weights", imported, "--model.norm=none", "--model.dcdp_fusion=false"] + dev
+        vo_none = os.path.join(tmp, "vo_none")
+        check(cli.main(["vo", small, "--out", vo_none] + none_args) == 0
+              and np.isfinite(np.load(os.path.join(vo_none, "trajectory.npy"))).all(),
+              "cli vo on imported weights")
+        ev_none = os.path.join(tmp, "eval_none")
+        check(cli.main(["eval", "--data", bench, "--out", ev_none] + none_args) == 0,
+              "cli eval --data on imported weights")
+        with open(os.path.join(ev_none, "metrics.json")) as f:
+            check(all(np.isfinite(v) for v in json.load(f).values()), "imported eval metrics finite")
+        mcfg = ModelConfig(dtype="float32", norm="none", dcdp_fusion=False)
+        f32 = ColvoConfig()
+        f32.model = mcfg
+        sd = load_npz(imported, mcfg)
+        pair = seq.frames[:2], seq.frames[1:3]
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            outs = [(r.infer_depth(pair[0])[0], r.infer_pose(*pair)) for r in (
+                InferenceRunner(f32, sd, device=device), InferenceRunner(f32, sd, device="cpu"))]
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        (d_gpu, p_gpu), (d_cpu, p_cpu) = outs
+        err_d = np.abs(d_gpu - d_cpu).max() / np.abs(d_cpu).max()
+        err_p = np.abs(p_gpu - p_cpu).max() / np.abs(p_cpu).max()
+        log(f"norm=none f32 forward, card vs CPU (TF32 off): depth {err_d:.3g}, pose {err_p:.3g} "
+            f"of max")
+        check(err_d <= TOL_NONE_CPU_REL and err_p <= TOL_NONE_CPU_REL,
+              "norm=none forward on the card equals the CPU's")
+
+        counts = launch_counts()
+        check(counts == {}, f"the serving CLI launched training kernels: {counts}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        vo_fn = lambda: cli.main(["vo", big, "--weights", weights_npz,  # noqa: E731
+                                  "--out", os.path.join(tmp, "vo_profiled")] + dev)
+        busy, wall, _ = busy_share(vo_fn)
+    if busy:
+        log(f"serving CLI busy share over one cli vo ({smi}): device {busy:.2f} ms of {wall:.2f} "
+            f"ms ({100 * busy / wall:.1f} %, profiled); peak device memory {peak:.3f} GiB")
+    else:
+        log(f"serving CLI busy share: the profiler recorded no device time; not measured; peak "
+            f"device memory {peak:.3f} GiB")
+    log(f"serving CLI phase: {time.time() - t_phase:.1f} s")
+
+
 KERNELS = (
     ("P1", "bilinear_sample[grad,C=3]", "colvo_torch/kernels/csrc/sampler.cu",
      "colvo/kernels/sampler.py:658", "S/grad/C3"),
@@ -1545,6 +1920,8 @@ def main() -> int:
         if label == "default":
             serving_phase(cfg, state, device)
             vo_phase(cfg, state, device, smi)
+            serve_weights = {k: v.detach().cpu().clone()
+                             for k, v in state.model.state_dict().items()}
         else:
             for k, v in first["default"].items():
                 check(k == "grad_norm" or abs(first[label][k] - v) <= 1e-3 * max(abs(v), 1e-6),
@@ -1561,6 +1938,8 @@ def main() -> int:
     log("--- device loader: cli train data.loader=device, the store, the captured chunk ---")
     counts.update(device_loader_phase(device, smi, dataset, loop_ms, step_ms["default"],
                                       dispatch_ms["default"]))
+    log("--- serving CLI: infer, vo, recon, viz, eval, eval --data, import-torch ---")
+    serving_cli_phase(device, smi, serve_weights)
 
     # Nothing of JAX came in, not even through a library the port imports.
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "colvo"))

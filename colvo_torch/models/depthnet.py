@@ -19,7 +19,7 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    for knob, default in (("norm", "group"), ("remat", False), ("batched_snippet", True)):
+    for knob, default in (("remat", False), ("batched_snippet", True)):
         if getattr(cfg, knob) != default:
             raise NotImplementedError(
                 f"model.{knob}={getattr(cfg, knob)!r} is not ported yet "
@@ -34,8 +34,9 @@ class DepthNet(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         dt = compute_dtype(cfg)
-        self.encoder = ResNetEncoder(cfg.num_layers, 3, dt)
-        self.decoder = DepthDecoder(cfg.n_scales, dt)
+        self.encoder = ResNetEncoder(cfg.num_layers, 3, dt, cfg.norm)
+        # the import variant mirrors the family's reflection-padded decoder
+        self.decoder = DepthDecoder(cfg.n_scales, dt, "reflect" if cfg.norm == "none" else "same")
 
     def forward(self, img: torch.Tensor) -> Tuple[Dict[int, torch.Tensor], torch.Tensor]:
         feats = self.encoder(img)
@@ -56,7 +57,7 @@ class ColVOModel(nn.Module):
         self.cfg = cfg
         dt = compute_dtype(cfg)
         self.depth = DepthNet(cfg)
-        self.pose_encoder = ResNetEncoder(cfg.num_layers, 6, dt)
+        self.pose_encoder = ResNetEncoder(cfg.num_layers, 6, dt, cfg.norm)
         cin = ENCODER_CHANNELS[-1]
         self.fusion = None
         if cfg.dcdp_fusion:

@@ -1,12 +1,20 @@
 """Convolutional encoder (port of ``colvo/models/encoder.py``).
 
-ResNet-18/34 feature pyramid, NCHW, with the JAX package's ``norm="group"``
-geometry: XLA ``SAME`` padding, which on even inputs pads strided convs
-asymmetrically ((2, 3) for the 7×7/s2 stem, (0, 1) for 3×3/s2, none for
-1×1/s2) and so needs an explicit ``F.pad``; GroupNorm with
-``groups = min(max(8, C // 16), C)`` and Flax's eps 1e-6; a 3×3/s2 max-pool
-padded by one at −inf. Convs compute in ``dtype`` (bf16 on the card) with
-float32 parameters, initialised like Flax (lecun-normal, truncated).
+ResNet-18/34 feature pyramid, NCHW, in the JAX package's two geometries,
+keyed on ``norm``:
+
+* ``"group"`` (default): XLA ``SAME`` padding, which on even inputs pads
+  strided convs asymmetrically ((2, 3) for the 7×7/s2 stem, (0, 1) for
+  3×3/s2, none for 1×1/s2) and so needs an explicit ``F.pad``; bias-free
+  convs, each followed by GroupNorm with ``groups = min(max(8, C // 16),
+  C)`` and Flax's eps 1e-6.
+* ``"none"`` (the target of a family checkpoint's import, BatchNorm folded
+  into the convs): convs with a bias, no norm, and torch's symmetric
+  padding: 3 for the 7×7 stem, 1 for 3×3 convs, 0 for 1×1.
+
+A 3×3/s2 max-pool padded by one at −inf follows the stem in both. Convs
+compute in ``dtype`` (bf16 on the card) with float32 parameters,
+initialised like Flax (lecun-normal, truncated).
 """
 
 from __future__ import annotations
@@ -33,13 +41,16 @@ def _same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
 
 
 class Conv(nn.Module):
-    """2-D conv with Flax ``SAME`` padding, computing in ``dtype``."""
+    """2-D conv computing in ``dtype``, with Flax ``SAME`` padding, or with
+    ``padding`` on every side where it is given."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
-                 bias: bool = True, dtype: torch.dtype = torch.float32):
+                 bias: bool = True, dtype: torch.dtype = torch.float32,
+                 padding: int | None = None):
         super().__init__()
         self.stride = stride
         self.dtype = dtype
+        self.padding = padding
         self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.reset_parameters()
@@ -53,16 +64,18 @@ class Conv(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        if self.padding is not None:
+            return F.conv2d(x, self.weight.to(self.dtype), b, self.stride, self.padding)
         k = self.weight.shape[-1]
         ph = _same_pads(x.shape[2], k, self.stride)
         pw = _same_pads(x.shape[3], k, self.stride)
-        x = x.to(self.dtype)
         if ph[0] == ph[1] and pw[0] == pw[1]:
             padding = (ph[0], pw[0])
         else:
             x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
             padding = 0
-        b = None if self.bias is None else self.bias.to(self.dtype)
         return F.conv2d(x, self.weight.to(self.dtype), b, self.stride, padding)
 
 
@@ -78,19 +91,36 @@ class GroupNorm(nn.GroupNorm):
                             self.eps).to(x.dtype)
 
 
+def _norm(norm: str, channels: int) -> nn.Module:
+    if norm == "group":
+        return GroupNorm(channels)
+    if norm == "none":
+        return nn.Identity()
+    raise ValueError(f"model.norm must be 'group' or 'none', not {norm!r}")
+
+
+def _conv(norm: str, cin: int, cout: int, k: int, stride: int, dtype: torch.dtype) -> Conv:
+    """A conv of the ``norm`` geometry: bias-free with SAME padding before
+    a GroupNorm, or with a bias and torch's padding ``k // 2``."""
+    if norm == "none":
+        return Conv(cin, cout, k, stride, bias=True, dtype=dtype, padding=k // 2)
+    return Conv(cin, cout, k, stride, bias=False, dtype=dtype)
+
+
 class BasicBlock(nn.Module):
     """Two 3×3 convs + residual, the ResNet-18/34 block."""
 
-    def __init__(self, cin: int, cout: int, stride: int, dtype: torch.dtype):
+    def __init__(self, cin: int, cout: int, stride: int, dtype: torch.dtype,
+                 norm: str = "group"):
         super().__init__()
-        self.conv1 = Conv(cin, cout, 3, stride, bias=False, dtype=dtype)
-        self.norm1 = GroupNorm(cout)
-        self.conv2 = Conv(cout, cout, 3, 1, bias=False, dtype=dtype)
-        self.norm2 = GroupNorm(cout)
+        self.conv1 = _conv(norm, cin, cout, 3, stride, dtype)
+        self.norm1 = _norm(norm, cout)
+        self.conv2 = _conv(norm, cout, cout, 3, 1, dtype)
+        self.norm2 = _norm(norm, cout)
         self.down = None
         if stride != 1 or cin != cout:
-            self.down = Conv(cin, cout, 1, stride, bias=False, dtype=dtype)
-            self.down_norm = GroupNorm(cout)
+            self.down = _conv(norm, cin, cout, 1, stride, dtype)
+            self.down_norm = _norm(norm, cout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.norm1(self.conv1(x)))
@@ -104,13 +134,13 @@ class ResNetEncoder(nn.Module):
     3-channel frames (DepthNet) or 6-channel frame pairs (PoseNet)."""
 
     def __init__(self, num_layers: int = 18, in_channels: int = 3,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, norm: str = "group"):
         super().__init__()
         if num_layers not in _STAGES:
             raise ValueError(f"num_layers must be one of {sorted(_STAGES)}")
         self.dtype = dtype
-        self.stem = Conv(in_channels, 64, 7, 2, bias=False, dtype=dtype)
-        self.stem_norm = GroupNorm(64)
+        self.stem = _conv(norm, in_channels, 64, 7, 2, dtype)
+        self.stem_norm = _norm(norm, 64)
         blocks = []
         cin = 64
         for stage_idx, (n_blocks, width) in enumerate(
@@ -118,7 +148,7 @@ class ResNetEncoder(nn.Module):
         ):
             for block_idx in range(n_blocks):
                 stride = 2 if (stage_idx > 0 and block_idx == 0) else 1
-                blocks.append(BasicBlock(cin, width, stride, dtype))
+                blocks.append(BasicBlock(cin, width, stride, dtype, norm))
                 cin = width
         self.blocks = nn.ModuleList(blocks)
         self._stage_ends = tuple(

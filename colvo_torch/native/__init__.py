@@ -1,8 +1,9 @@
-"""Host-side native code (``voxel.cpp``: voxel downsampling and pose
-chaining) through ``ctypes``, a copy of ``colvo/native``.
+"""Host-side native code through ``ctypes``: ``voxel.cpp`` (voxel
+downsampling and pose chaining, a copy of ``colvo/native``) and
+``png.cpp`` (PNG scanline unfiltering).
 
-The library is compiled with ``g++`` on first use into ``_build/``
-(git-ignored), named by a hash of the source, the flags and the host CPU's
+Both sources are compiled into one library with ``g++`` on first use into ``_build/``
+(git-ignored), named by a hash of the sources, the flags and the host CPU's
 target (``-march=native`` fits the binary to the CPU that built it), so a
 changed source, or a checkout that moved to another host, rebuilds. There
 is no fallback: a failed build or load raises.
@@ -23,7 +24,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-SRC = Path(__file__).resolve().parent / "voxel.cpp"
+SOURCES = tuple(Path(__file__).resolve().parent / f for f in ("voxel.cpp", "png.cpp"))
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
@@ -34,6 +35,7 @@ _lib: Optional[ctypes.CDLL] = None
 
 _F32P = ctypes.POINTER(ctypes.c_float)
 _F64P = ctypes.POINTER(ctypes.c_double)
+_U8P = ctypes.POINTER(ctypes.c_uint8)
 
 
 def _cpu_identity() -> bytes:
@@ -48,8 +50,14 @@ def _cpu_identity() -> bytes:
 
 
 def _target() -> Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + _cpu_identity() + SRC.read_bytes())
-    return BUILD_DIR / f"voxel-{h.hexdigest()[:16]}.so"
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + _cpu_identity())
+    for src in SOURCES:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"native-{h.hexdigest()[:16]}.so"
+
+
+def _names() -> str:
+    return " ".join(src.name for src in SOURCES)
 
 
 def _build(out: Path) -> None:
@@ -59,14 +67,14 @@ def _build(out: Path) -> None:
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
     os.close(fd)
     try:
-        proc = subprocess.run([CXX, *CXX_FLAGS, str(SRC), "-o", tmp],
+        proc = subprocess.run([CXX, *CXX_FLAGS, *map(str, SOURCES), "-o", tmp],
                               capture_output=True, text=True)
     except OSError as e:
         os.unlink(tmp)
-        raise RuntimeError(f"cannot run {CXX!r} to build {SRC.name}: {e}") from e
+        raise RuntimeError(f"cannot run {CXX!r} to build {_names()}: {e}") from e
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"{CXX} failed to build {SRC.name}:\n{proc.stderr}")
+        raise RuntimeError(f"{CXX} failed to build {_names()}:\n{proc.stderr}")
     os.replace(tmp, out)
 
 
@@ -85,6 +93,9 @@ def library() -> ctypes.CDLL:
                                          _F32P, _F32P]
         lib.chain_poses.restype = None
         lib.chain_poses.argtypes = [_F64P, ctypes.c_int64, ctypes.c_int64, _F64P]
+        lib.png_unfilter.restype = ctypes.c_int64
+        lib.png_unfilter.argtypes = [_U8P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                                     _U8P]
         _lib = lib
         return lib
 
@@ -123,4 +134,21 @@ def chain_poses(rels: np.ndarray, renorm_every: int = 50) -> np.ndarray:
     out = np.empty((len(rels) + 1, 4, 4), dtype=np.float64)
     lib.chain_poses(rels.ctypes.data_as(_F64P), len(rels), renorm_every,
                     out.ctypes.data_as(_F64P))
+    return out
+
+
+def png_unfilter(data: bytes, rows: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-row filters of inflated PNG image data: ``rows``
+    scanlines of a filter-type byte and ``stride`` bytes each, ``bpp``
+    bytes a pixel. Returns the raw (rows, stride) uint8 pixels."""
+    lib = library()
+    buf = np.frombuffer(data, dtype=np.uint8)
+    if rows < 0 or stride < 0 or bpp < 1 or buf.size != rows * (stride + 1):
+        raise ValueError(f"{buf.size} bytes of image data for {rows} rows of {stride} bytes "
+                         f"(+1 filter byte each) at {bpp} bytes a pixel")
+    out = np.empty((rows, stride), dtype=np.uint8)
+    bad = lib.png_unfilter(buf.ctypes.data_as(_U8P), rows, stride, bpp, out.ctypes.data_as(_U8P))
+    if bad:
+        raise ValueError(f"row {bad - 1}: PNG filter type {buf[(bad - 1) * (stride + 1)]} "
+                         "is not 0-4")
     return out

@@ -1,14 +1,16 @@
-"""High-level pipelines (port of the training part of ``colvo/pipelines.py``):
-the dataset factory, the training eval hook and ``train``, callable from
-Python or through ``python -m colvo_torch.cli train``.
-
-The inference, VO and evaluation pipelines are not ported yet
-(``ROADMAP.md`` §A.3).
+"""High-level pipelines (port of ``colvo/pipelines.py``): training,
+depth inference, full-sequence VO with its reconstruction, and evaluation
+on a rendered sequence or a benchmark directory, with the reference's
+figures. Each is callable from Python or through ``python -m
+colvo_torch.cli``, and runs on ``device`` (``cuda`` unless the caller
+passes ``"cpu"``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import json
+import os
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -16,23 +18,56 @@ import torch
 from colvo_torch import resolve_device
 from colvo_torch.config import ColvoConfig
 from colvo_torch.data import SnippetDataset, render_sequence, synthetic_dataset
-from colvo_torch.evaluation import compute_depth_errors, evaluate_pose
-from colvo_torch.evaluation.viz import colormap_depth
+from colvo_torch.data.benchmark import list_sequences, load_benchmark_sequence
+from colvo_torch.data.png import write_png
+from colvo_torch.data.sources import open_source
+from colvo_torch.evaluation import compute_depth_errors, evaluate_depth, evaluate_pose
+from colvo_torch.evaluation.viz import colormap_depth, viz_depth_grid, viz_recon, viz_trajectory
 from colvo_torch.geometry import backproject, bilinear_sample, disp_to_depth, project
 from colvo_torch.geometry.ops import _valid_mask
 from colvo_torch.losses import lcc_calibrate, photometric_error, poses_to_transforms
+from colvo_torch.models import ColVOModel
+from colvo_torch.runtime import InferenceRunner, load_npz
 from colvo_torch.runtime.loop import train as train_loop
+from colvo_torch.vo import (
+    PolypDetection,
+    VOResult,
+    align_trajectory,
+    localize_polyps,
+    run_vo,
+    save_ply,
+    stitch_pointclouds,
+    umeyama,
+)
 from colvo_torch.vo.driver import chain_relative_poses
 
 
+def _default_k(width: int, height: int) -> np.ndarray:
+    """The default colonoscope K at this resolution."""
+    return np.array([[0.6 * width, 0, width / 2], [0, 0.6 * width, height / 2], [0, 0, 1]],
+                    dtype=np.float32)
+
+
 def build_dataset(cfg: ColvoConfig) -> SnippetDataset:
-    """Dataset factory: synthetic renders. Frame directories and videos
-    wait for the port of ``data/sources.py`` (ROADMAP.md §A.3)."""
+    """Dataset factory: synthetic renders or frame dirs/videos under
+    ``data_root`` (one sequence per subdir/file; a dir's ``K.txt`` gives
+    its intrinsics, else the default colonoscope K)."""
     if cfg.data.dataset == "synthetic":
         return synthetic_dataset(cfg.data)
-    raise NotImplementedError(
-        f"data.dataset={cfg.data.dataset!r}: frame sources (data/sources.py) are not "
-        "ported yet (ROADMAP.md §A.3); only 'synthetic' is")
+    root = cfg.data.data_root
+    if not root:
+        raise ValueError("data.data_root required for non-synthetic datasets")
+    seqs, ks = [], []
+    for e in sorted(os.listdir(root)):
+        path = os.path.join(root, e)
+        src = open_source(path, cfg.data.width, cfg.data.height)
+        seqs.append(np.stack(list(src)))
+        k_file = os.path.join(path, "K.txt") if os.path.isdir(path) else None
+        if k_file and os.path.exists(k_file):
+            ks.append(np.loadtxt(k_file, dtype=np.float32))
+        else:
+            ks.append(_default_k(cfg.data.width, cfg.data.height))
+    return SnippetDataset(seqs, ks, cfg.data.frame_offsets)
 
 
 def make_training_eval_hook(cfg: ColvoConfig, model: torch.nn.Module):
@@ -128,3 +163,224 @@ def train(cfg: ColvoConfig, log_dir: str = "runs/train", max_steps: Optional[int
     dataset = build_dataset(cfg)
     return train_loop(cfg, dataset, log_dir=log_dir, max_steps=max_steps, resume=resume,
                       eval_hook_factory=make_training_eval_hook, device=device)
+
+
+def make_runner(cfg: ColvoConfig, weights: Optional[str] = None,
+                device: str | torch.device = "cuda") -> InferenceRunner:
+    """An inference runner on ``device`` over exported ``.npz`` weights,
+    or over the port's own init from ``train.seed`` (whose RNG differs from
+    the reference's, so parity needs an ``.npz``)."""
+    device = resolve_device(device)
+    if weights:
+        state_dict = load_npz(weights, cfg.model)
+    else:
+        model = ColVOModel(cfg.model)
+        model.reset_parameters(torch.Generator().manual_seed(cfg.train.seed))
+        state_dict = model.state_dict()
+    return InferenceRunner(cfg, state_dict, device=device)
+
+
+def infer_depth(cfg: ColvoConfig, frames_path: str, out_dir: str,
+                weights: Optional[str] = None,
+                device: str | torch.device = "cuda") -> np.ndarray:
+    """Depth maps (+ colormapped PNGs) for a frame dir/video: one
+    ``runner.infer_depth`` call a frame, ``depth_<i>.png`` and
+    ``depths.npy`` in ``out_dir``."""
+    runner = make_runner(cfg, weights, device)
+    src = open_source(frames_path, cfg.data.width, cfg.data.height)
+    os.makedirs(out_dir, exist_ok=True)
+    depths = []
+    for i, frame in enumerate(src):
+        depth, _ = runner.infer_depth(frame[None])
+        depths.append(depth[0])
+        write_png(os.path.join(out_dir, f"depth_{i:06d}.png"),
+                  (colormap_depth(depth[0]) * 255).astype(np.uint8))
+    np.save(os.path.join(out_dir, "depths.npy"), np.stack(depths))
+    return np.stack(depths)
+
+
+def run_vo_pipeline(
+    cfg: ColvoConfig,
+    frames_path: Optional[str] = None,
+    out_dir: str = "runs/vo",
+    weights: Optional[str] = None,
+    reconstruct: bool = True,
+    device: str | torch.device = "cuda",
+) -> VOResult:
+    """Streamed VO → ``trajectory.npy`` and ``trajectory.png`` (+ the
+    stitched ``reconstruction.ply`` and ``reconstruction.png``). Without
+    ``frames_path`` it runs on a 48-frame rendered demo sequence."""
+    runner = make_runner(cfg, weights, device)
+    os.makedirs(out_dir, exist_ok=True)
+    if frames_path is None:  # synthetic demo sequence
+        seq = render_sequence(n_frames=48, height=cfg.data.height, width=cfg.data.width)
+        frames = list(seq.frames)
+        k = seq.k
+    else:
+        # uint8 on the wire: the streaming executor normalizes on device
+        src = open_source(frames_path, cfg.data.width, cfg.data.height, pixel_format="rgb8")
+        frames = list(src)
+        k = _default_k(cfg.data.width, cfg.data.height)
+    vo = run_vo(runner, frames, keyframe_every=2)
+    np.save(os.path.join(out_dir, "trajectory.npy"), vo.poses)
+    if reconstruct:
+        cloud = stitch_pointclouds(vo, k, frames=frames, voxel=0.002,
+                                   max_depth=cfg.model.max_depth)
+        save_ply(cloud, os.path.join(out_dir, "reconstruction.ply"))
+        viz_recon(cloud.points, os.path.join(out_dir, "reconstruction.png"),
+                  colors=cloud.colors, trajectory=vo.poses[:, :3, 3])
+    viz_trajectory({"ColVO(ours)": vo.poses[:, :3, 3]},
+                   os.path.join(out_dir, "trajectory.png"))
+    return vo
+
+
+def evaluate_synthetic(
+    cfg: ColvoConfig,
+    weights: Optional[str] = None,
+    out_dir: str = "runs/eval",
+    n_frames: int = 48,
+    exposure_jitter: float = 0.0,
+    device: str | torch.device = "cuda",
+) -> Dict[str, float]:
+    """Full evaluation on a held-out rendered sequence: depth metrics, ATE,
+    polyp errors, the reconstruction and the three reference figure types.
+
+    ``exposure_jitter``: per-frame auto-exposure gain on the eval sequence,
+    so the LCC ablation evaluates under the nuisance it trains with."""
+    runner = make_runner(cfg, weights, device)
+    os.makedirs(out_dir, exist_ok=True)
+    seq = render_sequence(
+        n_frames=n_frames, height=cfg.data.height, width=cfg.data.width,
+        seed=999, exposure_jitter=exposure_jitter,
+    )
+    # depth
+    depth_metrics, preds = evaluate_depth(runner, seq.frames, seq.depths, cfg)
+    viz_depth_grid(
+        seq.frames[0], seq.depths[0], {"ColVO(ours)": preds[0]},
+        os.path.join(out_dir, "qualitative_depth.png"),
+        max_depth=cfg.eval.depth_cap,
+    )
+    # pose
+    vo = run_vo(runner, list(seq.frames), keyframe_every=1)
+    pose_metrics = evaluate_pose(vo.poses, seq.poses.astype(np.float64))
+    aligned = align_trajectory(vo.poses[:, :3, 3], seq.poses[:, :3, 3])
+    viz_trajectory(
+        {"Ground Truth": seq.poses[:, :3, 3], "ColVO(ours)": aligned},
+        os.path.join(out_dir, "trajectory_predictions.png"),
+    )
+    # polyp localization: synthetic detections whose GT 3-D position is
+    # exact (GT depth lifted through GT pose); the VO result is sim(3)-
+    # aligned first (monocular scale), its depth maps scaled by the same s
+    rng = np.random.default_rng(5)
+    h, w = cfg.data.height, cfg.data.width
+    k_inv64 = np.linalg.inv(seq.k.astype(np.float64))
+    dets, gts = [], []
+    for fid in (n_frames // 4, n_frames // 2, 3 * n_frames // 4):
+        cx = int(rng.integers(w // 4, 3 * w // 4))
+        cy = int(rng.integers(h // 4, 3 * h // 4))
+        dets.append(PolypDetection(frame_id=fid, box=(cx - 6, cy - 6, cx + 6, cy + 6)))
+        d_gt = float(seq.depths[fid][cy, cx])
+        p_cam = k_inv64 @ np.array([cx, cy, 1.0]) * d_gt
+        pose = seq.poses[fid].astype(np.float64)
+        gts.append(pose[:3, :3] @ p_cam + pose[:3, 3])
+    rot, tvec, s = umeyama(vo.poses[:, :3, 3], seq.poses[:, :3, 3])
+    apose = vo.poses.astype(np.float64).copy()
+    apose[:, :3, 3] = (s * (rot @ vo.poses[:, :3, 3].T)).T + tvec
+    apose[:, :3, :3] = rot @ vo.poses[:, :3, :3]
+    vo_aligned = VOResult(
+        poses=apose, depths=[d * s for d in vo.depths], keyframe_ids=vo.keyframe_ids
+    )
+    locs = localize_polyps(vo_aligned, seq.k, dets, np.stack(gts))
+    # figure markers live in the (unaligned) network frame of the cloud
+    locs_fig = localize_polyps(vo, seq.k, dets)
+    polyp_metrics = {
+        f"polyp/e{i+1}": float(loc.error) for i, loc in enumerate(locs)
+    }
+    polyp_metrics["polyp/e_mean"] = float(np.mean([loc.error for loc in locs]))
+    # reconstruction
+    cloud = stitch_pointclouds(vo, seq.k, frames=list(seq.frames), voxel=0.002,
+                               max_depth=cfg.model.max_depth)
+    save_ply(cloud, os.path.join(out_dir, "reconstruction.ply"))
+    viz_recon(cloud.points, os.path.join(out_dir, "colon_reconstruction.png"),
+              colors=cloud.colors, trajectory=vo.poses[:, :3, 3],
+              polyps=np.stack([loc.position_world for loc in locs_fig]),
+              polyp_errors=[loc.error for loc in locs])
+    metrics = {**depth_metrics, **pose_metrics, **polyp_metrics}
+    with open(os.path.join(out_dir, "metrics.json"), "w") as f:
+        json.dump(metrics, f, indent=2)
+    return metrics
+
+
+def evaluate_dataset(
+    cfg: ColvoConfig,
+    data_root: str,
+    weights: Optional[str] = None,
+    out_dir: str = "runs/eval",
+    sequences: Optional[Sequence[str]] = None,
+    device: str | torch.device = "cuda",
+) -> Dict[str, float]:
+    """Evaluate on a VCD/CSD-style benchmark directory (layout in
+    :mod:`colvo_torch.data.benchmark`). Per sequence: the 7 depth metrics
+    against dense GT (median scaling + cap), ATE/RPE after sim(3) alignment
+    where GT poses exist, and the depth-grid and trajectory figures of the
+    first sequence that has each GT. Returns per-sequence (``<name>/depth/*``,
+    ``<name>/pose/*``) and ``mean/`` metrics; writes ``metrics.json`` and
+    the figures to ``out_dir``."""
+    runner = make_runner(cfg, weights, device)
+    os.makedirs(out_dir, exist_ok=True)
+    names = list(sequences) if sequences else list_sequences(data_root)
+    if not names:
+        raise FileNotFoundError(f"no sequences under {data_root}")
+
+    metrics: Dict[str, float] = {}
+    depth_accum: Dict[str, List[float]] = {}
+    pose_accum: Dict[str, List[float]] = {}
+    need_depth_fig = True
+    need_pose_fig = True
+    for name in names:
+        seq = load_benchmark_sequence(
+            os.path.join(data_root, name), cfg.data.width, cfg.data.height
+        )
+        vo = None
+        if seq.gt_poses is not None:
+            # One coupled streaming pass covers both evaluations: its
+            # per-frame depth maps (float16 wire, ~5e-4 relative) feed the
+            # depth metrics below, so the depth network runs once.
+            vo = run_vo(runner, list(seq.frames), keyframe_every=1)
+            pm = evaluate_pose(vo.poses, seq.gt_poses)
+            for k, v in pm.items():
+                metrics[f"{name}/pose/{k}"] = v
+                pose_accum.setdefault(k, []).append(v)
+            if need_pose_fig:
+                aligned = align_trajectory(vo.poses[:, :3, 3], seq.gt_poses[:, :3, 3])
+                viz_trajectory(
+                    {"Ground Truth": seq.gt_poses[:, :3, 3], "ColVO(ours)": aligned},
+                    os.path.join(out_dir, f"trajectory_{name}.png"),
+                )
+                need_pose_fig = False
+        if seq.gt_depths is not None:
+            if vo is not None and len(vo.depths) == len(seq.frames):
+                preds = np.stack(vo.depths)
+                dm = compute_depth_errors(
+                    seq.gt_depths, preds, max_depth=cfg.eval.depth_cap,
+                    median_scaling=cfg.eval.median_scaling,
+                )
+            else:
+                dm, preds = evaluate_depth(runner, seq.frames, seq.gt_depths, cfg)
+            for k, v in dm.items():
+                metrics[f"{name}/depth/{k}"] = v
+                depth_accum.setdefault(k, []).append(v)
+            if need_depth_fig:
+                viz_depth_grid(
+                    seq.frames[0], seq.gt_depths[0], {"ColVO(ours)": preds[0]},
+                    os.path.join(out_dir, f"qualitative_depth_{name}.png"),
+                    max_depth=cfg.eval.depth_cap,
+                )
+                need_depth_fig = False
+    for k, vs in depth_accum.items():
+        metrics[f"mean/depth/{k}"] = float(np.mean(vs))
+    for k, vs in pose_accum.items():
+        metrics[f"mean/pose/{k}"] = float(np.mean(vs))
+    with open(os.path.join(out_dir, "metrics.json"), "w") as f:
+        json.dump(metrics, f, indent=2)
+    return metrics

@@ -1,8 +1,8 @@
 """Metrics and logging (port of ``colvo/runtime/metrics.py``).
 
 ``MetricsWriter`` writes a JSONL mirror (``metrics.jsonl``: ``step``,
-``time``, then the scalars), stdout lines, PNG panels through a stdlib PNG
-writer, and TensorBoard event files when ``torch.utils.tensorboard``
+``time``, then the scalars), stdout lines, PNG panels through
+``data/png.py``, and TensorBoard event files when ``torch.utils.tensorboard``
 imports.
 
 ``AsyncMetricsLogger`` keeps the device→host fetch of a step's scalars off
@@ -21,14 +21,14 @@ from __future__ import annotations
 import json
 import os
 import queue
-import struct
 import threading
 import time
-import zlib
 from typing import Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
+
+from colvo_torch.data.png import write_png
 
 
 class DeviceScalars:
@@ -58,21 +58,6 @@ class DeviceScalars:
         if self._event is not None:
             self._event.synchronize()
         return dict(zip(self.keys, self._host.tolist()))
-
-
-def _png_bytes(rgb8: np.ndarray) -> bytes:
-    """(H, W, 3) uint8 → an 8-bit RGB PNG (zlib + struct, no filter)."""
-    h, w, _ = rgb8.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), rgb8.reshape(h, 3 * w)], axis=1)
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-            + chunk(b"IEND", b""))
 
 
 class MetricsWriter:
@@ -105,8 +90,7 @@ class MetricsWriter:
     def log_image(self, step: int, tag: str, img: np.ndarray) -> None:
         """img: (H, W, 3) float [0,1]. Saved as PNG panel + TB image."""
         path = os.path.join(self.log_dir, f"{tag.replace('/', '_')}_{step:08d}.png")
-        with open(path, "wb") as f:
-            f.write(_png_bytes((np.clip(img, 0, 1) * 255).astype(np.uint8)))
+        write_png(path, (np.clip(img, 0, 1) * 255).astype(np.uint8))
         if self._tb is not None:
             self._tb.add_image(tag, np.transpose(img, (2, 0, 1)), step)
 

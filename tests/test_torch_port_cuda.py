@@ -6,6 +6,8 @@ from the repository root:
 ``python -m pytest tests/test_torch_port_cuda.py -q -m cuda --noconftest``.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -556,3 +558,54 @@ def test_two_replays_draw_different_indices_from_the_registered_generator(device
     assert all(0 <= int(i) < store.n_snippets for d in drawn for i in d.flatten())
     with pytest.raises(ValueError, match="captured with"):
         chunk(state, store.frames.clone(), store.table, store.k, gen)
+
+
+@pytest.mark.cuda
+def test_png_codec_on_a_card_host_without_cv2(device, tmp_path, monkeypatch):
+    """The card's host has no cv2 or PIL: PNG frames (8-bit RGB, 16-bit
+    gray) round-trip through the port's codec and native unfilter, and a
+    frame source reads and resizes them."""
+    import sys
+
+    from colvo_torch.data import png, sources
+
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    rgb = next(_u8_frames(1, seed=3))
+    g16 = np.random.default_rng(4).integers(0, 65536, (64, 96)).astype(np.uint16)
+    png.write_png(str(tmp_path / "000000.png"), rgb)
+    png.write_png(str(tmp_path / "depth.png"), g16)
+    np.testing.assert_array_equal(png.read_png(str(tmp_path / "000000.png")), rgb)
+    np.testing.assert_array_equal(png.read_png(str(tmp_path / "depth.png")), g16)
+    src = sources.FrameDirSource(str(tmp_path), 48, 32, "i420")
+    assert src[0].shape == (48, 48) and src[0].dtype == np.uint8
+
+
+@pytest.mark.cuda
+def test_cli_vo_on_the_card_without_cv2(device, tmp_path, monkeypatch):
+    """``cli vo`` on a PNG frame dir (a ×1.5 area resize), on the card by
+    default, with cv2 absent: a trajectory of orthonormal rotations, the
+    PLY and both figures; no S, T or F launch."""
+    import sys
+
+    from colvo_torch import cli
+    from colvo_torch.data import png, render_sequence
+    from colvo_torch.vo import load_ply
+
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    seq = render_sequence(n_frames=9, height=96, width=144, seed=5)
+    os.makedirs(tmp_path / "frames")
+    for i, f in enumerate(seq.frames):
+        png.write_png(str(tmp_path / "frames" / f"{i:06d}.png"),
+                      np.clip(f * 255 + 0.5, 0, 255).astype(np.uint8))
+    kernels.reset_launch_counts()
+    out = str(tmp_path / "vo")
+    assert cli.main(["vo", str(tmp_path / "frames"), "--out", out, "--data.height=64",
+                     "--data.width=96"]) == 0
+    poses = np.load(os.path.join(out, "trajectory.npy"))
+    rot = poses[:, :3, :3]
+    assert poses.shape == (9, 4, 4) and np.isfinite(poses).all()
+    assert np.abs(rot @ rot.transpose(0, 2, 1) - np.eye(3)).max() <= 1e-9
+    assert len(load_ply(os.path.join(out, "reconstruction.ply"))) > 0
+    assert png.read_png(os.path.join(out, "reconstruction.png")).shape == (780, 1040, 3)
+    assert png.read_png(os.path.join(out, "trajectory.png")).shape == (780, 910, 3)
+    assert kernels.launch_counts() == {}

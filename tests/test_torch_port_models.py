@@ -136,8 +136,16 @@ def test_init_is_flax_like():
             assert torch.all(p == 0), name
 
 
-def test_off_default_model_knobs_raise():
+@pytest.mark.parametrize("knob,value", [("remat", True), ("batched_snippet", False)])
+def test_off_default_model_knobs_raise(knob, value):
+    """model.remat and model.batched_snippet=false are not ported;
+    model.norm="none" is (tests/test_torch_port_import.py), and another
+    norm is refused."""
     _, tcfg = _configs()
-    tcfg.model.norm = "none"
-    with pytest.raises(NotImplementedError, match="model.norm"):
+    setattr(tcfg.model, knob, value)
+    with pytest.raises(NotImplementedError, match=f"model.{knob}"):
+        ColVOModel(tcfg.model)
+    _, tcfg = _configs()
+    tcfg.model.norm = "batch"
+    with pytest.raises(ValueError, match="model.norm"):
         ColVOModel(tcfg.model)
