@@ -12,8 +12,9 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
    kernel T (source-cotangent scatter, one launch for the four geo scales,
    also at an odd width and under a wild warp) and kernel F (fused warp+LCC+SSIM+L1
    error, forward and coordinate backward) against their plain PyTorch
-   versions on the card, F also at a shape that cuts its tiles and at
-   windows 0, 4 and 15; times kernel, plain version and the nearest single
+   versions on the card, F also at a shape that cuts its tiles, at
+   ``loss.photo_native``'s 64×80 and 32×40 grids, and at windows 0, 4 and
+   15; times kernel, plain version and the nearest single
    PyTorch call on the device (CUDA-graph replays between CUDA events),
    the kernel's eager call through its wrapper, and F with the L2 flushed
    before each call. Every kernel's registers and spills come from the
@@ -29,6 +30,23 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
    same weights and batch, and with the default path's step 1. One more
    step runs under ``torch.profiler``: device time by kernel and by
    bucket, the device's busy share, peak memory.
+   Knob phase: the off-default training configurations (``KNOB_PATHS``:
+   each of the seven loss protocols alone, ``photo_native`` with
+   ``fused_kernel``, ``batched_photo`` with bf16 planes, ``model.remat``,
+   ``model.batched_snippet=false``, ``train.adam_mu_dtype=bfloat16``), each
+   a slice run of 3 steps and a held-out loss from the same weights and
+   batches, with the same checks (launch counts derived from the config by
+   ``expected_launches``); the knobs that compute the default's function
+   held to the default's step 1; ms/step, device busy and peak memory
+   beside the default's. Then one ``make_scan_train`` chunk (K=4) under
+   ``model.remat`` + ``loss.photo_remat`` + the bf16 Adam moment against an
+   eager step on the same draws.
+   Deterministic phase: kernel T's fixed-point variant at the geo shapes
+   and under a wild warp, 20 calls bit for bit and within T's tolerance of
+   the plain version, a NaN plane, timed beside the float T; then two
+   fresh processes of ``cli train --train.deterministic=true`` at once, 4
+   steps each on the same data and seed, whose step-4 checkpoints must be
+   equal bit for bit.
 5. Serving phase, after the default path's steps:
    ``InferenceRunner.infer_coupled`` on frame pairs.
 6. VO phase, on the same weights: ``run_vo`` streams a rendered 64-frame
@@ -78,8 +96,9 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
    and ``vo``'s frames/s with their layers, ``vo``'s busy share, peak
    memory.
 10. Prints the kernel table as one JSON line (launches over the slice
-   runs, loop run 1, the device-loader run and the chunk's checked
-   replays), then the device line ``{"ok": true, "device": {...}}`` last.
+   and knob runs, the deterministic runs, loop run 1, the device-loader run
+   and the chunks' replays; every kernel must have launched), then the
+   device line ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It also fails without a CUDA card, or where ``colvo_torch`` is absent.
@@ -105,6 +124,7 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from colvo_torch.config import ColvoConfig  # noqa: E402
+from colvo_torch.geometry.ops import bilinear_taps  # noqa: E402
 from colvo_torch.data import batch_iterator, synthetic_dataset  # noqa: E402
 from colvo_torch.kernels import build, launch_counts, reset_launch_counts  # noqa: E402
 from colvo_torch.kernels import fused_loss, sampler, scatter  # noqa: E402
@@ -136,6 +156,10 @@ TIE_GAP, MAX_TIE_SHARE = 1e-5, 1e-3
 # another size, and at each of these windows (0: no LCC; 4: even, lo ≠ hi).
 FUSED_SEAM = ((2, 3, 150, 70), (97, 131))
 FUSED_WINDOWS = (0, 4, LCC_WINDOW)
+# loss.photo_native + fused_kernel runs F on each scale's own grid; at the
+# two smallest a window-15 LCC covers most of the grid and every tile is a
+# border tile.
+FUSED_NATIVE = (((12, 3, 64, 80), (64, 80)), ((12, 3, 32, 40), (32, 40)))
 FLUSH_BYTES = 64 * 2**20  # more than the H100's 50 MB L2
 TRAIN_STEPS = 6
 # f32 operations of F per output pixel: the tap arithmetic once, and per
@@ -482,13 +506,13 @@ def fused_parity(args, g, window):
 
 def fused_rows(device, gen, photo, timer, eager, cold):
     """P7, P8: the fused error map and its coordinate cotangent against
-    their plain versions at the per-source photometric shape and at
-    ``FUSED_SEAM``, each at ``FUSED_WINDOWS``; timed at the photometric
+    their plain versions at the per-source photometric shape, at
+    ``FUSED_SEAM`` and at ``FUSED_NATIVE``, each at ``FUSED_WINDOWS``; timed at the photometric
     shape and ``LCC_WINDOW``, with a warm and a cold L2."""
     b, c, h, w = photo
     main = fused_inputs(gen, photo, (h, w), 3, device)
     worst = {"P7": 0.0, "P8": 0.0}
-    for shape, src_hw in ((photo, (h, w)), FUSED_SEAM):
+    for shape, src_hw in ((photo, (h, w)), FUSED_SEAM, *FUSED_NATIVE):
         args, g = main if shape == photo else fused_inputs(gen, shape, src_hw, 4, device)
         for window in FUSED_WINDOWS:
             err_f, err_b, rel_b, ties = fused_parity(args, g, window)
@@ -566,25 +590,44 @@ def make_batches(cfg: ColvoConfig, device, n: int = TRAIN_STEPS + 1, n_frames: i
 
 def expected_launches(cfg: ColvoConfig, n_steps: int) -> dict:
     """The kernel launches of ``n_steps`` train steps and one held-out
-    no-grad loss: per step, one photometric error per (scale, source) and
-    one geo warp for all scales (one S launch, and one T in the backward)."""
+    no-grad loss. Per step, one photometric error per (scale, source): by S
+    (``S/grad/C3``; at each scale's own grid under ``loss.photo_native``,
+    full resolution otherwise), by F forward and backward under
+    ``loss.fused_kernel``, or one grouped S for all under
+    ``loss.batched_photo``. And the geo warps of all scales as plane sets
+    of one S launch (a launch takes ``sampler.MAX_DESCS`` = 8 sets):
+    n_scales sets, 2 × n_scales under ``geo_grad="sym"`` (the reverse
+    warps); in the backward one T launch for their source cotangents
+    (``T/C1``, or ``T/C1/det`` under ``train.deterministic``), none where
+    every sampled source is detached (``geo_stopgrad``, ``sym``). The
+    held-out loss makes the value-only launches of one step. The remat
+    knobs, ``compute_dtype``, ``scatter_audit``, the per-frame forward and
+    the Adam moment's dtype launch nothing of their own (the warp stays
+    outside ``photo_remat``'s recomputation)."""
     n_scales, n_sources = cfg.model.n_scales, len(cfg.data.frame_offsets)
     pairs = n_scales * n_sources
-    counts = {"S/grad/C1": n_steps, "T/C1": n_steps, "S/value/C1": 1}
+    counts = {}
+    if cfg.loss.geometric_weight > 0:
+        sym = cfg.loss.geo_grad == "sym"
+        geo_launches = -(-n_scales * (2 if sym else 1) // sampler.MAX_DESCS)
+        counts = {"S/grad/C1": geo_launches * n_steps, "S/value/C1": geo_launches}
+        if not (sym or cfg.loss.geo_stopgrad):
+            counts["T/C1/det" if cfg.train.deterministic else "T/C1"] = n_steps
     if cfg.loss.fused_kernel:
         counts.update({"F/fwd/C3": pairs * (n_steps + 1), "F/bwd/C3": pairs * n_steps})
     elif cfg.loss.batched_photo:
         counts.update({f"S/grad/C3/g{n_scales}": n_steps, f"S/value/C3/g{n_scales}": 1})
     else:
         counts.update({"S/grad/C3": pairs * n_steps, "S/value/C3": pairs})
-    return counts
+    return {k: v for k, v in counts.items() if v}
 
 
 def slice_phase(cfg: ColvoConfig, device, batches, n_steps: int = TRAIN_STEPS):
     """Train steps at ``cfg``'s size + a held-out no-grad loss on
     ``batches[n_steps]``; returns the state, the metrics by step, the
-    launch counts, the median ms/step (CUDA events) and the median host
-    time of a ``train_step`` call (its dispatch)."""
+    launch counts, the median ms/step (CUDA events), the median host time
+    of a ``train_step`` call (its dispatch) and, from one more profiled
+    step, the device's busy ms and the peak GiB."""
     state = init_state(cfg, device=device)
 
     # Step 1's loss, recomputed with the plain kernels on the same weights.
@@ -628,14 +671,327 @@ def slice_phase(cfg: ColvoConfig, device, batches, n_steps: int = TRAIN_STEPS):
         f"{k} {metrics[0][k]:.6g}/{v:.6g}" for k, v in ref_aux.items()))
     log(f"held-out loss (no grad): {eval_loss.item():.6g}; launches: {counts}")
     med, host_med = float("nan"), 1e3 * float(np.median(host_s[1:]))
+    busy, peak = float("nan"), float("nan")
     if device.type == "cuda":
-        busy = profile_step(state, batches[0], cfg)
+        busy, peak = profile_step(state, batches[0], cfg)
         med = float(np.median(step_ms[1:]))
         log(f"train step: {med:.2f} ms/step (median of steps 2..{n_steps}, CUDA events; "
             f"all: {[round(t, 2) for t in step_ms]}); device busy {busy:.2f} ms of it "
             f"({100 * busy / med:.1f} %, kernel time of the profiled step); a train_step call "
             f"returns after {host_med:.2f} ms on the host clock (median, its dispatch)")
-    return state, metrics, counts, med, host_med
+    return state, metrics, counts, med, host_med, (busy, peak)
+
+
+KNOB_STEPS = 3  # train steps of each knob configuration
+# The off-default training configurations of the knob phase: (label,
+# {"section.knob": value}, exact). An exact one computes the default's loss
+# on the same weights and batch (it changes only gradients, memory,
+# launches or what is stored), so its step 1 is held to the default's.
+KNOB_PATHS = (
+    ("photo_native", {"loss.photo_native": True}, False),
+    ("photo_remat", {"loss.photo_remat": True}, True),
+    ("geo_full_res", {"loss.geo_full_res": True}, False),
+    ("geo_stopgrad", {"loss.geo_stopgrad": True}, True),
+    ("geo_grad=sym", {"loss.geo_grad": "sym"}, False),
+    ("scatter_audit", {"loss.scatter_audit": True}, True),
+    ("compute_dtype=bfloat16", {"loss.compute_dtype": "bfloat16"}, False),
+    ("photo_native+fused_kernel", {"loss.photo_native": True, "loss.fused_kernel": True}, False),
+    ("batched_photo+compute_dtype", {"loss.batched_photo": True,
+                                     "loss.compute_dtype": "bfloat16"}, False),
+    ("model.remat", {"model.remat": True}, True),
+    ("batched_snippet=false", {"model.batched_snippet": False}, True),
+    ("adam_mu_dtype=bfloat16", {"train.adam_mu_dtype": "bfloat16"}, True),
+)
+# The captured chunk of the knob phase: the memory knobs together.
+KNOB_CHUNK = {"model.remat": True, "loss.photo_remat": True, "train.adam_mu_dtype": "bfloat16"}
+CHUNK_WARMUP = 2  # eager steps a chunk's first call runs before its capture (train_step.py)
+
+
+def knob_config(knobs: dict) -> ColvoConfig:
+    cfg = ColvoConfig()
+    for key, value in knobs.items():
+        section, leaf = key.split(".")
+        setattr(getattr(cfg, section), leaf, value)
+    return cfg
+
+
+def knob_phase(device, smi: str, batches, default_first: dict, default_ms: float,
+               default_prof: tuple) -> Counter:
+    """Each of ``KNOB_PATHS`` at full width from the slice phase's initial
+    weights and batches, as a slice run of ``KNOB_STEPS`` steps and a
+    held-out loss: finite losses, the exact launch counts, step 1's loss
+    terms equal to the plain kernels' (1e-3 relative) and, for the exact
+    knobs, to the default path's step 1 (1e-3 relative); ms/step, the
+    device's busy ms and the peak GiB beside the default's. Then one
+    ``make_scan_train`` chunk of ``CHUNK_K`` steps under ``KNOB_CHUNK``.
+    Returns the phase's kernel launches."""
+    t_phase = time.time()
+    counts, table = Counter(), []
+    for label, knobs, exact in KNOB_PATHS:
+        log(f"--- knob: {label} ---")
+        cfg = knob_config(knobs)
+        state, metrics, path_counts, ms, _, (busy, peak) = slice_phase(
+            cfg, device, batches, n_steps=KNOB_STEPS)
+        expect = expected_launches(cfg, KNOB_STEPS)
+        check(path_counts == expect, f"{label} launch counts {path_counts} == {expect}")
+        counts.update(path_counts)
+        if cfg.loss.scatter_audit:
+            check(all(m["geo/scatter_overflow"] == 0.0 for m in metrics),
+                  "scatter_audit: geo/scatter_overflow is 0 (T drops nothing)")
+        if cfg.train.adam_mu_dtype == "bfloat16":
+            check(all(st["exp_avg"].dtype == torch.bfloat16 and st["exp_avg_sq"].dtype ==
+                      torch.float32 for st in state.optimizer.state.values()),
+                  "adam_mu_dtype: first moments bf16, second float32")
+        if exact:
+            for k, v in default_first.items():
+                check(k == "grad_norm" or abs(metrics[0][k] - v) <= 1e-3 * max(abs(v), 1e-6),
+                      f"step 1 {k}: {label} {metrics[0][k]} vs default {v}")
+            log(f"step 1, {label} vs default: " + " ".join(
+                f"{k} {metrics[0][k]:.6g}/{v:.6g}" for k, v in default_first.items()))
+        table.append((label, ms, busy, peak))
+        del state
+    counts.update(knob_chunk(device, smi))
+    log(f"knob phase ({smi}): ms/step (median of steps 2..{KNOB_STEPS}, CUDA events), device "
+        f"busy ms of a profiled step, peak GiB; the default path's {default_ms:.2f} / "
+        f"{default_prof[0]:.2f} / {default_prof[1]:.2f}")
+    for label, ms, busy, peak in table:
+        log(f"  knob {label:28s} {ms:8.2f} ms/step  {busy:7.2f} ms busy  {peak:6.2f} GiB")
+    log(f"knob phase: {time.time() - t_phase:.1f} s")
+    return counts
+
+
+def knob_chunk(device, smi: str) -> Counter:
+    """``make_scan_train`` at ``CHUNK_K`` under ``KNOB_CHUNK`` on a rendered
+    corpus: the capture (checkpointed blocks and statistics, the port's
+    Adam with its bf16 moment) and one replay, the launches of K steps,
+    the indices and step 1's loss terms of one eager step on the same
+    draws (``TOL_CHUNK_REL``), bf16 moments; ms/step over replays and the
+    peak memory. Returns the launches."""
+    from colvo_torch.data import DeviceSnippetStore, device_augment
+    from colvo_torch.data.device_store import gather
+    from colvo_torch.runtime import make_scan_train
+
+    cfg = knob_config(KNOB_CHUNK)
+    ds = synthetic_dataset(cfg.data, n_sequences=2, n_frames=8)
+    store = DeviceSnippetStore(ds.sequences, ds.intrinsics, cfg.data.frame_offsets, device=device)
+    state, eager_state = init_state(cfg, device=device), init_state(cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(cfg.train.seed)
+    chunk = make_scan_train(state, cfg, CHUNK_K)
+    rng = gen.get_state()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    state, first = chunk(state, store.frames, store.table, store.k, gen)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts = Counter(launch_counts())
+    want = Counter(expected_launches(cfg, CHUNK_K)) - Counter(expected_launches(cfg, 0))
+    # the first call's launches: its eager warm-up steps and one replay
+    warm = Counter(expected_launches(cfg, CHUNK_WARMUP)) - Counter(expected_launches(cfg, 0))
+    check(chunk.graph is not None and state.step == CHUNK_K, "knob chunk: captured K steps")
+    check(Counter(chunk.captured_launches) == want and counts == want + warm,
+          f"knob chunk: captured {chunk.captured_launches} == {dict(want)}; the first call's "
+          f"{dict(counts)} == those + {CHUNK_WARMUP} warm-up steps' {dict(warm)}")
+    check(all(st["exp_avg"].dtype == torch.bfloat16 for st in state.optimizer.state.values()),
+          "knob chunk: first moments bf16")
+    check(all(bool(torch.isfinite(v).all()) for v in first.values()), "knob chunk metrics finite")
+    replay = torch.Generator(device=device)
+    replay.set_state(rng)
+    idx = torch.randint(0, store.n_snippets, (cfg.data.batch_size,), generator=replay,
+                        device=device)
+    check(torch.equal(idx, chunk.indices[0]), "knob chunk: step 1 drew the eager step's indices")
+    aug, clean = device_augment(gather(store.frames, store.table, idx), replay, cfg.data)
+    want1 = {k: v.item() for k, v in train_step(eager_state, {"frames": aug, "frames_clean": clean,
+                                                              "k": store.k}, cfg).items()}
+    for k, v in want1.items():
+        if k != "grad_norm":
+            got = first[k][0].item()
+            check(abs(got - v) <= TOL_CHUNK_REL * max(abs(v), 1e-6),
+                  f"knob chunk step 1 {k}: {got} vs eager {v}")
+    del eager_state
+    reset_launch_counts()
+    step = lambda: chunk(state, store.frames, store.table, store.k, gen)  # noqa: E731
+    chunk_ms = _events_ms(step, CHUNK_TIMED) / CHUNK_K
+    counts.update(launch_counts())
+    log(f"knob chunk ({smi}): K={CHUNK_K} under {KNOB_CHUNK}: {chunk_ms:.2f} ms/step (CUDA events "
+        f"over {CHUNK_TIMED} replays); peak {(peak - held) / 2**30:.2f} GiB above the "
+        f"{held / 2**30:.2f} held over the capture; step 1 vs eager: " + " ".join(
+            f"{k} {first[k][0].item():.6g}/{v:.6g}" for k, v in want1.items()))
+    return counts
+
+
+DET_STEPS = 4  # steps of each deterministic cli train run
+DET_CALLS = 20  # calls of the deterministic T that must give the same bits
+# A fresh process that runs the CLI (``python -m colvo_torch.cli`` does the
+# same) and then prints its kernel launches.
+DET_CHILD = ("import json, sys\n"
+             "from colvo_torch import cli\n"
+             "from colvo_torch.kernels import launch_counts\n"
+             "rc = cli.main(sys.argv[1:])\n"
+             "print('launch counts ' + json.dumps(launch_counts()), flush=True)\n"
+             "sys.exit(rc)\n")
+
+
+def det_rows(device, gen, timer, eager) -> dict:
+    """P5/det: T's deterministic variant at the geo shapes (the four scales
+    in one launch) and under the wild warp at the two largest: ``DET_CALLS``
+    calls each give the same bits, within ``TOL_SCATTER_REL`` of max|d_src|
+    of the plain version; a NaN cotangent makes its plane NaN. Timed beside
+    the float T on the same inputs; the library call is one deterministic
+    ``index_add_`` of every tap's term (indices and terms made outside the
+    clock), timed eagerly."""
+    geo, wild = [], []
+    for i, (gh, gw) in enumerate(GEO_SCALES):
+        gx, gy = make_coords(GEO_N, gh, gw, 50 + i, device)
+        g = torch.randn((GEO_N, 1, gh, gw), generator=gen).to(device)
+        g[:, :, : gh // 8] = 0.0
+        geo.append((gx, gy, g, (gh, gw)))
+    for gh, gw in GEO_SCALES[:2]:
+        wx = (torch.rand((GEO_N, gh, gw), generator=gen) * (gw + 2) - 1).to(device)
+        wy = (torch.rand((GEO_N, gh, gw), generator=gen) * (gh + 2) - 1).to(device)
+        wild.append((wx, wy, torch.randn((GEO_N, 1, gh, gw), generator=gen).to(device), (gh, gw)))
+    err, rel = 0.0, 0.0
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for sets in (geo, wild):
+            xs, ys, gs, hws = (list(t) for t in zip(*sets))
+            first = [d.clone() for d in scatter.scatter_multi(xs, ys, gs, hws)]
+            for _ in range(DET_CALLS - 1):
+                again = scatter.scatter_multi(xs, ys, gs, hws)
+                check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                          for a, b in zip(again, first)),
+                      "deterministic T gives the same bits on every call")
+            for d, want in zip(first, scatter.scatter_multi_plain(xs, ys, gs, hws)):
+                check(bool(torch.isfinite(d).all()), "deterministic T finite")
+                e = (d - want).abs().max().item()
+                err, rel = max(err, e), max(rel, e / want.abs().max().item())
+        check(rel <= TOL_SCATTER_REL, f"deterministic T vs plain: {rel:.3g} of max|d_src|")
+        nan_g = [g.clone() for g in gs]
+        nan_g[0][0, 0, -1, -1] = float("nan")
+        nan_out = scatter.scatter_multi(xs, ys, nan_g, hws)
+        # the kernel's plane is NaN in every cell (the plain version's, on a
+        # CPU rehearsal, where the NaN term lands)
+        nan_plane = torch.isnan(nan_out[0][0])
+        check(bool((nan_plane.all() if device.type == "cuda" else nan_plane.any())
+                   and torch.isfinite(nan_out[0][1:]).all()),
+              "deterministic T: a NaN cotangent makes its plane NaN, and only it")
+        xs, ys, gs, hws = (list(t) for t in zip(*geo))
+        call = lambda: scatter.scatter_multi(xs, ys, gs, hws)  # noqa: E731
+        det_ms, det_eager = timer(call), eager(call)
+        # one index_add_ of every tap's term: the single deterministic
+        # PyTorch call that computes T's function
+        idx, val, off = [], [], 0
+        for x, y, g, (h, w) in geo:
+            x0, x1, wx = bilinear_taps(x, w)
+            y0, y1, wy = bilinear_taps(y, h)
+            base = off + (torch.arange(g.shape[0], device=device) * (h * w)).reshape(-1, 1, 1)
+            for yy, xx, wt in ((y0, x0, (1 - wx) * (1 - wy)), (y0, x1, wx * (1 - wy)),
+                               (y1, x0, (1 - wx) * wy), (y1, x1, wx * wy)):
+                idx.append((base + yy * w + xx).reshape(-1))
+                val.append((g[:, 0] * wt).reshape(-1))
+            off += g.shape[0] * h * w
+        idx, val = torch.cat(idx), torch.cat(val)
+        flat = torch.zeros(off, device=device)
+        lib_ms = eager(lambda: flat.zero_().index_add_(0, idx, val))
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    float_ms = timer(call)
+    gpx = sum(x.numel() for x, _, _, _ in geo)
+    gsrc = sum(g.shape[0] * h * w for _, _, g, (h, w) in geo)
+    log(f"T deterministic at the four geo scales and under the wild warp: {DET_CALLS} calls "
+        f"bit for bit; |d_src| {err:.3g}, / max|d_src| {rel:.3g}; {det_ms:.4f} ms (eager "
+        f"{det_eager:.4f}) against the float T's {float_ms:.4f} ms on the same inputs; one "
+        f"deterministic index_add_ {lib_ms:.4f} ms (eager)")
+    return {"P5/det": dict(
+        max_abs_err=err, ms=det_ms, eager_ms=det_eager, float_ms=float_ms,
+        plain_ms=timer(lambda: scatter.scatter_multi_plain(xs, ys, gs, hws)),
+        library_ms=lib_ms, bound=bound(4 * (3 * gpx + gsrc), 24 * gpx))}
+
+
+def det_phase(device, smi: str) -> tuple:
+    """The deterministic phase: T's deterministic variant (``det_rows``),
+    then ``det_cli_runs``. Returns the kernel rows and the runs' launches."""
+    t_phase = time.time()
+    rows = det_rows(device, torch.Generator(device="cpu").manual_seed(5), time_ms, eager_ms)
+    counts = det_cli_runs(device, smi)
+    log(f"deterministic phase: {time.time() - t_phase:.1f} s")
+    return rows, counts
+
+
+def det_cli_runs(device, smi: str, extra_args=()) -> Counter:
+    """Two fresh processes of ``cli train --train.deterministic=true``, run
+    at once, each ``DET_STEPS`` steps at full width (``extra_args`` may add
+    overrides) on the same synthetic data and seed: both exit 0, launch
+    exactly a train step's kernels with ``T/C1/det`` for T, log the same
+    losses, and write step checkpoints equal bit for bit (model, Adam
+    moments and step counts). Returns the runs' launches."""
+    cfg = ColvoConfig().apply_overrides([a for a in extra_args if a.startswith("--")])
+    cfg.train.deterministic = True
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for run in range(2):
+            d = os.path.join(tmp, f"run{run}")
+            cmd = [sys.executable, "-c", DET_CHILD, "train", "--max-steps", str(DET_STEPS),
+                   "--log-dir", os.path.join(d, "log"), f"--train.ckpt_dir={d}/ckpt",
+                   f"--train.ckpt_every_steps={DET_STEPS}", "--train.deterministic=true",
+                   "--device", device.type, *extra_args]
+            procs.append(subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+        t0 = time.time()
+        outs = []
+        for proc in procs:
+            try:
+                out, _ = proc.communicate(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+            outs.append(out)
+            check(proc.returncode == 0, f"deterministic cli train exited {proc.returncode}:\n"
+                  + out[-3000:])
+        wall = time.time() - t0
+        want = dict(Counter(expected_launches(cfg, DET_STEPS)) - Counter(
+            expected_launches(cfg, 0)))
+        counts = Counter()
+        for out in outs:
+            got = json.loads(out.rsplit("launch counts ", 1)[1].splitlines()[0])
+            # (a rehearsal on the CPU launches no kernel)
+            check(got == want or device.type == "cpu",
+                  f"deterministic run launches {got} == {want}")
+            counts.update(got)
+        payloads = [torch.load(os.path.join(tmp, f"run{r}", "ckpt", str(DET_STEPS), "state.pt"),
+                               map_location="cpu", weights_only=True) for r in range(2)]
+        flat = [dict(_flat_items(p)) for p in payloads]
+        check(flat[0].keys() == flat[1].keys() and all(
+            torch.equal(v, flat[1][k]) if isinstance(v, torch.Tensor) else v == flat[1][k]
+            for k, v in flat[0].items()),
+            f"the two deterministic runs' step-{DET_STEPS} checkpoints are equal bit for bit")
+        rows_log = [[json.loads(line) for line in open(os.path.join(tmp, f"run{r}", "log",
+                                                                    "metrics.jsonl"))]
+                    for r in range(2)]
+        losses = [[(row["step"], row["loss/total"]) for row in rl if "loss/total" in row]
+                  for rl in rows_log]
+        check(losses[0] == losses[1] and losses[0], f"the two runs log the same losses {losses}")
+        n_tensors = sum(isinstance(v, torch.Tensor) for v in flat[0].values())
+        log(f"deterministic cli train ({smi}): two fresh processes at once, {DET_STEPS} steps "
+            f"each in {wall:.1f} s; their step-{DET_STEPS} checkpoints equal bit for bit "
+            f"({n_tensors} tensors: weights, Adam moments, step counts); losses {losses[0]}; "
+            f"launches {want} a run")
+    return counts
+
+
+def _flat_items(obj, prefix=""):
+    """(dotted key, leaf) pairs of a nested checkpoint payload."""
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            yield from _flat_items(v, f"{prefix}{k}.")
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            yield from _flat_items(v, f"{prefix}{i}.")
+    else:
+        yield prefix.rstrip("."), obj
 
 
 # Kernel-name keywords of the buckets in the step breakdown, first match wins.
@@ -653,10 +1009,11 @@ BUCKETS = (
 )
 
 
-def profile_step(state, batch, cfg: ColvoConfig) -> float:
+def profile_step(state, batch, cfg: ColvoConfig) -> tuple:
     """One more train step under ``torch.profiler``: device time by kernel,
     by bucket and by ATen op and input shapes, the device's busy share of
-    the step, peak memory. Returns the device's kernel time in ms."""
+    the step, peak memory. Returns the device's kernel time in ms and the
+    step's peak memory in GiB."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -682,7 +1039,7 @@ def profile_step(state, batch, cfg: ColvoConfig) -> float:
     log(f"profiled step: {step_ms:.2f} ms (CUDA events), peak memory {peak_gib:.2f} GiB")
     if busy == 0.0:
         log("profiled step: the profiler recorded no device time; breakdown not measured")
-        return busy
+        return busy, peak_gib
     log(f"profiled step: device busy {busy:.2f} ms = {100 * busy / step_ms:.1f} % of the "
         f"profiled step, {len(kernels)} kernels by name")
     buckets = {}
@@ -700,7 +1057,7 @@ def profile_step(state, batch, cfg: ColvoConfig) -> float:
         ms = e.self_device_time_total / 1e3
         log(f"  op {ms:8.3f} ms  {100 * ms / busy:5.1f} %  x{e.count} {e.key} "
             f"{str(e.input_shapes)[:90]}")
-    return busy
+    return busy, peak_gib
 
 
 def serving_phase(cfg: ColvoConfig, state, device, pairs: int = 4, iters: int = 10):
@@ -1872,6 +2229,8 @@ KERNELS = (
      "colvo/kernels/sampler.py:706", "S/value/C1"),
     ("P5", "bilinear_scatter_multi[C=1,4 scales]", "colvo_torch/kernels/csrc/scatter.cu",
      "colvo/kernels/scatter.py:217", "T/C1"),
+    ("P5/det", "bilinear_scatter_multi_det[C=1,4 scales,fixed point]",
+     "colvo_torch/kernels/csrc/scatter.cu", "colvo/kernels/scatter.py:217", "T/C1/det"),
     ("P6", "bilinear_sample[grad,C=3,group=4]", "colvo_torch/kernels/csrc/sampler.cu",
      "colvo/kernels/sampler.py:658", "S/grad/C3/g4"),
     ("P7", "fused_err[fwd,C=3,L=15]", "colvo_torch/kernels/csrc/fused_loss.cu",
@@ -1911,8 +2270,10 @@ def main() -> int:
         cfg = ColvoConfig()
         for k, v in knobs.items():
             setattr(cfg.loss, k, v)
-        state, metrics, path_counts, step_ms[label], dispatch_ms[label] = slice_phase(
+        state, metrics, path_counts, step_ms[label], dispatch_ms[label], prof = slice_phase(
             cfg, device, batches)
+        if label == "default":
+            default_prof = prof
         expect = expected_launches(cfg, TRAIN_STEPS)
         check(path_counts == expect, f"{label} launch counts {path_counts} == {expect}")
         counts.update(path_counts)
@@ -1931,6 +2292,13 @@ def main() -> int:
         del state  # the next path's peak memory holds its own state only
     log("train ms/step (median of steps 2.., CUDA events): " + ", ".join(
         f"{k} {v:.2f}" for k, v in step_ms.items()))
+    log("--- knobs: the off-default training configurations ---")
+    counts.update(knob_phase(device, smi, batches, first["default"], step_ms["default"],
+                             default_prof))
+    log("--- deterministic: T's fixed-point variant, two cli train runs bit for bit ---")
+    det_kernel_rows, det_counts = det_phase(device, smi)
+    rows.update(det_kernel_rows)
+    counts.update(det_counts)
     log("--- loop: cli train, export, train --resume ---")
     loop_counts, dataset, loop_ms = loop_phase(device, smi, step_ms["default"],
                                                dispatch_ms["default"])
@@ -1948,8 +2316,11 @@ def main() -> int:
     table = []
     for key, name, src, replaces, counter in KERNELS:
         r = rows[key]
+        check(counts[counter] > 0, f"{name} ({counter}) launched on no main path")
         bound_ms, bound_by = r["bound"]
         cold = f", {r['cold_ms']:.4f} ms with a cold L2" if "cold_ms" in r else ""
+        if "float_ms" in r:
+            cold += f" (the float T {r['float_ms']:.4f} ms on the same inputs)"
         log(f"{name}: {r['ms']:.4f} ms on the device (CUDA graph){cold}, {r['eager_ms']:.4f} ms "
             f"eager through the wrapper; plain {r['plain_ms']:.4f} ms; bound {bound_ms:.4f} ms")
         table.append({

@@ -2,8 +2,10 @@
 
 Knob names, defaults and the dotted-override / JSON serde are identical to
 the JAX package's, so one config file drives both. The rationale for each
-knob lives beside it in ``colvo/config.py``. Knobs that the port does not
-implement yet raise ``NotImplementedError`` where they are read.
+knob lives beside it in ``colvo/config.py``. Every loss, model and train
+knob is ported; the two that are not yet, ``data.loader="grain"`` and
+``mesh.data_parallel`` other than 1 or −1, raise ``NotImplementedError``
+where they are read.
 """
 
 from __future__ import annotations

@@ -3,10 +3,15 @@
 ``scatter_multi`` is the kernel's wrapper: a CUDA tensor launches the
 kernel once for up to ``MAX_DESCS`` plane sets (the geo scales of a step),
 after one memset of the one buffer that holds their gradients (exact for
-any warp, not deterministic across runs), and any error raises; a CPU
-tensor takes ``scatter_multi_plain``, a loop of ``scatter_plain``, the
-autograd transpose of the sampler's gather written with ``index_add_``.
-``scatter`` is its one-plane-set call. ``launches`` counts kernel launches.
+any warp, not deterministic across runs), and any error raises; under
+``torch.use_deterministic_algorithms(True)`` it launches the deterministic
+variant instead (fixed-point int64 atomics: the same bits on every run;
+``csrc/scatter.cu`` says how), counted as ``C<c>/det``. A CPU tensor takes
+``scatter_multi_plain``, a loop of ``scatter_plain``, the autograd
+transpose of the sampler's gather written with ``index_add_``
+(deterministic on the CPU). ``scatter`` is its one-plane-set call.
+``launches`` counts kernel launches (a plane-set launch of the
+deterministic variant is one count for its four operations).
 
 Layout: x, y (N, h, w) f32; g (N, C, h, w) f32 → d_src (N, C, H, W) f32.
 """
@@ -22,7 +27,7 @@ import torch
 from colvo_torch.geometry.ops import bilinear_taps
 from colvo_torch.kernels import build
 
-# Launches of the CUDA kernel, keyed "C<c>".
+# Launches of the CUDA kernel, keyed "C<c>" (float atomics) or "C<c>/det".
 launches: Counter = Counter()
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -49,7 +54,18 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [ScatterParams, _P, _L, _P]
         fn.restype = _I
+        det = lib.colvo_bilinear_scatter_multi_det
+        det.argtypes = [ScatterParams, _P, _L, _P, _P]
+        det.restype = _I
     return lib
+
+
+def det_workspace(params: ScatterParams, buf: torch.Tensor) -> torch.Tensor:
+    """The deterministic variant's workspace for ``params`` over ``buf``:
+    an int64 accumulator a cell of ``buf``, then a 32-bit slot a plane
+    (the entry point zeroes it)."""
+    planes = sum(params.d[i].n * params.d[i].c for i in range(params.n_desc))
+    return torch.empty(buf.numel() + (planes + 1) // 2, dtype=torch.int64, device=buf.device)
 
 
 def scatter_plain(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
@@ -103,11 +119,7 @@ def _scatter_multi_cuda(xs: Sequence[torch.Tensor], ys: Sequence[torch.Tensor],
         raise ValueError("scatter_multi takes one x, y, g and source size per plane set")
     for x, y, g in zip(xs, ys, gs):
         _check(x, y, g)
-    if torch.are_deterministic_algorithms_enabled():
-        raise RuntimeError(
-            "bilinear_scatter adds with float atomics and is not deterministic; "
-            "it cannot run under torch.use_deterministic_algorithms(True)"
-        )
+    det = torch.are_deterministic_algorithms_enabled()
     device, c = gs[0].device, gs[0].shape[1]
     if any(g.device != device for g in gs) or any(g.shape[1] != c for g in gs):
         raise ValueError("scatter_multi takes plane sets of one device and one channel count")
@@ -117,10 +129,16 @@ def _scatter_multi_cuda(xs: Sequence[torch.Tensor], ys: Sequence[torch.Tensor],
         params, buf, outs = multi_params(xs[lo:lo + MAX_DESCS], ys[lo:lo + MAX_DESCS],
                                          gs[lo:lo + MAX_DESCS], src_hws[lo:lo + MAX_DESCS])
         with torch.cuda.device(device):
-            err = _lib().colvo_bilinear_scatter_multi(params, buf.data_ptr(), buf.numel(), stream)
+            if det:
+                ws = det_workspace(params, buf)
+                err = _lib().colvo_bilinear_scatter_multi_det(params, buf.data_ptr(), buf.numel(),
+                                                              ws.data_ptr(), stream)
+            else:
+                err = _lib().colvo_bilinear_scatter_multi(params, buf.data_ptr(), buf.numel(),
+                                                          stream)
         if err != 0:
             raise RuntimeError(f"bilinear_scatter kernel launch failed: cudaError {err}")
-        launches[f"C{c}"] += 1
+        launches[f"C{c}/det" if det else f"C{c}"] += 1
         results += outs
     return results
 

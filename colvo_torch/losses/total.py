@@ -8,13 +8,30 @@ native-scale geometric-consistency term with gradients through both the
 projected z and the sampled source depth (kernels S and T), and the
 depth↔pose gauge hinge. Aux keys are those of the JAX loss.
 
-Two alternative photometric paths of the reference are ported:
-``loss.fused_kernel`` (each warp + LCC + SSIM + L1 by the fused kernel F)
-and ``loss.batched_photo`` (all n_scales × n_sources warps in one grouped
-launch of S, then one stats pipeline over the stack). The other knobs off
-by default in the reference (``photo_native``, ``geo_full_res``,
-``geo_grad="sym"``, ``geo_stopgrad``, ``compute_dtype``, ``photo_remat``,
-``scatter_audit``) raise ``NotImplementedError`` naming the knob.
+Every knob of the reference's ``LossConfig`` is ported, each with the
+reference's ``ValueError`` for the combinations it refuses, in its order:
+
+* photometric path: ``fused_kernel`` (each warp + LCC + SSIM + L1 by the
+  fused kernel F), ``batched_photo`` (all n_scales × n_sources warps in
+  one grouped launch of S, then one stats pipeline over the stack),
+  ``photo_native`` (each scale's photometric term on its own grid, against
+  2×-mean-pooled frame pyramids, with a rescaled K and per-scale identity
+  errors), ``photo_remat`` (LCC + SSIM + L1 under ``torch.utils.checkpoint``;
+  the warp stays outside, so S never re-runs in the backward) and
+  ``compute_dtype="bfloat16"`` (the comparison planes after the float32
+  gather in bf16, the reductions in float32);
+* geometric term: the default native-scale protocol (one S launch for
+  every scale's plane set, one T launch for their source cotangents),
+  ``geo_res_cap``, ``geo_full_res`` (every scale at full resolution, T over
+  four full-resolution plane sets), ``geo_stopgrad`` (detached source
+  depths: S runs, T does not) and ``geo_grad="sym"`` (both warp directions
+  a pair, each sampling the other frame's detached depth, the reverse one
+  through the inverse pose; the mean of the two losses: 2 × n_scales plane
+  sets in one S launch, no T);
+* ``scatter_audit``: ``aux["geo/scatter_overflow"]``, the reference's
+  count of offset classes its TPU scatter kernel would drop. T drops
+  nothing for any warp (``kernels/csrc/scatter.cu``), so the port's value
+  is a float32 zero by construction.
 """
 
 from __future__ import annotations
@@ -23,6 +40,7 @@ import math
 from typing import Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from colvo_torch.config import LossConfig, ModelConfig
 from colvo_torch.geometry import (
@@ -43,20 +61,26 @@ from colvo_torch.losses.terms import automask as automask_fn
 from colvo_torch.losses.terms import geometry_consistency, smoothness_loss
 from colvo_torch.models.depth_decoder import upsample_nearest
 
-# Off-default knobs of the reference whose branches are not ported, with
-# the value that keeps the default path.
-_UNPORTED = {
-    "photo_native": False,
-    "geo_full_res": False,
-    "geo_stopgrad": False,
-    "photo_remat": False,
-    "scatter_audit": False,
-}
-
 
 def _check_config(cfg: LossConfig) -> None:
+    """The reference's refusals, in its order (``colvo/losses/total.py``)."""
     if cfg.geo_grad not in ("both", "sym"):
         raise ValueError(f"loss.geo_grad must be 'both' or 'sym', got {cfg.geo_grad!r}")
+    if cfg.geo_grad == "sym" and cfg.geo_full_res:
+        raise ValueError(
+            "loss.geo_grad='sym' is only defined for the native-scale protocol "
+            "(geo_full_res=False)"
+        )
+    if cfg.photo_native and cfg.geo_full_res:
+        raise ValueError(
+            "loss.photo_native (scale-native photometric) contradicts "
+            "loss.geo_full_res (full-res geometry) — pick one protocol"
+        )
+    if cfg.photo_native and cfg.batched_photo:
+        raise ValueError(
+            "loss.batched_photo stacks shape-identical full-res evaluations; "
+            "incompatible with loss.photo_native"
+        )
     if cfg.fused_kernel and cfg.batched_photo:
         raise ValueError(
             "loss.fused_kernel and loss.batched_photo are alternative "
@@ -70,15 +94,6 @@ def _check_config(cfg: LossConfig) -> None:
     if cfg.compute_dtype not in ("", "float32", "bfloat16"):
         raise ValueError(
             f"loss.compute_dtype must be ''|float32|bfloat16, got {cfg.compute_dtype!r}"
-        )
-    unported = [f"{k}={getattr(cfg, k)!r}" for k, v in _UNPORTED.items() if getattr(cfg, k) != v]
-    if cfg.geo_grad != "both":
-        unported.append(f"geo_grad={cfg.geo_grad!r}")
-    if cfg.compute_dtype not in ("", "float32"):
-        unported.append(f"compute_dtype={cfg.compute_dtype!r}")
-    if unported:
-        raise NotImplementedError(
-            "loss knobs not ported yet: " + ", ".join(f"loss.{u}" for u in unported)
         )
 
 
@@ -131,64 +146,106 @@ def snippet_loss(
         frames_clean = frames
     _, n_frames, height, width, _ = frames.shape
     n_sources = n_frames - 1
+    n_scales = model_cfg.n_scales
     tgt_clean = frames_clean[:, 0]
-    # Channel planes of the clean frames for kernel S: (B, F, 3, H, W).
-    planes = frames_clean.permute(0, 1, 4, 2, 3).contiguous()
 
     t_mats = poses_to_transforms(poses)
+
+    # loss.compute_dtype: every comparison plane after the float32 gather
+    # (LCC/SSIM statistics, error maps, identity stacks) in bf16; geometry
+    # and the final reductions stay float32.
+    cdt = torch.bfloat16 if loss_cfg.compute_dtype == "bfloat16" else None
+    _c = (lambda x: x.to(cdt)) if cdt is not None else (lambda x: x)
+
+    # Frames for each scale's photometric term, NHWC and as channel planes
+    # for kernels S and F: full resolution at every scale by default, the
+    # 2^s-mean-pooled pyramid under photo_native.
+    tgt_pyr = [tgt_clean]
+    src_pyr = [[frames_clean[:, s + 1] for s in range(n_sources)]]
+    if loss_cfg.photo_native:
+        for _ in range(n_scales - 1):
+            tgt_pyr.append(_halve(tgt_pyr[-1]))
+            src_pyr.append([_halve(x) for x in src_pyr[-1]])
+        # (the target's planes only for F)
+        tgt_planes = [t.permute(0, 3, 1, 2).contiguous() if loss_cfg.fused_kernel else None
+                      for t in tgt_pyr]
+        src_planes = [[x.permute(0, 3, 1, 2).contiguous() for x in xs] for xs in src_pyr]
+    else:
+        # (B, F, 3, H, W): the frame slices need no copy
+        planes = frames_clean.permute(0, 1, 4, 2, 3).contiguous()
+        tgt_planes = [planes[:, 0]]
+        src_planes = [[planes[:, s + 1] for s in range(n_sources)]]
+
+    def _at(pyr, scale):
+        return pyr[scale] if loss_cfg.photo_native else pyr[0]
 
     lcc_mode = loss_cfg.lcc_mode if loss_cfg.lcc and loss_cfg.lcc_mode != "off" else "off"
 
     def _ident_src(src_f, tgt_f):
         if loss_cfg.lcc_identity and lcc_mode != "off":
-            return lcc_calibrate(src_f, tgt_f, lcc_mode, loss_cfg.lcc_window)
-        return src_f
+            return _c(lcc_calibrate(src_f, tgt_f, lcc_mode, loss_cfg.lcc_window))
+        return _c(src_f)
 
+    identity: List[torch.Tensor] = []  # per scale under photo_native, else one
     if loss_cfg.automask:
-        identity_errors = torch.stack(
-            [
-                photometric_error(
-                    _ident_src(frames_clean[:, s + 1], tgt_clean), tgt_clean,
-                    loss_cfg.ssim_alpha,
-                )
-                for s in range(n_sources)
-            ],
-            dim=-1,
-        )
+        for sc in range(n_scales if loss_cfg.photo_native else 1):
+            identity.append(torch.stack(
+                [photometric_error(_ident_src(src_pyr[sc][s], tgt_pyr[sc]), _c(tgt_pyr[sc]),
+                                   loss_cfg.ssim_alpha) for s in range(n_sources)], dim=-1))
 
-    n_scales = model_cfg.n_scales
-    photo_total = 0.0
-    smooth_total = 0.0
-    geo_total = 0.0
     full_depth = None
 
-    # Projection pass at full resolution (the photometric grid).
+    # Projection pass: at full resolution (the photometric grid) by
+    # default; on each scale's own grid with a rescaled K under
+    # photo_native, where the geo term may reuse it.
     pix_all: List[List[torch.Tensor]] = []
     z_all: List[List[torch.Tensor]] = []
+    depth_all: List[torch.Tensor] = []
     for scale in range(n_scales):
-        disp_full = _upsample_to(disps[0][scale], height)
-        _, depth = disp_to_depth(disp_full[..., 0], model_cfg.min_depth, model_cfg.max_depth)
+        if loss_cfg.photo_native:
+            disp_n = disps[0][scale]
+            h_s, w_s = disp_n.shape[1], disp_n.shape[2]
+            k_s = _scale_k(k, w_s / width, h_s / height)
+            _, depth = disp_to_depth(disp_n[..., 0], model_cfg.min_depth, model_cfg.max_depth)
+            cam_points = backproject(depth, torch.linalg.inv_ex(k_s).inverse)
+        else:
+            disp_full = _upsample_to(disps[0][scale], height)
+            k_s = k
+            _, depth = disp_to_depth(disp_full[..., 0], model_cfg.min_depth, model_cfg.max_depth)
+            cam_points = backproject(depth, k_inv)
         if scale == 0:
             full_depth = depth
-        cam_points = backproject(depth, k_inv)
-        projected = [project(cam_points, k, t_mats[:, s]) for s in range(n_sources)]
+        depth_all.append(depth)
+        projected = [project(cam_points, k_s, t_mats[:, s]) for s in range(n_sources)]
         pix_all.append([p for p, _ in projected])
         z_all.append([z for _, z in projected])
 
-    def photometric_of(s: int, pix: torch.Tensor) -> torch.Tensor:
-        if loss_cfg.fused_kernel:
-            return warp_photometric(planes[:, s + 1], planes[:, 0], pix[..., 0], pix[..., 1],
-                                    lcc_mode, loss_cfg.lcc_window, loss_cfg.ssim_alpha)
-        warped = bilinear_sample_planes(planes[:, s + 1], pix[..., 0], pix[..., 1])
-        warped = warped.permute(0, 2, 3, 1)
-        if lcc_mode.startswith("global"):
-            # Global LCC moments must not pool border-clamped samples.
-            vmask = _valid_mask(pix, pix.shape[1], pix.shape[2])
-            warped = lcc_calibrate(warped, tgt_clean, lcc_mode, loss_cfg.lcc_window,
+    def _stats_err(warped, tgt_f, vmask):
+        if lcc_mode != "off":
+            warped = lcc_calibrate(warped, tgt_f, lcc_mode, loss_cfg.lcc_window,
                                    valid_mask=vmask)
-        elif lcc_mode != "off":
-            warped = lcc_calibrate(warped, tgt_clean, lcc_mode, loss_cfg.lcc_window)
-        return photometric_error(warped, tgt_clean, loss_cfg.ssim_alpha)
+        return photometric_error(warped, tgt_f, loss_cfg.ssim_alpha)
+
+    def stats_err(warped, tgt_f, vmask=None):
+        if loss_cfg.photo_remat:
+            # the statistics recomputed in the backward; their input, the
+            # warp, is saved, so S never re-runs. No random numbers are
+            # drawn, so the RNG state is not kept (a CUDA graph can
+            # capture it).
+            return checkpoint(_stats_err, warped, tgt_f, vmask, use_reentrant=False,
+                              preserve_rng_state=False)
+        return _stats_err(warped, tgt_f, vmask)
+
+    def photometric_of(scale: int, s: int, pix: torch.Tensor) -> torch.Tensor:
+        src_p, tgt_p = _at(src_planes, scale)[s], _at(tgt_planes, scale)
+        if loss_cfg.fused_kernel:
+            return warp_photometric(src_p, tgt_p, pix[..., 0], pix[..., 1],
+                                    lcc_mode, loss_cfg.lcc_window, loss_cfg.ssim_alpha)
+        warped = _c(bilinear_sample_planes(src_p, pix[..., 0], pix[..., 1]).permute(0, 2, 3, 1))
+        # Global LCC moments must not pool border-clamped samples.
+        vmask = (_valid_mask(pix, pix.shape[1], pix.shape[2])
+                 if lcc_mode.startswith("global") else None)
+        return stats_err(warped, _c(_at(tgt_pyr, scale)), vmask)
 
     # batched_photo: all n_scales × n_sources full-resolution warps in one
     # grouped launch of S and one stats pipeline over the stack.
@@ -196,30 +253,40 @@ def snippet_loss(
     if loss_cfg.batched_photo:
         batch = frames.shape[0]
         # plane j = s·B + b; coords scale-minor, so plane i samples source i // n_scales
-        src_one = torch.cat([planes[:, s + 1] for s in range(n_sources)])
+        src_one = torch.cat(src_planes[0])
         pix_flat = torch.stack(
             [torch.cat([pix_all[sc][s] for s in range(n_sources)]) for sc in range(n_scales)],
             dim=1,
         ).reshape(-1, height, width, 2)
         warped = bilinear_sample_grouped_planes(src_one, pix_flat[..., 0], pix_flat[..., 1],
                                                 n_scales)
-        warped = warped.permute(0, 2, 3, 1).reshape(n_sources, batch, n_scales, height, width, 3)
-        tgt_b = tgt_clean[None, :, None]  # broadcast over sources and scales
+        warped = _c(warped.permute(0, 2, 3, 1).reshape(n_sources, batch, n_scales, height,
+                                                        width, 3))
+        tgt_b = _c(tgt_clean)[None, :, None]  # broadcast over sources and scales
         vmask = None
         if lcc_mode.startswith("global"):
             vmask = _valid_mask(pix_flat, height, width).reshape(
                 n_sources, batch, n_scales, height, width)
-        if lcc_mode != "off":
-            warped = lcc_calibrate(warped, tgt_b, lcc_mode, loss_cfg.lcc_window,
-                                   valid_mask=vmask)
-        err_g = photometric_error(warped, tgt_b, loss_cfg.ssim_alpha)
+        err_g = stats_err(warped, tgt_b, vmask)
         for sc in range(n_scales):
             for s in range(n_sources):
                 err_lookup[(sc, s)] = err_g[s, :, sc]
 
     def _geo_grid(scale: int, s: int):
-        """Native-scale geo grid for one source:
-        (pix_g, z_g, src_depth_g, h_g, w_g)."""
+        """The geo grid of one (scale, source): (pix_g, z_g, src_depth_g,
+        depth_g, h_g, w_g)."""
+        pix, z = pix_all[scale][s], z_all[scale][s]
+        if loss_cfg.geo_full_res:
+            # full-resolution protocol: the photometric projection, the
+            # source depth upsampled to the input grid
+            _, src_depth_g = disp_to_depth(_upsample_to(disps[s + 1][scale], height)[..., 0],
+                                           model_cfg.min_depth, model_cfg.max_depth)
+            return pix, z, src_depth_g, None, height, width
+        if loss_cfg.photo_native and loss_cfg.geo_res_cap == 0:
+            # photo_native projected on this very grid: reuse it
+            _, src_depth_g = disp_to_depth(disps[s + 1][scale][..., 0], model_cfg.min_depth,
+                                           model_cfg.max_depth)
+            return pix, z, src_depth_g, depth_all[scale], pix.shape[1], pix.shape[2]
         g_disp_t = disps[0][scale]
         g_disp_s = disps[s + 1][scale]
         if loss_cfg.geo_res_cap > 0:
@@ -232,24 +299,61 @@ def snippet_loss(
         _, src_depth_g = disp_to_depth(
             g_disp_s[..., 0], model_cfg.min_depth, model_cfg.max_depth
         )
-        pix_g, z_g = project(backproject(depth_g, torch.linalg.inv_ex(k_g).inverse), k_g, t_mats[:, s])
-        return pix_g, z_g, src_depth_g, h_g, w_g
+        pix_g, z_g = project(backproject(depth_g, torch.linalg.inv_ex(k_g).inverse), k_g,
+                             t_mats[:, s])
+        return pix_g, z_g, src_depth_g, depth_g, h_g, w_g
 
-    # Geo pass: every scale's depth warps in one sampler launch (and one
-    # scatter launch in the backward). At one scale the per-source warps
-    # are shape-identical and stack on the batch axis; the scales are
-    # separate plane sets of the same launch. Exact: both kernels act on
-    # each plane on its own.
+    # Geo pass: every depth warp of the step in one sampler launch (and,
+    # where a sampled source keeps its gradient, one scatter launch in the
+    # backward). At one scale the per-source warps are shape-identical and
+    # stack on the batch axis; the scales (and, under geo_grad="sym", the
+    # reverse warps) are separate plane sets of the same launch. Sources
+    # are detached where the reference stops their gradient, so T does not
+    # run for them. Exact: both kernels act on each plane on its own.
     geo_grids: List[List[tuple]] = []
     geo_sampled: List[Tuple[torch.Tensor, ...]] = []
+    geo_reverse: List[List[torch.Tensor]] = []  # [scale][source] g_loss_r under "sym"
+    sym = loss_cfg.geo_grad == "sym"
     if loss_cfg.geometric_weight > 0:
         geo_grids = [[_geo_grid(scale, s) for s in range(n_sources)] for scale in range(n_scales)]
-        pix_stacks = [torch.cat([g[0] for g in grids]) for grids in geo_grids]
-        samp = bilinear_sample_full_multi(
-            [torch.cat([g[2] for g in grids])[:, None] for grids in geo_grids],
-            [pix[..., 0] for pix in pix_stacks], [pix[..., 1] for pix in pix_stacks])
+        srcs, coords = [], []
+        for grids in geo_grids:
+            src = torch.cat([g[2] for g in grids])[:, None]
+            srcs.append(src.detach() if sym or loss_cfg.geo_stopgrad else src)
+            coords.append(torch.cat([g[0] for g in grids]))
+        reverse = []
+        if sym:
+            # the reverse warp: the source's points through the inverse
+            # pose, sampling the (detached) target depth
+            for grids in geo_grids:
+                rev = []
+                for s, (_, _, src_depth_g, depth_g, h_g, w_g) in enumerate(grids):
+                    k_g = _scale_k(k, w_g / width, h_g / height)
+                    pts_r = backproject(src_depth_g, torch.linalg.inv_ex(k_g).inverse)
+                    rev.append(project(pts_r, k_g, torch.linalg.inv_ex(t_mats[:, s]).inverse))
+                reverse.append(rev)
+                srcs.append(torch.cat([g[3] for g in grids]).detach()[:, None])
+                coords.append(torch.cat([p for p, _ in rev]))
+        samp = bilinear_sample_full_multi(srcs, [c[..., 0] for c in coords],
+                                          [c[..., 1] for c in coords])
         geo_sampled = [torch.chunk(sm[:, 0], n_sources) for sm in samp]
+        for scale, rev in enumerate(reverse):
+            sampled_r = geo_sampled[n_scales + scale]
+            geo_reverse.append([
+                geometry_consistency(z_r, sampled_r[s], _valid_mask(pix_r, *pix_r.shape[1:3]),
+                                     behind=z_r <= 0)[0]
+                for s, (pix_r, z_r) in enumerate(rev)])
 
+    aux: Dict[str, torch.Tensor] = {}
+    if (loss_cfg.scatter_audit and loss_cfg.geometric_weight > 0 and not sym
+            and not loss_cfg.geo_stopgrad):
+        # The reference counts the offset classes its TPU scatter would
+        # drop; T drops none for any warp, so this is zero by construction.
+        aux["geo/scatter_overflow"] = torch.zeros((), dtype=torch.float32, device=poses.device)
+
+    photo_total = 0.0
+    smooth_total = 0.0
+    geo_total = 0.0
     for scale in range(n_scales):
         disp_s = disps[0][scale]
 
@@ -257,32 +361,43 @@ def snippet_loss(
         geo_losses = []
         for s in range(n_sources):
             pix, z = pix_all[scale][s], z_all[scale][s]
-            valid = _valid_mask(pix, height, width) * (z > 0)
-            err = err_lookup[(scale, s)] if loss_cfg.batched_photo else photometric_of(s, pix)
+            ph, pw = pix.shape[1], pix.shape[2]
+            valid = _valid_mask(pix, ph, pw) * (z > 0)
+            err = err_lookup[(scale, s)] if loss_cfg.batched_photo else photometric_of(
+                scale, s, pix)
             if loss_cfg.geometric_weight > 0:
-                pix_g, z_g, _, h_g, w_g = geo_grids[scale][s]
+                pix_g, z_g, _, _, h_g, w_g = geo_grids[scale][s]
                 gvalid = _valid_mask(pix_g, h_g, w_g)
+                if loss_cfg.geo_full_res:
+                    gvalid = gvalid * _valid_mask(pix, height, width)
                 g_loss, g_weight = geometry_consistency(
                     z_g, geo_sampled[scale][s], gvalid, behind=z_g <= 0
                 )
-                if height // h_g > 1:
-                    up = height // h_g
+                if sym:
+                    g_loss = 0.5 * (g_loss + geo_reverse[scale][s])
+                if ph // h_g > 1:  # (1 under geo_full_res)
+                    up = ph // h_g
                     g_weight = upsample_nearest(g_weight[..., None], up)[..., 0]
                     gvalid = upsample_nearest(gvalid[..., None], up)[..., 0]
                 geo_losses.append(g_loss)
                 # Downweight photometrically where geometry disagrees
-                # (occlusion/dynamic) — the DCDP loss-level coupling.
-                err = err * g_weight + err * (1.0 - gvalid * valid)
+                # (occlusion/dynamic) — the DCDP loss-level coupling. The
+                # weights join in err's dtype (bf16 under compute_dtype).
+                gw = g_weight.to(err.dtype)
+                gv = (gvalid * valid).to(err.dtype)
+                err = err * gw + err * (1.0 - gv)
             warped_errors.append(err)
 
-        errors = torch.stack(warped_errors, dim=-1)  # (B, H, W, S)
+        errors = torch.stack(warped_errors, dim=-1)  # (B, h, w, S)
+        # reductions in float32 whatever the planes' dtype
         if loss_cfg.automask:
-            min_err, mask = automask_fn(errors, identity_errors)
-            photo = torch.sum(min_err * mask) / (torch.sum(mask) + 1e-7)
+            min_err, mask = automask_fn(errors, _at(identity, scale))
+            mask32 = mask.float()
+            photo = torch.sum(min_err.float() * mask32) / (torch.sum(mask32) + 1e-7)
         elif loss_cfg.min_reprojection:
-            photo = torch.mean(torch.amin(errors, dim=-1))
+            photo = torch.mean(torch.amin(errors, dim=-1).float())
         else:
-            photo = torch.mean(errors)
+            photo = torch.mean(errors.float())
 
         tgt_small = tgt_clean[:, :: 2**scale, :: 2**scale]
         smooth = smoothness_loss(disp_s, tgt_small) / (2**scale)
@@ -305,7 +420,6 @@ def snippet_loss(
         + loss_cfg.geometric_weight * geo_scale * geo_total
     )
 
-    aux: Dict[str, torch.Tensor] = {}
     # Depth<->pose gauge hinge on r = mean||t|| / mean(depth): zero value
     # and gradient inside [gauge_lo, gauge_hi].
     if loss_cfg.gauge_weight > 0:

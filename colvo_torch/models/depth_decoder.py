@@ -2,7 +2,8 @@
 
 U-Net decoder with skips concatenated as ``[x, skip]``; ELU, nearest ×2
 upsampling and 3×3 convs; sigmoid disparity heads at ``n_scales`` scales,
-computed in float32. ``pad_mode`` "same" (default) pads the convs as Flax
+computed in float32; with ``remat`` each ``ConvBlock`` is recomputed in the
+backward. ``pad_mode`` "same" (default) pads the convs as Flax
 ``SAME`` does; "reflect" (selected by ``model.norm="none"``, the family's
 ``Conv3x3``) reflects the input by one pixel and convolves without padding.
 """
@@ -15,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from colvo_torch.models.encoder import ENCODER_CHANNELS, Conv
+from colvo_torch.models.encoder import ENCODER_CHANNELS, Conv, remat_call
 
 DECODER_CHANNELS = (16, 32, 64, 128, 256)
 
@@ -55,9 +56,10 @@ class DepthDecoder(nn.Module):
     (B, 1, H/2^s, W/2^s) in (0, 1) for s in 0..n_scales−1."""
 
     def __init__(self, n_scales: int = 4, dtype: torch.dtype = torch.float32,
-                 pad_mode: str = "same"):
+                 pad_mode: str = "same", remat: bool = False):
         super().__init__()
         self.n_scales = n_scales
+        self.remat = remat
         blocks = []
         cin = ENCODER_CHANNELS[-1]
         for i in range(4, -1, -1):
@@ -70,15 +72,18 @@ class DepthDecoder(nn.Module):
             Conv3x3(DECODER_CHANNELS[i], 1, pad_mode, torch.float32) for i in range(n_scales)
         )
 
+    def _block(self, j: int, x: torch.Tensor) -> torch.Tensor:
+        return remat_call(self.blocks[j], x) if self.remat else self.blocks[j](x)
+
     def forward(self, enc_features: Sequence[torch.Tensor]) -> Dict[int, torch.Tensor]:
         outputs: Dict[int, torch.Tensor] = {}
         x = enc_features[-1]
         for level, i in enumerate(range(4, -1, -1)):
-            x = self.blocks[2 * level](x)
+            x = self._block(2 * level, x)
             x = F.interpolate(x, scale_factor=2, mode="nearest")
             if i > 0:
                 x = torch.cat([x, enc_features[i - 1].to(x.dtype)], dim=1)
-            x = self.blocks[2 * level + 1](x)
+            x = self._block(2 * level + 1, x)
             if i < self.n_scales:
                 outputs[i] = torch.sigmoid(self.dispconvs[i](x.float()))
         return outputs

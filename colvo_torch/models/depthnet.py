@@ -1,5 +1,12 @@
 """DepthNet and the coupled ColVO snippet model (port of
-``colvo/models/depthnet.py``)."""
+``colvo/models/depthnet.py``).
+
+``model.remat`` recomputes every encoder ``BasicBlock`` and decoder
+``ConvBlock`` in the backward pass (``torch.utils.checkpoint``); the
+``state_dict`` keys do not change with it. ``model.batched_snippet=false``
+runs the reference's per-frame forward: one depth pass a frame and one
+pose pass a pair, the same function as the batched passes.
+"""
 
 from __future__ import annotations
 
@@ -18,15 +25,6 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    for knob, default in (("remat", False), ("batched_snippet", True)):
-        if getattr(cfg, knob) != default:
-            raise NotImplementedError(
-                f"model.{knob}={getattr(cfg, knob)!r} is not ported yet "
-                f"(only {default!r})"
-            )
-
-
 class DepthNet(nn.Module):
     """Single-frame depth: NCHW image → ({scale: disp (B, 1, h, w)},
     /32 bottleneck used by DCDP fusion)."""
@@ -34,9 +32,10 @@ class DepthNet(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         dt = compute_dtype(cfg)
-        self.encoder = ResNetEncoder(cfg.num_layers, 3, dt, cfg.norm)
+        self.encoder = ResNetEncoder(cfg.num_layers, 3, dt, cfg.norm, cfg.remat)
         # the import variant mirrors the family's reflection-padded decoder
-        self.decoder = DepthDecoder(cfg.n_scales, dt, "reflect" if cfg.norm == "none" else "same")
+        self.decoder = DepthDecoder(cfg.n_scales, dt, "reflect" if cfg.norm == "none" else "same",
+                                    cfg.remat)
 
     def forward(self, img: torch.Tensor) -> Tuple[Dict[int, torch.Tensor], torch.Tensor]:
         feats = self.encoder(img)
@@ -53,11 +52,10 @@ class ColVOModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
         dt = compute_dtype(cfg)
         self.depth = DepthNet(cfg)
-        self.pose_encoder = ResNetEncoder(cfg.num_layers, 6, dt, cfg.norm)
+        self.pose_encoder = ResNetEncoder(cfg.num_layers, 6, dt, cfg.norm, cfg.remat)
         cin = ENCODER_CHANNELS[-1]
         self.fusion = None
         if cfg.dcdp_fusion:
@@ -87,6 +85,8 @@ class ColVOModel(nn.Module):
         return self.pose_decoder(bottleneck)
 
     def forward(self, frames: torch.Tensor):
+        if not self.cfg.batched_snippet:
+            return self._forward_per_frame(frames)
         b, n_frames, h, w, c = frames.shape
         # One batched depth pass over all snippet frames (GroupNorm is
         # per-sample, so batching is exact).
@@ -117,3 +117,21 @@ class ColVOModel(nn.Module):
         pose6 = torch.cat([aa, tr], dim=-1)  # (S·B, 6)
         poses = pose6.reshape(n_sources, b, 6).transpose(0, 1)
         return disps, poses
+
+    def _forward_per_frame(self, frames: torch.Tensor):
+        """One DepthNet call a snippet frame and one pose call a (target,
+        source) pair (``model.batched_snippet=false``), as the reference's
+        ``_call_per_frame``: the same function as the batched passes."""
+        n_frames = frames.shape[1]
+        x = frames.permute(0, 1, 4, 2, 3).to(compute_dtype(self.cfg))
+        disps, bottlenecks = [], []
+        for i in range(n_frames):
+            d, bn = self.depth(x[:, i].contiguous())
+            disps.append({s: v.permute(0, 2, 3, 1) for s, v in d.items()})
+            bottlenecks.append(bn)
+        poses = []
+        for s in range(1, n_frames):
+            feats = [bottlenecks[0], bottlenecks[s]] if self.fusion is not None else None
+            aa, tr = self.pose(x[:, 0], x[:, s], feats)
+            poses.append(torch.cat([aa, tr], dim=-1))
+        return disps, torch.stack(poses, dim=1)

@@ -25,6 +25,7 @@ from typing import List, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 _STAGES = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}
 ENCODER_CHANNELS: Tuple[int, ...] = (64, 64, 128, 256, 512)
@@ -129,13 +130,24 @@ class BasicBlock(nn.Module):
         return F.relu(y + residual)
 
 
+def remat_call(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``block(x)`` with its activations recomputed in the backward
+    (``model.remat``, the reference's ``nn.remat``). The blocks draw no
+    random numbers, so the RNG state is not kept: a CUDA graph captures
+    the recomputation."""
+    return checkpoint(block, x, use_reentrant=False, preserve_rng_state=False)
+
+
 class ResNetEncoder(nn.Module):
     """5-scale feature pyramid: features at /2, /4, /8, /16, /32 for
-    3-channel frames (DepthNet) or 6-channel frame pairs (PoseNet)."""
+    3-channel frames (DepthNet) or 6-channel frame pairs (PoseNet); with
+    ``remat`` each ``BasicBlock`` is recomputed in the backward."""
 
     def __init__(self, num_layers: int = 18, in_channels: int = 3,
-                 dtype: torch.dtype = torch.float32, norm: str = "group"):
+                 dtype: torch.dtype = torch.float32, norm: str = "group",
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         if num_layers not in _STAGES:
             raise ValueError(f"num_layers must be one of {sorted(_STAGES)}")
         self.dtype = dtype
@@ -160,7 +172,7 @@ class ResNetEncoder(nn.Module):
         features = [x]
         x = F.max_pool2d(x, 3, 2, padding=1)
         for i, block in enumerate(self.blocks):
-            x = block(x)
+            x = remat_call(block, x) if self.remat else block(x)
             if i in self._stage_ends:
                 features.append(x)
         return features

@@ -3,13 +3,15 @@
 Epochs over the snippet dataset with device prefetch (or from a corpus
 held on the device, ``data.loader="device"``), periodic checkpoints, async
 metrics, the NaN guards, basin detect-and-restart, the profiler window and
-the eval hook, on one device. No step of the loop
+the eval hook, on one device; ``train.deterministic`` runs it bitwise
+reproducibly (``deterministic_mode``). No step of the loop
 waits for the device, except the bounded dispatch-ahead drain, the one
 fetch of the restart check, the eval hook and the end of the run.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from collections import deque
@@ -57,11 +59,45 @@ def train(
     """Full training entry. Returns (model, final state)."""
     _check_supported(cfg)
     device = resolve_device(device)
-    # Sanitizer mode: the first op that makes a NaN raises, with the
-    # forward op's trace. (train.deterministic on CUDA raises in init_state.)
-    with torch.autograd.set_detect_anomaly(bool(cfg.train.debug_nans)):
+    # Sanitizer modes: the first op that makes a NaN raises, with the
+    # forward op's trace; and/or bitwise-reproducible runs.
+    with torch.autograd.set_detect_anomaly(bool(cfg.train.debug_nans)), \
+            deterministic_mode(bool(cfg.train.deterministic)):
         return _train(cfg, dataset, log_dir, max_steps, eval_hook, eval_hook_factory,
                       resume, device)
+
+
+@contextlib.contextmanager
+def deterministic_mode(on: bool):
+    """``train.deterministic`` in PyTorch's terms, as the reference pins
+    matmul precision to "highest" (``colvo/runtime/loop.py:42-43``): TF32
+    off for matmuls and cuDNN, ``torch.use_deterministic_algorithms(True)``
+    (an op without a deterministic kernel raises; kernel T takes its
+    fixed-point variant), cuDNN deterministic without autotuning, and
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``. cuBLAS reads that variable when
+    its handle is made, so only a process that has run no matmul on the
+    card before is bitwise reproducible (``cli train`` is). Every flag is
+    put back on exit."""
+    if not on:
+        yield
+        return
+    cuda, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = (cuda.allow_tf32, cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    cuda.allow_tf32 = cudnn.allow_tf32 = False
+    cudnn.deterministic, cudnn.benchmark = True, False
+    if saved[-1] is None:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        cuda.allow_tf32, cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark = saved[:4]
+        torch.use_deterministic_algorithms(saved[4], warn_only=saved[5])
+        if saved[-1] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
 
 
 def _train(cfg, dataset, log_dir, max_steps, eval_hook, eval_hook_factory, resume, device):

@@ -8,8 +8,8 @@ place (PyTorch style) and returns device tensors without synchronising.
 
 ``make_scan_train`` folds K such steps over a device-resident corpus into
 one chunk; on CUDA the chunk is one CUDA graph, replayed once a call. On
-CUDA, Adam is capturable and reads its learning rate from a device tensor,
-so no step reads a host scalar.
+CUDA, Adam (``optim.Adam``) is capturable and reads its learning rate from
+a device tensor, so no step reads a host scalar.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from colvo_torch.data.device_store import device_augment, gather
 from colvo_torch.kernels import add_launch_counts, launch_counts, reset_launch_counts
 from colvo_torch.losses import snippet_loss
 from colvo_torch.models import ColVOModel
+from colvo_torch.runtime.optim import Adam
 
 # Eager steps a chunk runs on a side stream before its capture.
 _WARMUP_STEPS = 2
@@ -89,14 +90,14 @@ def init_state(
     steps_per_epoch: int = 1000,
 ) -> TrainState:
     """Build the model (Flax-like init from ``seed``, default
-    ``train.seed``) and its Adam optimizer on ``device``."""
+    ``train.seed``) and its optimizer on ``device``: ``optim.Adam`` in
+    optax's order of operations (AdamW with ``train.weight_decay``; the
+    first moment in bf16 under ``train.adam_mu_dtype="bfloat16"``)."""
     device = resolve_device(device)
-    if cfg.train.adam_mu_dtype not in ("", "float32"):
-        raise NotImplementedError(f"train.adam_mu_dtype={cfg.train.adam_mu_dtype!r} is not ported yet")
-    if cfg.train.deterministic and device.type == "cuda":
-        raise NotImplementedError(
-            "train.deterministic=True on CUDA: the bilinear_scatter kernel adds "
-            "with float atomics, whose order changes from run to run"
+    if cfg.train.adam_mu_dtype not in ("", "float32", "bfloat16"):
+        raise ValueError(
+            "train.adam_mu_dtype must be ''|float32|bfloat16, "
+            f"got {cfg.train.adam_mu_dtype!r}"
         )
     gen = torch.Generator().manual_seed(cfg.train.seed if seed is None else seed)
     model = ColVOModel(cfg.model)
@@ -109,10 +110,8 @@ def init_state(
         kw = {"lr": torch.full((), cfg.train.lr, device=device), "capturable": True}
     else:
         kw = {"lr": cfg.train.lr}
-    if cfg.train.weight_decay > 0:
-        opt = torch.optim.AdamW(params, weight_decay=cfg.train.weight_decay, **kw)
-    else:
-        opt = torch.optim.Adam(params, **kw)
+    mu_dtype = torch.bfloat16 if cfg.train.adam_mu_dtype == "bfloat16" else torch.float32
+    opt = Adam(params, weight_decay=cfg.train.weight_decay, mu_dtype=mu_dtype, **kw)
     return TrainState(model, opt, 0, steps_per_epoch)
 
 

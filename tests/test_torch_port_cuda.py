@@ -167,6 +167,59 @@ def test_multi_scale_autograd_launches_one_s_and_one_t(device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("wild", [False, True])
+def test_deterministic_scatter_gives_the_same_bits_every_call(device, wild):
+    """Under deterministic algorithms T launches its fixed-point variant
+    (T/C1/det, one count a plane-set launch): 10 calls give the same bits,
+    within 1e-4 of max|d_src| of the plain version; outside the mode the
+    float variant runs (T/C1)."""
+    _, xs, ys, gs = _geo_sets(device, 41, wild)
+    hws = [(64, 80), (32, 40), (37, 53)]
+    kernels.reset_launch_counts()
+    scatter.scatter_multi(xs, ys, gs, hws)
+    assert kernels.launch_counts() == {"T/C1": 1}
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        first = [d.clone() for d in scatter.scatter_multi(xs, ys, gs, hws)]
+        for _ in range(9):
+            for a, b in zip(scatter.scatter_multi(xs, ys, gs, hws), first):
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert kernels.launch_counts() == {"T/C1": 1, "T/C1/det": 10}
+    for got, x, y, g, hw in zip(first, xs, ys, gs, hws):
+        want = scatter.scatter_plain(x, y, g, *hw)
+        torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max().item(), rtol=0)
+
+
+@pytest.mark.cuda
+def test_deterministic_scatter_propagates_nan(device):
+    """A NaN or inf cotangent, or a NaN coordinate, makes its plane NaN in
+    the fixed-point variant (every cell of it); the other planes of the
+    launch keep their values; a zero cotangent gives a zero plane."""
+    _, xs, ys, gs = _geo_sets(device, 43)
+    gs[0][0, 0, 10, 10] = float("nan")
+    gs[0][1, 0, 12, 3] = float("inf")
+    gs[0][2].zero_()
+    xs[1][0, 20, 20] = float("nan")
+    hws = [(64, 80), (32, 40), (37, 53)]
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        got = scatter.scatter_multi(xs, ys, gs, hws)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert torch.isnan(got[0][:2]).all() and torch.isnan(got[1][0]).all()
+    assert torch.equal(got[0][2], torch.zeros_like(got[0][2]))
+    for d, x, y, g, hw, keep in ((got[0], xs[0], ys[0], gs[0], hws[0], slice(3, 4)),
+                                 (got[1], xs[1], ys[1], gs[1], hws[1], slice(1, None)),
+                                 (got[2], xs[2], ys[2], gs[2], hws[2], slice(None))):
+        want = scatter.scatter_plain(x[keep], y[keep], g[keep], *hw)
+        torch.testing.assert_close(d[keep], want, atol=1e-4 * want.abs().max().item(), rtol=0)
+
+
+@pytest.mark.cuda
 def test_multi_scale_wrappers_reject_what_they_cannot_launch(device):
     ds, xs, ys, gs = _geo_sets(device, 41)
     hws = [tuple(d.shape[2:]) for d in ds]
@@ -609,3 +662,37 @@ def test_cli_vo_on_the_card_without_cv2(device, tmp_path, monkeypatch):
     assert png.read_png(os.path.join(out, "reconstruction.png")).shape == (780, 1040, 3)
     assert png.read_png(os.path.join(out, "trajectory.png")).shape == (780, 910, 3)
     assert kernels.launch_counts() == {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knob", ["model.remat", "train.adam_mu_dtype"])
+def test_chunk_captures_under_remat_and_the_bf16_moment(device, knob):
+    """make_scan_train captures and replays under model.remat (with
+    loss.photo_remat: checkpointed blocks in the graph) and under
+    adam_mu_dtype="bfloat16" (the port's Adam): finite losses, the first
+    moments bf16 under the latter, and a second replay that trains on."""
+    from colvo_torch.data import DeviceSnippetStore, render_sequence
+    from colvo_torch.runtime import init_state, make_scan_train
+
+    cfg = ColvoConfig()
+    cfg.model.dtype = "float32"
+    cfg.model.n_scales = 2
+    cfg.data.height, cfg.data.width, cfg.data.batch_size = 64, 96, 2
+    cfg.data.frame_offsets = (1,)
+    if knob == "model.remat":
+        cfg.model.remat = cfg.loss.photo_remat = True
+    else:
+        cfg.train.adam_mu_dtype = "bfloat16"
+    seq = render_sequence(n_frames=12, height=64, width=96, seed=3)
+    store = DeviceSnippetStore([seq.frames], [seq.k], cfg.data.frame_offsets, device=device)
+    state = init_state(cfg, seed=0, device=device)
+    chunk = make_scan_train(state, cfg, 2)
+    gen = torch.Generator(device=device).manual_seed(0)
+    state, m1 = chunk(state, store.frames, store.table, store.k, gen)
+    state, m2 = chunk(state, store.frames, store.table, store.k, gen)
+    assert chunk.graph is not None and state.step == 4
+    assert torch.isfinite(m1["loss/total"]).all() and torch.isfinite(m2["loss/total"]).all()
+    assert chunk.captured_launches == {"S/grad/C3": 4, "S/grad/C1": 2, "T/C1": 2}
+    if knob == "train.adam_mu_dtype":
+        moments = [state.optimizer.state[p]["exp_avg"] for p in state.model.parameters()]
+        assert all(m.dtype == torch.bfloat16 for m in moments)

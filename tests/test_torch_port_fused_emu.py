@@ -80,6 +80,29 @@ inline int cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
   return 0;
 }
 inline float atomicAdd(float* p, float v) { return std::atomic_ref<float>(*p).fetch_add(v); }
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
+}
+inline unsigned atomicMax(unsigned* p, unsigned v) {
+  std::atomic_ref<unsigned> a(*p);
+  unsigned old = a.load();
+  while (old < v && !a.compare_exchange_weak(old, v)) {
+  }
+  return old;
+}
+inline unsigned __float_as_uint(float v) {
+  unsigned u;
+  std::memcpy(&u, &v, 4);
+  return u;
+}
+inline float __uint_as_float(unsigned u) {
+  float v;
+  std::memcpy(&v, &u, 4);
+  return v;
+}
+inline long long __float2ll_rn(float v) { return std::llrint(v); }
+inline float __ll2float_rn(long long v) { return static_cast<float>(v); }
+inline int __clzll(long long v) { return v ? __builtin_clzll(static_cast<unsigned long long>(v)) : 64; }
 // A warp's threads meet at their warp's barrier (blocks hold whole warps):
 // each lane posts a 32-bit value and reads lane ``src``'s.
 template <class T> T shim_exchange(T v, unsigned src) {
@@ -108,11 +131,21 @@ inline unsigned __umulhi(unsigned a, unsigned b) {
 }
 inline float __fdividef(float a, float b) { return a / b; }
 inline void __syncthreads() { block_barrier->arrive_and_wait(); }
+// Compiled with -DSHIM_REVERSE, the blocks of a grid run last to first and
+// a block's threads start last to first.
+#ifdef SHIM_REVERSE
+constexpr bool shim_reverse = true;
+#else
+constexpr bool shim_reverse = false;
+#endif
 template <class K, class... A>
 void shim_launch(K kernel, dim3 grid, int threads, size_t bytes, A... args) {
-  for (unsigned z = 0; z < grid.z; ++z)
-    for (unsigned y = 0; y < grid.y; ++y)
-      for (unsigned x = 0; x < grid.x; ++x) {
+  for (unsigned zi = 0; zi < grid.z; ++zi)
+    for (unsigned yi = 0; yi < grid.y; ++yi)
+      for (unsigned xi = 0; xi < grid.x; ++xi) {
+        const unsigned z = shim_reverse ? grid.z - 1 - zi : zi;
+        const unsigned y = shim_reverse ? grid.y - 1 - yi : yi;
+        const unsigned x = shim_reverse ? grid.x - 1 - xi : xi;
         std::vector<float> smem(bytes / sizeof(float), std::nanf(""));
         std::barrier<> bar(threads);
         std::vector<std::unique_ptr<std::barrier<>>> warps;
@@ -120,8 +153,8 @@ void shim_launch(K kernel, dim3 grid, int threads, size_t bytes, A... args) {
           warps.emplace_back(new std::barrier<>(min(32, threads - 32 * w)));
         std::vector<int> scratch(threads);
         std::vector<std::thread> pool;
-        for (int t = 0; t < threads; ++t)
-          pool.emplace_back([&, t] {
+        for (int ti = 0; ti < threads; ++ti)
+          pool.emplace_back([&, t = shim_reverse ? threads - 1 - ti : ti] {
             threadIdx.x = t;
             blockIdx.x = x;
             blockIdx.y = y;

@@ -10,7 +10,10 @@ and the kernels' indexing (descriptor lookup, the four-pixel float4 path
 and the scalar path of S; T's warp tiles and the joining of terms of one
 cell across lanes and rows)
 against the plain versions, at the card's tolerances (``chip_smoke.py``):
-S value 1e-5 and d/dx, d/dy 1e-4 abs, T 1e-4 of max|d_src|.
+S value 1e-5 and d/dx, d/dy 1e-4 abs, T 1e-4 of max|d_src|. T's
+deterministic variant (fixed-point int64 atomics, ``train.deterministic``)
+is held there too, and against itself compiled with ``-DSHIM_REVERSE``
+(every pass's blocks and threads run in reverse order): the same bits.
 """
 
 import ctypes
@@ -28,18 +31,27 @@ from test_torch_port_fused_emu import SHIM
 LAUNCH = re.compile(r"([\w]+(?:<\w+>)?)<<<([^,]+),\s*([^,]+),\s*([^,]+),\s*[^>]+>>>\(")
 
 
-def _compile(d, cxx, name):
+def _compile(d, cxx, name, *flags):
     src = (build.CSRC / f"{name}.cu").read_text()
     src = src.replace("extern __shared__ float smem[];", "float* smem = block_smem;")
     src, n_launch = LAUNCH.subn(r"shim_launch(\1, \2, \3, \4, ", src)
     assert n_launch >= 1
     (d / f"{name}.cpp").write_text(src)
-    out = d / f"{name}.so"
-    run = subprocess.run([cxx, "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC", "-w",
+    out = d / f"{name}{''.join(flags)}.so"
+    run = subprocess.run([cxx, "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC", "-w", *flags,
                           f"-I{d}", f"-I{build.CSRC}", "-o", str(out), str(d / f"{name}.cpp")],
                          capture_output=True, text=True)
     assert run.returncode == 0, run.stderr[-4000:]
     return ctypes.CDLL(str(out))
+
+
+def _scatter_fns(lib):
+    lib.colvo_bilinear_scatter_multi.argtypes = [scatter.ScatterParams, ctypes.c_void_p,
+                                                 ctypes.c_longlong, ctypes.c_void_p]
+    lib.colvo_bilinear_scatter_multi_det.argtypes = [scatter.ScatterParams, ctypes.c_void_p,
+                                                     ctypes.c_longlong, ctypes.c_void_p,
+                                                     ctypes.c_void_p]
+    return lib
 
 
 @pytest.fixture(scope="module")
@@ -49,11 +61,11 @@ def libs(tmp_path_factory):
         pytest.skip("needs a C++20 compiler")
     d = tmp_path_factory.mktemp("geo_emu")
     (d / "cuda_runtime.h").write_text(SHIM)
-    s_lib, t_lib = _compile(d, cxx, "sampler"), _compile(d, cxx, "scatter")
+    s_lib, t_lib = _compile(d, cxx, "sampler"), _scatter_fns(_compile(d, cxx, "scatter"))
     s_lib.colvo_bilinear_sample_multi.argtypes = [sampler.GeoParams, ctypes.c_void_p]
-    t_lib.colvo_bilinear_scatter_multi.argtypes = [scatter.ScatterParams, ctypes.c_void_p,
-                                                   ctypes.c_longlong, ctypes.c_void_p]
-    return s_lib, t_lib
+    # the same scatter source, its blocks and threads run in reverse order
+    t_rev = _scatter_fns(_compile(d, cxx, "scatter", "-DSHIM_REVERSE"))
+    return s_lib, t_lib, t_rev
 
 
 def _coords(n, h, w, hs, ws, seed, kind):
@@ -158,3 +170,53 @@ def test_scatter_source_matches_plain_version(libs, sets):
         want = scatter.scatter_plain(x, y, g, *hw)
         assert torch.isfinite(got).all()
         torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max().item(), rtol=0)
+
+
+def _det_scatter(lib, xs, ys, gs, hws):
+    params, buf, outs = scatter.multi_params(xs, ys, gs, hws)
+    buf.fill_(float("nan"))
+    ws = scatter.det_workspace(params, buf)
+    ws.fill_(-1)  # the entry point zeroes it
+    assert lib.colvo_bilinear_scatter_multi_det(params, buf.data_ptr(), buf.numel(),
+                                                ws.data_ptr(), None) == 0
+    return outs
+
+
+@pytest.mark.parametrize("sets", [SETS, [(2, 2, 20, 36, 22, 30, "smooth")]],
+                         ids=["four_sets", "two_channels"])
+def test_deterministic_scatter_matches_plain_version_in_any_order(libs, sets):
+    """The fixed-point variant (train.deterministic) on the smooth, huge,
+    wild (out of bounds), shift and border warps, in one launch: within T's
+    tolerance of the plain version, and bit for bit the same when the
+    shim runs the blocks and threads of every pass in reverse order."""
+    _, xs, ys, gs = _inputs(sets, 5)
+    hws = [(hs, ws) for _, _, _, _, hs, ws, _ in sets]
+    fwd = _det_scatter(libs[1], xs, ys, gs, hws)
+    rev = _det_scatter(libs[2], xs, ys, gs, hws)
+    for got, back, x, y, g, hw in zip(fwd, rev, xs, ys, gs, hws):
+        want = scatter.scatter_plain(x, y, g, *hw)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max().item(), rtol=0)
+        assert torch.equal(got.view(torch.int32), back.view(torch.int32))
+
+
+def test_deterministic_scatter_nan_and_zero_planes(libs):
+    """A plane with a NaN or inf cotangent, or a NaN coordinate, comes out
+    NaN in every cell; a plane with a zero cotangent comes out zero; the
+    other planes of the launch are untouched by either."""
+    sets = [(4, 1, 16, 24, 18, 26, "smooth"), (2, 1, 8, 12, 10, 14, "wild")]
+    _, xs, ys, gs = _inputs(sets, 7)
+    gs[0][0, 0, 5, 5] = float("nan")
+    gs[0][1, 0, 6, 7] = float("inf")
+    gs[0][2] = 0.0
+    xs[1][1, 3, 4] = float("nan")
+    hws = [(hs, ws) for _, _, _, _, hs, ws, _ in sets]
+    got = _det_scatter(libs[1], xs, ys, gs, hws)
+    assert torch.isnan(got[0][:2]).all() and torch.isnan(got[1][1]).all()
+    assert torch.equal(got[0][2], torch.zeros_like(got[0][2]))
+    for out, x, y, g, hw, plane in ((got[0], xs[0], ys[0], gs[0], hws[0], 3),
+                                    (got[1], xs[1], ys[1], gs[1], hws[1], 0)):
+        want = scatter.scatter_plain(x[plane:plane + 1], y[plane:plane + 1],
+                                     g[plane:plane + 1], *hw)
+        torch.testing.assert_close(out[plane:plane + 1], want,
+                                   atol=1e-4 * want.abs().max().item(), rtol=0)

@@ -43,7 +43,8 @@ def test_importing_every_module_loads_no_jax_or_colvo():
         assert name in result["imported"]
     for name in ("runtime.loop", "runtime.checkpoint", "runtime.metrics", "data.prefetch",
                  "data.device_store", "pipelines", "cli", "evaluation.viz", "data.png",
-                 "data.sources", "data.benchmark", "evaluation.raster", "runtime.torch_import"):
+                 "data.sources", "data.benchmark", "evaluation.raster", "runtime.torch_import",
+                 "runtime.optim"):
         assert f"colvo_torch.{name}" in result["imported"]
     assert [m for m in result["loaded"] if _forbidden(m)] == []
     assert [m for m in result["loaded"] if m.split(".")[0] in NOT_LOADED_BY_AN_IMPORT] == []

@@ -298,8 +298,7 @@ def test_multi_scale_geo_pass_equals_per_scale_plain_samplers(monkeypatch, geo_r
     ({"fused_kernel": True, "batched_photo": True, "compute_dtype": "bfloat16"}, "batched_photo"),
 ])
 def test_conflicting_photometric_knobs_raise_the_reference_error(knobs, match):
-    """The reference's ValueErrors, in its order, ahead of the port's
-    NotImplementedError for compute_dtype."""
+    """The reference's ValueErrors, in its order."""
     jcfg, tcfg = JaxConfig(), ColvoConfig()
     for cfg in (jcfg, tcfg):
         for k, v in knobs.items():
@@ -313,17 +312,30 @@ def test_conflicting_photometric_knobs_raise_the_reference_error(knobs, match):
                      _t(k), _t(k_inv), tcfg.loss, tcfg.model)
 
 
-@pytest.mark.parametrize("knob,value", [
-    ("photo_native", True), ("geo_full_res", True), ("geo_grad", "sym"), ("geo_stopgrad", True),
-    ("compute_dtype", "bfloat16"), ("photo_remat", True), ("scatter_audit", True),
+@pytest.mark.parametrize("knobs,match", [
+    ({"geo_grad": "sym", "geo_full_res": True}, "native-scale protocol"),
+    ({"photo_native": True, "geo_full_res": True}, "contradicts"),
+    ({"photo_native": True, "batched_photo": True}, "incompatible with loss.photo_native"),
+    # refused for its first conflict, in the reference's order
+    ({"photo_native": True, "geo_full_res": True, "batched_photo": True}, "contradicts"),
+    ({"compute_dtype": "half"}, "compute_dtype must be"),
+    ({"compute_dtype": "float16"}, "compute_dtype must be"),
 ])
-def test_unported_loss_knobs_raise(knob, value):
-    cfg = ColvoConfig()
-    setattr(cfg.loss, knob, value)
+def test_unported_loss_knobs_raise(knobs, match):
+    """Every loss knob is ported; the combinations the reference does not
+    define raise its ValueError in both packages (a knob value outside the
+    reference's set too)."""
+    jcfg, tcfg = JaxConfig(), ColvoConfig()
+    for cfg in (jcfg, tcfg):
+        for k, v in knobs.items():
+            setattr(cfg.loss, k, v)
     disps, poses, frames, k = _loss_inputs()
-    with pytest.raises(NotImplementedError, match=f"loss.{knob}"):
+    k_inv = np.linalg.inv(k).astype(np.float32)
+    with pytest.raises(ValueError, match=match):
+        jax_snippet_loss(disps, poses, jnp.asarray(frames), k, k_inv, jcfg.loss, jcfg.model)
+    with pytest.raises(ValueError, match=match):
         snippet_loss([{s: _t(v) for s, v in d.items()} for d in disps], _t(poses), _t(frames),
-                     _t(k), _t(np.linalg.inv(k)), cfg.loss, cfg.model)
+                     _t(k), _t(k_inv), tcfg.loss, tcfg.model)
 
 
 def test_config_defaults_mirror_reference():

@@ -138,14 +138,15 @@ def test_init_is_flax_like():
 
 @pytest.mark.parametrize("knob,value", [("remat", True), ("batched_snippet", False)])
 def test_off_default_model_knobs_raise(knob, value):
-    """model.remat and model.batched_snippet=false are not ported;
-    model.norm="none" is (tests/test_torch_port_import.py), and another
-    norm is refused."""
+    """model.remat and model.batched_snippet=false are ported (their
+    parity: tests/test_torch_port_knobs_train.py): the model builds with the
+    default's state_dict keys, so weights and checkpoints carry across;
+    with the knob, a norm other than "group" or "none" is still refused."""
     _, tcfg = _configs()
     setattr(tcfg.model, knob, value)
-    with pytest.raises(NotImplementedError, match=f"model.{knob}"):
-        ColVOModel(tcfg.model)
-    _, tcfg = _configs()
+    _, default = _configs()
+    assert list(ColVOModel(tcfg.model).state_dict()) == list(
+        ColVOModel(default.model).state_dict())
     tcfg.model.norm = "batch"
     with pytest.raises(ValueError, match="model.norm"):
         ColVOModel(tcfg.model)

@@ -258,6 +258,11 @@ def test_entry_points_need_a_card_unless_told_cpu():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_state(cfg)
-    cfg.train.adam_mu_dtype = "bfloat16"
-    with pytest.raises(NotImplementedError, match="adam_mu_dtype"):
+    # a knob value the reference refuses: its ValueError, from both packages
+    cfg.train.adam_mu_dtype = "bf16"
+    with pytest.raises(ValueError, match="adam_mu_dtype must be"):
         init_state(cfg, device="cpu")
+    jcfg = JaxConfig()
+    jcfg.train.adam_mu_dtype = "bf16"
+    with pytest.raises(ValueError, match="adam_mu_dtype must be"):
+        make_optimizer(jcfg)
