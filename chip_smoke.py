@@ -41,12 +41,17 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
    beside the default's. Then one ``make_scan_train`` chunk (K=4) under
    ``model.remat`` + ``loss.photo_remat`` + the bf16 Adam moment against an
    eager step on the same draws.
-   Deterministic phase: kernel T's fixed-point variant at the geo shapes
-   and under a wild warp, 20 calls bit for bit and within T's tolerance of
-   the plain version, a NaN plane, timed beside the float T; then two
-   fresh processes of ``cli train --train.deterministic=true`` at once, 4
-   steps each on the same data and seed, whose step-4 checkpoints must be
-   equal bit for bit.
+   Deterministic phase: kernel T's fixed-point variant (thread-block
+   clusters) at the geo shapes, under a wild warp, at an odd width and on
+   planes too large for a cluster (its global path), bit for bit the plain
+   fixed-point version on the card, 20 calls bit for bit and within T's
+   tolerance of the float plain version, a NaN plane, timed beside the
+   float T, its device time split by operation (``det_split``); then two
+   fresh processes of ``cli train --train.deterministic=true`` one after
+   the other, 5 steps each on the same data and seed, whose step-4
+   checkpoints must be equal bit for bit, and a fresh process of the
+   default step: each one's ms/step and the device busy ms of its last
+   step.
 5. Serving phase, after the default path's steps:
    ``InferenceRunner.infer_coupled`` on frame pairs.
 6. VO phase, on the same weights: ``run_vo`` streams a rendered 64-frame
@@ -821,93 +826,226 @@ def knob_chunk(device, smi: str) -> Counter:
     return counts
 
 
-DET_STEPS = 4  # steps of each deterministic cli train run
+DET_STEPS = 5  # steps of each deterministic cli train run (the last one profiled)
+DET_CKPT = 4  # the step whose checkpoints the two deterministic runs must share bit for bit
 DET_CALLS = 20  # calls of the deterministic T that must give the same bits
+DET_GLOBAL = (4, (256, 320), (512, 640))  # planes, output and source: the global path
 # A fresh process that runs the CLI (``python -m colvo_torch.cli`` does the
-# same) and then prints its kernel launches.
-DET_CHILD = ("import json, sys\n"
-             "from colvo_torch import cli\n"
-             "from colvo_torch.kernels import launch_counts\n"
-             "rc = cli.main(sys.argv[1:])\n"
-             "print('launch counts ' + json.dumps(launch_counts()), flush=True)\n"
-             "sys.exit(rc)\n")
+# same) with CUDA events around each train step, then prints the steps'
+# device-clock ms and its kernel launches.
+DET_CHILD = """
+import json, sys
+import torch
+from colvo_torch import cli
+from colvo_torch.kernels import launch_counts
+from colvo_torch.runtime import loop
+
+events = []
+step_fn = loop.train_step
 
 
-def det_rows(device, gen, timer, eager) -> dict:
-    """P5/det: T's deterministic variant at the geo shapes (the four scales
-    in one launch) and under the wild warp at the two largest: ``DET_CALLS``
-    calls each give the same bits, within ``TOL_SCATTER_REL`` of max|d_src|
-    of the plain version; a NaN cotangent makes its plane NaN. Timed beside
-    the float T on the same inputs; the library call is one deterministic
-    ``index_add_`` of every tap's term (indices and terms made outside the
-    clock), timed eagerly."""
-    geo, wild = [], []
+def timed_step(*args, **kwargs):
+    if not torch.cuda.is_available():
+        return step_fn(*args, **kwargs)
+    pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    pair[0].record()
+    out = step_fn(*args, **kwargs)
+    pair[1].record()
+    events.append(pair)
+    return out
+
+
+loop.train_step = timed_step
+rc = cli.main(sys.argv[1:])
+if events:
+    torch.cuda.synchronize()
+print("step ms " + json.dumps([a.elapsed_time(b) for a, b in events]), flush=True)
+print("launch counts " + json.dumps(launch_counts()), flush=True)
+sys.exit(rc)
+"""
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit, NaN matching NaN whatever its payload."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+
+def ptxas_entry(source: str, kernel: str) -> tuple:
+    """(registers, static shared bytes) of the entry of ``csrc/<source>.cu``
+    whose name holds ``kernel``, from the build's ``ptxas -v`` report."""
+    report = build.ptxas_report(source)
+    m = re.search(rf"Compiling entry function '\w*{kernel}\w*'.*?Used (\d+) registers"
+                  r"(?:, used \d+ barriers)?(?:, (\d+) bytes smem)?", report, re.S)
+    check(m is not None, f"ptxas report of {source}.cu lists {kernel}")
+    return int(m.group(1)), int(m.group(2) or 0)
+
+
+def det_geo_sets(device, gen) -> list:
+    """The deterministic phase's plane sets at the geo shapes: (x, y, g,
+    source size) a scale, g drawn from ``gen`` and 0 on its top eighth."""
+    sets = []
     for i, (gh, gw) in enumerate(GEO_SCALES):
         gx, gy = make_coords(GEO_N, gh, gw, 50 + i, device)
         g = torch.randn((GEO_N, 1, gh, gw), generator=gen).to(device)
         g[:, :, : gh // 8] = 0.0
-        geo.append((gx, gy, g, (gh, gw)))
+        sets.append((gx, gy, g, (gh, gw)))
+    return sets
+
+
+def det_rows(device, gen, timer, eager) -> dict:
+    """P5/det: T's deterministic variant, bit for bit the plain fixed-point
+    version (``scatter_multi_plain_fixed``, run on the card) at the geo
+    shapes (the four scales in one launch of the cluster kernel), under the
+    wild warp at the two largest, at ``GEO_ODD`` and on ``DET_GLOBAL``,
+    planes too large for a cluster (the global path, ``T/C1/det/global``);
+    ``DET_CALLS`` calls of each give the same bits, within
+    ``TOL_SCATTER_REL`` of max|d_src| of the float plain version; a NaN
+    cotangent makes its plane NaN. Timed beside the float T on the same
+    inputs; the library call is one deterministic ``index_add_`` of every
+    tap's term (indices and terms made outside the clock), timed eagerly.
+    The row also gets the cluster kernel's registers and shared memory
+    (``ptxas -v`` and the plan) and its cluster size."""
+    geo, wild, odd, big = det_geo_sets(device, gen), [], [], []
     for gh, gw in GEO_SCALES[:2]:
         wx = (torch.rand((GEO_N, gh, gw), generator=gen) * (gw + 2) - 1).to(device)
         wy = (torch.rand((GEO_N, gh, gw), generator=gen) * (gh + 2) - 1).to(device)
         wild.append((wx, wy, torch.randn((GEO_N, 1, gh, gw), generator=gen).to(device), (gh, gw)))
-    err, rel = 0.0, 0.0
+    oh, ow = GEO_ODD
+    odd.append((*make_coords(GEO_N, oh, ow, 60, device),
+                torch.randn((GEO_N, 1, oh, ow), generator=gen).to(device), (oh, ow)))
+    n, (h, w), (hs, ws) = DET_GLOBAL
+    bx, by = make_coords(n, h, w, 61, device)
+    big.append((bx * (ws / w), by * (hs / h), torch.randn((n, 1, h, w), generator=gen).to(device),
+                (hs, ws)))
+    err, rel, on_card = 0.0, 0.0, device.type == "cuda"
     prev = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True)
-    try:
-        for sets in (geo, wild):
-            xs, ys, gs, hws = (list(t) for t in zip(*sets))
+    for label, sets, key in (("geo", geo, "T/C1/det"), ("wild", wild, "T/C1/det"),
+                             (f"{oh}x{ow}", odd, "T/C1/det"),
+                             ("global", big, "T/C1/det/global")):
+        xs, ys, gs, hws = (list(t) for t in zip(*sets))
+        fixed = scatter.scatter_multi_plain_fixed(xs, ys, gs, hws)
+        reset_launch_counts()
+        torch.use_deterministic_algorithms(True)
+        try:
             first = [d.clone() for d in scatter.scatter_multi(xs, ys, gs, hws)]
             for _ in range(DET_CALLS - 1):
                 again = scatter.scatter_multi(xs, ys, gs, hws)
                 check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                           for a, b in zip(again, first)),
-                      "deterministic T gives the same bits on every call")
-            for d, want in zip(first, scatter.scatter_multi_plain(xs, ys, gs, hws)):
-                check(bool(torch.isfinite(d).all()), "deterministic T finite")
-                e = (d - want).abs().max().item()
-                err, rel = max(err, e), max(rel, e / want.abs().max().item())
-        check(rel <= TOL_SCATTER_REL, f"deterministic T vs plain: {rel:.3g} of max|d_src|")
-        nan_g = [g.clone() for g in gs]
-        nan_g[0][0, 0, -1, -1] = float("nan")
+                      f"deterministic T gives the same bits on every call ({label})")
+        finally:
+            torch.use_deterministic_algorithms(prev)
+        # (a rehearsal on the CPU launches no kernel and runs the float plain version)
+        check(not on_card or launch_counts() == {key: DET_CALLS},
+              f"deterministic T ({label}) launches {launch_counts()} == {{{key}: {DET_CALLS}}}")
+        check(not on_card or all(same_bits(a, b) for a, b in zip(first, fixed)),
+              f"deterministic T ({label}) bit for bit the plain fixed-point version")
+        for d, want in zip(first, scatter.scatter_multi_plain(xs, ys, gs, hws)):
+            check(bool(torch.isfinite(d).all()), "deterministic T finite")
+            e = (d - want).abs().max().item()
+            err, rel = max(err, e), max(rel, e / want.abs().max().item())
+    check(rel <= TOL_SCATTER_REL, f"deterministic T vs plain: {rel:.3g} of max|d_src|")
+    xs, ys, gs, hws = (list(t) for t in zip(*geo))
+    nan_g = [g.clone() for g in gs]
+    nan_g[0][0, 0, -1, -1] = float("nan")
+    torch.use_deterministic_algorithms(True)
+    try:
         nan_out = scatter.scatter_multi(xs, ys, nan_g, hws)
-        # the kernel's plane is NaN in every cell (the plain version's, on a
-        # CPU rehearsal, where the NaN term lands)
-        nan_plane = torch.isnan(nan_out[0][0])
-        check(bool((nan_plane.all() if device.type == "cuda" else nan_plane.any())
-                   and torch.isfinite(nan_out[0][1:]).all()),
-              "deterministic T: a NaN cotangent makes its plane NaN, and only it")
-        xs, ys, gs, hws = (list(t) for t in zip(*geo))
         call = lambda: scatter.scatter_multi(xs, ys, gs, hws)  # noqa: E731
         det_ms, det_eager = timer(call), eager(call)
-        # one index_add_ of every tap's term: the single deterministic
-        # PyTorch call that computes T's function
-        idx, val, off = [], [], 0
-        for x, y, g, (h, w) in geo:
-            x0, x1, wx = bilinear_taps(x, w)
-            y0, y1, wy = bilinear_taps(y, h)
-            base = off + (torch.arange(g.shape[0], device=device) * (h * w)).reshape(-1, 1, 1)
-            for yy, xx, wt in ((y0, x0, (1 - wx) * (1 - wy)), (y0, x1, wx * (1 - wy)),
-                               (y1, x0, (1 - wx) * wy), (y1, x1, wx * wy)):
-                idx.append((base + yy * w + xx).reshape(-1))
-                val.append((g[:, 0] * wt).reshape(-1))
-            off += g.shape[0] * h * w
-        idx, val = torch.cat(idx), torch.cat(val)
-        flat = torch.zeros(off, device=device)
+        b_xs, b_ys, b_gs, b_hws = (list(t) for t in zip(*big))
+        global_ms = timer(lambda: scatter.scatter_multi(b_xs, b_ys, b_gs, b_hws))
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    # the kernel's plane is NaN in every cell (the plain version's, on a
+    # CPU rehearsal, where the NaN term lands)
+    nan_plane = torch.isnan(nan_out[0][0])
+    check(bool((nan_plane.all() if on_card else nan_plane.any())
+               and torch.isfinite(nan_out[0][1:]).all()),
+          "deterministic T: a NaN cotangent makes its plane NaN, and only it")
+    # one index_add_ of every tap's term: the single deterministic PyTorch
+    # call that computes T's function
+    idx, val, off = [], [], 0
+    for x, y, g, (h, w) in geo:
+        x0, x1, wx = bilinear_taps(x, w)
+        y0, y1, wy = bilinear_taps(y, h)
+        base = off + (torch.arange(g.shape[0], device=device) * (h * w)).reshape(-1, 1, 1)
+        for yy, xx, wt in ((y0, x0, (1 - wx) * (1 - wy)), (y0, x1, wx * (1 - wy)),
+                           (y1, x0, (1 - wx) * wy), (y1, x1, wx * wy)):
+            idx.append((base + yy * w + xx).reshape(-1))
+            val.append((g[:, 0] * wt).reshape(-1))
+        off += g.shape[0] * h * w
+    idx, val = torch.cat(idx), torch.cat(val)
+    flat = torch.zeros(off, device=device)
+    torch.use_deterministic_algorithms(True)
+    try:
         lib_ms = eager(lambda: flat.zero_().index_add_(0, idx, val))
     finally:
         torch.use_deterministic_algorithms(prev)
     float_ms = timer(call)
     gpx = sum(x.numel() for x, _, _, _ in geo)
     gsrc = sum(g.shape[0] * h * w for _, _, g, (h, w) in geo)
-    log(f"T deterministic at the four geo scales and under the wild warp: {DET_CALLS} calls "
-        f"bit for bit; |d_src| {err:.3g}, / max|d_src| {rel:.3g}; {det_ms:.4f} ms (eager "
-        f"{det_eager:.4f}) against the float T's {float_ms:.4f} ms on the same inputs; one "
-        f"deterministic index_add_ {lib_ms:.4f} ms (eager)")
+    extra = {}
+    if on_card:
+        plan = scatter.det_plan(scatter._lib(), scatter.multi_params(xs, ys, gs, hws)[0])
+        regs, static_smem = ptxas_entry("scatter", "scatter_det_cluster_kernel")
+        extra = dict(registers=regs, smem_bytes=plan.smem_bytes + static_smem,
+                     cluster=plan.cluster)
+        log(f"T deterministic cluster kernel: {regs} registers, {plan.smem_bytes} B of dynamic "
+            f"shared memory a CTA (+{static_smem} static), clusters of {plan.cluster} CTAs, CTAs "
+            f"a plane by scale {list(plan.parts)}; cudaOccupancyMaxActiveClusters "
+            f"{scatter.det_occupancy(plan.smem_bytes)}")
+        for label, split in (("the geo shapes", det_split(scatter, device)),
+                             (f"{n}x{hs}x{ws}", det_split(scatter, device, big))):
+            log(f"T deterministic at {label}, device time by operation (torch.profiler over "
+                f"20 calls, each operation once a call; us a launch, launches recorded): "
+                + ", ".join(f"{name[:60]} {us:.2f} ({seen})" for name, (us, seen) in split.items())
+                + f"; sum {sum(us for us, _ in split.values()):.2f}")
+    log(f"T deterministic at the four geo scales, under the wild warp, at {oh}x{ow} and on "
+        f"{n} planes of {hs}x{ws} (the global path): {DET_CALLS} calls bit for bit, and bit for "
+        f"bit the plain fixed-point version; |d_src| {err:.3g}, / max|d_src| {rel:.3g}; "
+        f"{det_ms:.4f} ms (eager {det_eager:.4f}) against the float T's {float_ms:.4f} ms on the "
+        f"same inputs; the global path {global_ms:.4f} ms at {n}x{hs}x{ws}; one deterministic "
+        f"index_add_ {lib_ms:.4f} ms (eager)")
     return {"P5/det": dict(
         max_abs_err=err, ms=det_ms, eager_ms=det_eager, float_ms=float_ms,
-        plain_ms=timer(lambda: scatter.scatter_multi_plain(xs, ys, gs, hws)),
-        library_ms=lib_ms, bound=bound(4 * (3 * gpx + gsrc), 24 * gpx))}
+        plain_ms=timer(lambda: scatter.scatter_multi_plain_fixed(xs, ys, gs, hws)),
+        library_ms=lib_ms, bound=bound(4 * (3 * gpx + gsrc), 24 * gpx), **extra)}
+
+
+def det_split(scatter_module, device, sets=None, calls: int = 20) -> dict:
+    """The device time of each operation (kernels, memsets and fills by
+    name) of a deterministic ``scatter_module.scatter_multi`` call on
+    ``sets`` (default: ``det_rows``'s geo shapes), by ``torch.profiler``
+    over ``calls`` calls: name → (µs a launch, the mean over the launches
+    it recorded; launches it recorded). The profiler can miss launches, so
+    the mean is taken over those it saw. It needs only ``scatter_multi``,
+    so it also measures another tree's module: PERF.md names the command."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if sets is None:
+        sets = det_geo_sets(device, torch.Generator(device="cpu").manual_seed(5))
+    xs, ys, gs, hws = (list(t) for t in zip(*sets))
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        scatter_module.scatter_multi(xs, ys, gs, hws)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                scatter_module.scatter_multi(xs, ys, gs, hws)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    us, seen = Counter(), Counter()
+    for evt in prof.events():
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
+            us[evt.name] += evt.device_time_total
+            seen[evt.name] += 1
+    return {name: (us[name] / seen[name], seen[name]) for name in us}
 
 
 def det_phase(device, smi: str) -> tuple:
@@ -921,53 +1059,62 @@ def det_phase(device, smi: str) -> tuple:
 
 
 def det_cli_runs(device, smi: str, extra_args=()) -> Counter:
-    """Two fresh processes of ``cli train --train.deterministic=true``, run
-    at once, each ``DET_STEPS`` steps at full width (``extra_args`` may add
-    overrides) on the same synthetic data and seed: both exit 0, launch
-    exactly a train step's kernels with ``T/C1/det`` for T, log the same
-    losses, and write step checkpoints equal bit for bit (model, Adam
-    moments and step counts). Returns the runs' launches."""
+    """Two fresh processes of ``cli train --train.deterministic=true``, one
+    after the other (so that each step's time is its own), each
+    ``DET_STEPS`` steps at full width (``extra_args`` may add overrides) on
+    the same synthetic data and seed: both exit 0, launch exactly a train
+    step's kernels with ``T/C1/det`` for T, log the same losses, and write
+    step-``DET_CKPT`` checkpoints equal bit for bit (model, Adam moments and
+    step counts). Then a third fresh process of the default (not
+    deterministic) step with the same arguments. Each prints its ms/step
+    (CUDA events, median of steps 2-4) and the device busy ms of its last
+    step (``torch.profiler``). Returns the runs' launches."""
     cfg = ColvoConfig().apply_overrides([a for a in extra_args if a.startswith("--")])
-    cfg.train.deterministic = True
     root = os.path.dirname(os.path.abspath(__file__))
+    counts = Counter()
     with tempfile.TemporaryDirectory() as tmp:
-        procs = []
-        for run in range(2):
+        outs, timing = [], []
+        for run, det in enumerate((True, True, False)):
             d = os.path.join(tmp, f"run{run}")
             cmd = [sys.executable, "-c", DET_CHILD, "train", "--max-steps", str(DET_STEPS),
                    "--log-dir", os.path.join(d, "log"), f"--train.ckpt_dir={d}/ckpt",
-                   f"--train.ckpt_every_steps={DET_STEPS}", "--train.deterministic=true",
+                   f"--train.ckpt_every_steps={DET_CKPT}",
+                   f"--train.profile_steps={DET_STEPS - 1}:{DET_STEPS}",
+                   f"--train.deterministic={'true' if det else 'false'}",
                    "--device", device.type, *extra_args]
-            procs.append(subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT, text=True))
-        t0 = time.time()
-        outs = []
-        for proc in procs:
+            t0 = time.time()
+            proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
             try:
                 out, _ = proc.communicate(timeout=600)
             finally:
                 if proc.poll() is None:
                     proc.kill()
+                    proc.wait()
+            check(proc.returncode == 0, f"{'deterministic' if det else 'default'} cli train "
+                  f"exited {proc.returncode}:\n" + out[-3000:])
             outs.append(out)
-            check(proc.returncode == 0, f"deterministic cli train exited {proc.returncode}:\n"
-                  + out[-3000:])
-        wall = time.time() - t0
-        want = dict(Counter(expected_launches(cfg, DET_STEPS)) - Counter(
-            expected_launches(cfg, 0)))
-        counts = Counter()
-        for out in outs:
+            cfg.train.deterministic = det
+            want = dict(Counter(expected_launches(cfg, DET_STEPS)) - Counter(
+                expected_launches(cfg, 0)))
             got = json.loads(out.rsplit("launch counts ", 1)[1].splitlines()[0])
             # (a rehearsal on the CPU launches no kernel)
-            check(got == want or device.type == "cpu",
-                  f"deterministic run launches {got} == {want}")
+            check(got == want or device.type == "cpu", f"run {run} launches {got} == {want}")
             counts.update(got)
-        payloads = [torch.load(os.path.join(tmp, f"run{r}", "ckpt", str(DET_STEPS), "state.pt"),
+            step_ms = json.loads(out.rsplit("step ms ", 1)[1].splitlines()[0])
+            busy = float("nan")
+            if device.type == "cuda":
+                busy = trace_busy(os.path.join(
+                    d, "log", f"trace_steps_{DET_STEPS - 1}_{DET_STEPS}.json"))[0]
+            med = float(np.median(step_ms[1:DET_STEPS - 1])) if step_ms else float("nan")
+            timing.append((time.time() - t0, med, busy, step_ms))
+        payloads = [torch.load(os.path.join(tmp, f"run{r}", "ckpt", str(DET_CKPT), "state.pt"),
                                map_location="cpu", weights_only=True) for r in range(2)]
         flat = [dict(_flat_items(p)) for p in payloads]
         check(flat[0].keys() == flat[1].keys() and all(
             torch.equal(v, flat[1][k]) if isinstance(v, torch.Tensor) else v == flat[1][k]
             for k, v in flat[0].items()),
-            f"the two deterministic runs' step-{DET_STEPS} checkpoints are equal bit for bit")
+            f"the two deterministic runs' step-{DET_CKPT} checkpoints are equal bit for bit")
         rows_log = [[json.loads(line) for line in open(os.path.join(tmp, f"run{r}", "log",
                                                                     "metrics.jsonl"))]
                     for r in range(2)]
@@ -975,10 +1122,14 @@ def det_cli_runs(device, smi: str, extra_args=()) -> Counter:
                   for rl in rows_log]
         check(losses[0] == losses[1] and losses[0], f"the two runs log the same losses {losses}")
         n_tensors = sum(isinstance(v, torch.Tensor) for v in flat[0].values())
-        log(f"deterministic cli train ({smi}): two fresh processes at once, {DET_STEPS} steps "
-            f"each in {wall:.1f} s; their step-{DET_STEPS} checkpoints equal bit for bit "
-            f"({n_tensors} tensors: weights, Adam moments, step counts); losses {losses[0]}; "
-            f"launches {want} a run")
+        log(f"deterministic cli train ({smi}): two fresh processes, {DET_STEPS} steps each; "
+            f"their step-{DET_CKPT} checkpoints equal bit for bit ({n_tensors} tensors: weights, "
+            f"Adam moments, step counts); losses {losses[0]}")
+        for label, (wall, med, busy, step_ms) in zip(
+                ("deterministic run 1", "deterministic run 2", "default run"), timing):
+            log(f"{label} ({smi}): {wall:.1f} s in all; {med:.2f} ms/step (CUDA events, median "
+                f"of steps 2-{DET_STEPS - 1}; all {[round(t, 2) for t in step_ms]}); device busy "
+                f"{busy:.2f} ms in step {DET_STEPS} (torch.profiler)")
     return counts
 
 
@@ -2328,6 +2479,7 @@ def main() -> int:
             "launches": counts[counter], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("registers", "smem_bytes", "cluster") if k in r},
         })
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -166,28 +166,42 @@ def test_multi_scale_autograd_launches_one_s_and_one_t(device):
     assert kernels.launch_counts() == {"S/value/C1": 2}
 
 
+def _same_bits(a, b):
+    """Equal bit for bit, NaN matching NaN whatever its payload."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan].view(torch.int32),
+                                                            b[~nan].view(torch.int32))
+
+
+def _det_scatter(xs, ys, gs, hws):
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return scatter.scatter_multi(xs, ys, gs, hws)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("wild", [False, True])
 def test_deterministic_scatter_gives_the_same_bits_every_call(device, wild):
-    """Under deterministic algorithms T launches its fixed-point variant
+    """Under deterministic algorithms T launches its cluster kernel
     (T/C1/det, one count a plane-set launch): 10 calls give the same bits,
-    within 1e-4 of max|d_src| of the plain version; outside the mode the
-    float variant runs (T/C1)."""
+    those of ``scatter_plain_fixed`` on the card, within 1e-4 of max|d_src|
+    of the plain version; outside the mode the float variant runs
+    (T/C1)."""
     _, xs, ys, gs = _geo_sets(device, 41, wild)
     hws = [(64, 80), (32, 40), (37, 53)]
     kernels.reset_launch_counts()
     scatter.scatter_multi(xs, ys, gs, hws)
     assert kernels.launch_counts() == {"T/C1": 1}
-    prev = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True)
-    try:
-        first = [d.clone() for d in scatter.scatter_multi(xs, ys, gs, hws)]
-        for _ in range(9):
-            for a, b in zip(scatter.scatter_multi(xs, ys, gs, hws), first):
-                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
-    finally:
-        torch.use_deterministic_algorithms(prev)
+    first = [d.clone() for d in _det_scatter(xs, ys, gs, hws)]
+    for _ in range(9):
+        for a, b in zip(_det_scatter(xs, ys, gs, hws), first):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     assert kernels.launch_counts() == {"T/C1": 1, "T/C1/det": 10}
+    for got, fixed in zip(first, scatter.scatter_multi_plain_fixed(xs, ys, gs, hws)):
+        assert _same_bits(got, fixed)
     for got, x, y, g, hw in zip(first, xs, ys, gs, hws):
         want = scatter.scatter_plain(x, y, g, *hw)
         torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max().item(), rtol=0)
@@ -197,26 +211,61 @@ def test_deterministic_scatter_gives_the_same_bits_every_call(device, wild):
 def test_deterministic_scatter_propagates_nan(device):
     """A NaN or inf cotangent, or a NaN coordinate, makes its plane NaN in
     the fixed-point variant (every cell of it); the other planes of the
-    launch keep their values; a zero cotangent gives a zero plane."""
+    launch keep their values, bit for bit ``scatter_plain_fixed``; a zero
+    cotangent gives a zero plane."""
     _, xs, ys, gs = _geo_sets(device, 43)
     gs[0][0, 0, 10, 10] = float("nan")
     gs[0][1, 0, 12, 3] = float("inf")
     gs[0][2].zero_()
     xs[1][0, 20, 20] = float("nan")
     hws = [(64, 80), (32, 40), (37, 53)]
-    prev = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True)
-    try:
-        got = scatter.scatter_multi(xs, ys, gs, hws)
-    finally:
-        torch.use_deterministic_algorithms(prev)
+    got = _det_scatter(xs, ys, gs, hws)
     assert torch.isnan(got[0][:2]).all() and torch.isnan(got[1][0]).all()
     assert torch.equal(got[0][2], torch.zeros_like(got[0][2]))
+    for d, fixed in zip(got, scatter.scatter_multi_plain_fixed(xs, ys, gs, hws)):
+        assert _same_bits(d, fixed)
     for d, x, y, g, hw, keep in ((got[0], xs[0], ys[0], gs[0], hws[0], slice(3, 4)),
                                  (got[1], xs[1], ys[1], gs[1], hws[1], slice(1, None)),
                                  (got[2], xs[2], ys[2], gs[2], hws[2], slice(None))):
         want = scatter.scatter_plain(x[keep], y[keep], g[keep], *hw)
         torch.testing.assert_close(d[keep], want, atol=1e-4 * want.abs().max().item(), rtol=0)
+
+
+@pytest.mark.cuda
+def test_deterministic_scatter_global_path(device):
+    """A plane set whose source planes do not fit 8 CTAs' shared memory
+    (512×640) takes the device-memory path (T/C1/det/global), beside one
+    that takes the cluster kernel, in one call: both bit for bit
+    ``scatter_plain_fixed``, the same bits over 5 calls, and inside a CUDA
+    graph."""
+    rng = np.random.default_rng(44)
+    xs, ys, gs, hws = [], [], [], []
+    for n, h, w, hs, ws in ((3, 256, 320, 512, 640), (4, 64, 80, 64, 80)):
+        xs.append(torch.tensor(rng.uniform(-2, ws + 2, (n, h, w)).astype(np.float32), device=device))
+        ys.append(torch.tensor(rng.uniform(-2, hs + 2, (n, h, w)).astype(np.float32), device=device))
+        gs.append(torch.tensor(rng.normal(size=(n, 1, h, w)).astype(np.float32), device=device))
+        hws.append((hs, ws))
+    kernels.reset_launch_counts()
+    first = [d.clone() for d in _det_scatter(xs, ys, gs, hws)]
+    assert kernels.launch_counts() == {"T/C1/det": 1, "T/C1/det/global": 1}
+    for _ in range(4):
+        for a, b in zip(_det_scatter(xs, ys, gs, hws), first):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for got, fixed in zip(first, scatter.scatter_multi_plain_fixed(xs, ys, gs, hws)):
+        assert _same_bits(got, fixed)
+    graph = torch.cuda.CUDAGraph()
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        _det_scatter(xs, ys, gs, hws)  # warm
+        with torch.cuda.graph(graph):
+            outs = scatter.scatter_multi(xs, ys, gs, hws)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(outs, first):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.cuda

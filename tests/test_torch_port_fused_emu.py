@@ -2,9 +2,13 @@
 
 The source is compiled with the host's C++ compiler against a small shim
 of the CUDA features it uses: one ``std::thread`` per CUDA thread of a
-block, ``std::barrier`` for ``__syncthreads``, a buffer per block for its
-dynamic shared memory, and plain copies for ``cp.async``. The blocks of a
-grid run one after another. That executes the kernels' own indexing,
+block, ``std::barrier`` for ``__syncthreads``, a byte buffer per block for
+its dynamic shared memory, and plain copies for ``cp.async``. The blocks of
+a grid run one after another; the blocks of a thread-block cluster
+(``shim_launch_cluster``) run at once, with a barrier across the cluster,
+each block's rank in it and every block's buffer reachable from the others
+(``tests/test_torch_port_geo_emu.py`` maps the port's ``cluster.cuh`` onto
+them). That executes the kernels' own indexing,
 rings, walks and edge handling, which the plain versions do not, against
 those plain versions, at shapes that cut the strips, chunks and row
 ranges and at windows that take every branch. The shim reports 4 SMs, so
@@ -12,8 +16,9 @@ a frame splits into several row ranges. Float arithmetic differs from the
 card's (no fused multiply-adds, exact divisions), so the card's own check
 stays ``chip_smoke.py``; the tolerances are the same.
 ``tests/test_torch_port_geo_emu.py`` runs the sampler and scatter sources
-against the same shim (``SHIM``), which also carries float4, float
-atomics, memset and the warp shuffles those use.
+against the same shim (``SHIM``), which also carries float4, float and
+64-bit atomics (``std::atomic_ref``, on shared memory too), memset and
+the warp shuffles those use (of 32- and 64-bit values).
 """
 
 import ctypes
@@ -47,7 +52,7 @@ using std::min;
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(n)
+#define __launch_bounds__(...)
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -56,9 +61,15 @@ struct Index { unsigned x = 0, y = 0, z = 0; };
 struct alignas(16) float4 { float x, y, z, w; };
 inline thread_local Index threadIdx, blockIdx, blockDim;
 inline thread_local std::barrier<>* block_barrier = nullptr;
-inline thread_local float* block_smem = nullptr;
+inline thread_local unsigned char* block_smem_bytes = nullptr;  // dynamic shared memory
+inline thread_local float* block_smem = nullptr;                // the same, as floats
 inline thread_local std::unique_ptr<std::barrier<>>* warp_barriers = nullptr;
-inline thread_local int* warp_scratch = nullptr;
+inline thread_local long long* warp_scratch = nullptr;
+// Thread-block clusters: the block's rank, a barrier across the cluster's
+// threads and the dynamic shared memory of each of its blocks by rank.
+inline thread_local unsigned shim_cluster_rank = 0;
+inline thread_local std::barrier<>* shim_cluster_barrier = nullptr;
+inline thread_local unsigned char** shim_cluster_smem = nullptr;
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -80,6 +91,9 @@ inline int cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
   return 0;
 }
 inline float atomicAdd(float* p, float v) { return std::atomic_ref<float>(*p).fetch_add(v); }
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).fetch_add(v);
+}
 inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
   return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
 }
@@ -104,14 +118,14 @@ inline long long __float2ll_rn(float v) { return std::llrint(v); }
 inline float __ll2float_rn(long long v) { return static_cast<float>(v); }
 inline int __clzll(long long v) { return v ? __builtin_clzll(static_cast<unsigned long long>(v)) : 64; }
 // A warp's threads meet at their warp's barrier (blocks hold whole warps):
-// each lane posts a 32-bit value and reads lane ``src``'s.
+// each lane posts a 32- or 64-bit value and reads lane ``src``'s.
 template <class T> T shim_exchange(T v, unsigned src) {
-  static_assert(sizeof(T) == 4);
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8);
   const unsigned w = threadIdx.x / 32;
-  std::memcpy(&warp_scratch[threadIdx.x], &v, 4);
+  std::memcpy(&warp_scratch[threadIdx.x], &v, sizeof(T));
   warp_barriers[w]->arrive_and_wait();
   T r;
-  std::memcpy(&r, &warp_scratch[32 * w + src], 4);
+  std::memcpy(&r, &warp_scratch[32 * w + src], sizeof(T));
   warp_barriers[w]->arrive_and_wait();
   return r;
 }
@@ -122,6 +136,9 @@ template <class T> T __shfl_up_sync(unsigned, T v, unsigned delta) {
 template <class T> T __shfl_down_sync(unsigned, T v, unsigned delta) {
   const unsigned lane = threadIdx.x % 32;
   return shim_exchange(v, lane + delta < 32 ? lane + delta : lane);
+}
+template <class T> T __shfl_xor_sync(unsigned, T v, unsigned mask) {
+  return shim_exchange(v, (threadIdx.x % 32) ^ mask);
 }
 template <class T> T __ldg(const T* p) { return *p; }
 template <class T> T __ldcs(const T* p) { return *p; }
@@ -138,36 +155,66 @@ constexpr bool shim_reverse = true;
 #else
 constexpr bool shim_reverse = false;
 #endif
+// One block's state: its shared memory (NaN floats before the kernel
+// writes it), its barrier, its warps' barriers and shuffle scratch.
+struct ShimBlock {
+  std::unique_ptr<float[]> smem;
+  std::barrier<> bar;
+  std::vector<std::unique_ptr<std::barrier<>>> warps;
+  std::vector<long long> scratch;
+  ShimBlock(size_t bytes, int threads)
+      : smem(new float[(bytes + 15) / 4 + 4]), bar(threads), scratch(threads) {
+    std::fill(smem.get(), smem.get() + (bytes + 15) / 4 + 4, std::nanf(""));
+    for (int w = 0; w < (threads + 31) / 32; ++w)
+      warps.emplace_back(new std::barrier<>(min(32, threads - 32 * w)));
+  }
+  unsigned char* bytes() { return reinterpret_cast<unsigned char*>(smem.get()); }
+};
+// Runs the blocks of each cluster of `cluster` blocks at once (a thread per
+// CUDA thread of each); clusters and plain grids (cluster 1) run one after
+// another. A 1-D grid of clusters.
+template <class K, class... A>
+void shim_launch_cluster(K kernel, dim3 grid, int threads, size_t bytes, unsigned cluster,
+                         A... args) {
+  const unsigned n = grid.x * grid.y * grid.z;
+  for (unsigned ci = 0; ci < n / cluster; ++ci) {
+    const unsigned c = shim_reverse ? n / cluster - 1 - ci : ci;
+    std::vector<std::unique_ptr<ShimBlock>> blocks;
+    std::vector<unsigned char*> smems;
+    for (unsigned r = 0; r < cluster; ++r) {
+      blocks.emplace_back(new ShimBlock(bytes, threads));
+      smems.push_back(blocks.back()->bytes());
+    }
+    std::barrier<> cbar(static_cast<std::ptrdiff_t>(cluster) * threads);
+    std::vector<std::thread> pool;
+    for (unsigned ri = 0; ri < cluster; ++ri) {
+      const unsigned r = shim_reverse ? cluster - 1 - ri : ri;
+      const unsigned b = c * cluster + r;
+      for (int ti = 0; ti < threads; ++ti)
+        pool.emplace_back([&, r, b, t = shim_reverse ? threads - 1 - ti : ti] {
+          ShimBlock& blk = *blocks[r];
+          threadIdx.x = t;
+          blockIdx.x = b % grid.x;
+          blockIdx.y = b / grid.x % grid.y;
+          blockIdx.z = b / (grid.x * grid.y);
+          blockDim.x = threads;
+          block_barrier = &blk.bar;
+          block_smem_bytes = blk.bytes();
+          block_smem = blk.smem.get();
+          warp_barriers = blk.warps.data();
+          warp_scratch = blk.scratch.data();
+          shim_cluster_rank = r;
+          shim_cluster_barrier = &cbar;
+          shim_cluster_smem = smems.data();
+          kernel(args...);
+        });
+    }
+    for (auto& th : pool) th.join();
+  }
+}
 template <class K, class... A>
 void shim_launch(K kernel, dim3 grid, int threads, size_t bytes, A... args) {
-  for (unsigned zi = 0; zi < grid.z; ++zi)
-    for (unsigned yi = 0; yi < grid.y; ++yi)
-      for (unsigned xi = 0; xi < grid.x; ++xi) {
-        const unsigned z = shim_reverse ? grid.z - 1 - zi : zi;
-        const unsigned y = shim_reverse ? grid.y - 1 - yi : yi;
-        const unsigned x = shim_reverse ? grid.x - 1 - xi : xi;
-        std::vector<float> smem(bytes / sizeof(float), std::nanf(""));
-        std::barrier<> bar(threads);
-        std::vector<std::unique_ptr<std::barrier<>>> warps;
-        for (int w = 0; w < (threads + 31) / 32; ++w)
-          warps.emplace_back(new std::barrier<>(min(32, threads - 32 * w)));
-        std::vector<int> scratch(threads);
-        std::vector<std::thread> pool;
-        for (int ti = 0; ti < threads; ++ti)
-          pool.emplace_back([&, t = shim_reverse ? threads - 1 - ti : ti] {
-            threadIdx.x = t;
-            blockIdx.x = x;
-            blockIdx.y = y;
-            blockIdx.z = z;
-            blockDim.x = threads;
-            block_barrier = &bar;
-            block_smem = smem.data();
-            warp_barriers = warps.data();
-            warp_scratch = scratch.data();
-            kernel(args...);
-          });
-        for (auto& th : pool) th.join();
-      }
+  shim_launch_cluster(kernel, grid, threads, bytes, 1u, args...);
 }
 """
 
