@@ -52,6 +52,15 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
    checkpoints must be equal bit for bit, and a fresh process of the
    default step: each one's ms/step and the device busy ms of its last
    step.
+   Data-parallel phase: the same deterministic ``cli train`` as one NCCL
+   rank under ``torch.distributed.run``, its step-4 checkpoint bit for bit
+   the single process's; two gloo ranks sharing the card, 6 rows each of
+   the slice phase's batches from its initial weights, 2 steps (the
+   ranks' weights bit-equal after each, each rank's launches, ms/step,
+   step 1 against the slice phase's and one process's), then a float32
+   step with TF32 and cuDNN off, whose loss terms and pre-clip gradients
+   must equal one process's on the global batch within the CPU test's
+   bounds.
 5. Serving phase, after the default path's steps:
    ``InferenceRunner.infer_coupled`` on frame pairs.
 6. VO phase, on the same weights: ``run_vo`` streams a rendered 64-frame
@@ -74,7 +83,10 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
    checked; loop ms/step against the slice's, the card's busy share over
    the profiled steps, peak memory and the producer thread's ms a batch
    are printed. Then the dispatch-side NaN stop and a basin restart at
-   64×96.
+   64×96. Grain phase: ``cli train --data.loader=grain
+   --train.deterministic=true`` 6 steps in a fresh process, then another
+   resumed from its step-3 checkpoint: the step-6 checkpoints and
+   ``loader.bin`` equal bit for bit; ms/step of each.
 8. Device-loader phase: run 3 of ``cli train`` with ``data.loader=device``
    on the loop phase's dataset, as run 1 and checked as it is, with its
    ms/step beside run 1's, the interval between steps, the busy share,
@@ -99,11 +111,16 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
    No S, T or F launch. Prints the codec's, the resize's and I420's ms a
    frame (reading 256×320 PNG frames must reach 30 frames/s), ``infer``'s
    and ``vo``'s frames/s with their layers, ``vo``'s busy share, peak
-   memory.
+   memory. An Adam7-interlaced frame reads as the non-interlaced one.
+   Refine phase: ``refine_keyframe_poses`` on the reference test's
+   perturbed pose at 256×320 (the error must shrink as there), then on
+   the VO phase's 64 keyframes (one padded batch) against the plain
+   sampler, with its launches and ms a call.
 10. Prints the kernel table as one JSON line (launches over the slice
-   and knob runs, the deterministic runs, loop run 1, the device-loader run
-   and the chunks' replays; every kernel must have launched), then the
-   device line ``{"ok": true, "device": {...}}`` last.
+   and knob runs, the deterministic runs, the data-parallel ranks, loop
+   run 1, the grain runs, the device-loader run, the chunks' replays and
+   the refine calls; every kernel must have launched), then the device
+   line ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It also fails without a CUDA card, or where ``colvo_torch`` is absent.
@@ -115,10 +132,12 @@ import contextlib
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from collections import Counter
 from unittest import mock
 
@@ -1050,15 +1069,48 @@ def det_split(scatter_module, device, sets=None, calls: int = 20) -> dict:
 
 def det_phase(device, smi: str) -> tuple:
     """The deterministic phase: T's deterministic variant (``det_rows``),
-    then ``det_cli_runs``. Returns the kernel rows and the runs' launches."""
+    then ``det_cli_runs``. Returns the kernel rows, the runs' launches and
+    the step-``DET_CKPT`` checkpoint they share."""
     t_phase = time.time()
     rows = det_rows(device, torch.Generator(device="cpu").manual_seed(5), time_ms, eager_ms)
-    counts = det_cli_runs(device, smi)
+    counts, ckpt = det_cli_runs(device, smi)
     log(f"deterministic phase: {time.time() - t_phase:.1f} s")
-    return rows, counts
+    return rows, counts, ckpt
 
 
-def det_cli_runs(device, smi: str, extra_args=()) -> Counter:
+def run_child(cmd, what: str) -> str:
+    """Run ``cmd`` from the repository root to its end (killed after 600
+    s); fails unless it exits 0. Returns its output."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        out, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}:\n" + out[-3000:])
+    return out
+
+
+def child_step_ms(out: str) -> tuple:
+    """``DET_CHILD``'s printed step times and launch counts."""
+    step_ms = json.loads(out.rsplit("step ms ", 1)[1].splitlines()[0])
+    return step_ms, json.loads(out.rsplit("launch counts ", 1)[1].splitlines()[0])
+
+
+def flat_checkpoint(path: str) -> dict:
+    return dict(_flat_items(torch.load(path, map_location="cpu", weights_only=True)))
+
+
+def same_checkpoint(a: dict, b: dict) -> bool:
+    """Two ``flat_checkpoint``s equal bit for bit."""
+    return a.keys() == b.keys() and all(
+        torch.equal(v, b[k]) if isinstance(v, torch.Tensor) else v == b[k] for k, v in a.items())
+
+
+def det_cli_runs(device, smi: str, extra_args=()) -> tuple:
     """Two fresh processes of ``cli train --train.deterministic=true``, one
     after the other (so that each step's time is its own), each
     ``DET_STEPS`` steps at full width (``extra_args`` may add overrides) on
@@ -1068,53 +1120,34 @@ def det_cli_runs(device, smi: str, extra_args=()) -> Counter:
     step counts). Then a third fresh process of the default (not
     deterministic) step with the same arguments. Each prints its ms/step
     (CUDA events, median of steps 2-4) and the device busy ms of its last
-    step (``torch.profiler``). Returns the runs' launches."""
+    step (``torch.profiler``). Returns the runs' launches and the shared
+    checkpoint (``flat_checkpoint``)."""
     cfg = ColvoConfig().apply_overrides([a for a in extra_args if a.startswith("--")])
-    root = os.path.dirname(os.path.abspath(__file__))
     counts = Counter()
     with tempfile.TemporaryDirectory() as tmp:
         outs, timing = [], []
         for run, det in enumerate((True, True, False)):
             d = os.path.join(tmp, f"run{run}")
-            cmd = [sys.executable, "-c", DET_CHILD, "train", "--max-steps", str(DET_STEPS),
-                   "--log-dir", os.path.join(d, "log"), f"--train.ckpt_dir={d}/ckpt",
-                   f"--train.ckpt_every_steps={DET_CKPT}",
-                   f"--train.profile_steps={DET_STEPS - 1}:{DET_STEPS}",
-                   f"--train.deterministic={'true' if det else 'false'}",
-                   "--device", device.type, *extra_args]
+            cmd = [sys.executable, "-c", DET_CHILD, *det_cli_args(d, det, device), *extra_args]
             t0 = time.time()
-            proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True)
-            try:
-                out, _ = proc.communicate(timeout=600)
-            finally:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-            check(proc.returncode == 0, f"{'deterministic' if det else 'default'} cli train "
-                  f"exited {proc.returncode}:\n" + out[-3000:])
+            out = run_child(cmd, f"{'deterministic' if det else 'default'} cli train")
             outs.append(out)
             cfg.train.deterministic = det
-            want = dict(Counter(expected_launches(cfg, DET_STEPS)) - Counter(
-                expected_launches(cfg, 0)))
-            got = json.loads(out.rsplit("launch counts ", 1)[1].splitlines()[0])
+            want = step_launches(cfg, DET_STEPS)
+            step_ms, got = child_step_ms(out)
             # (a rehearsal on the CPU launches no kernel)
             check(got == want or device.type == "cpu", f"run {run} launches {got} == {want}")
             counts.update(got)
-            step_ms = json.loads(out.rsplit("step ms ", 1)[1].splitlines()[0])
             busy = float("nan")
             if device.type == "cuda":
                 busy = trace_busy(os.path.join(
                     d, "log", f"trace_steps_{DET_STEPS - 1}_{DET_STEPS}.json"))[0]
             med = float(np.median(step_ms[1:DET_STEPS - 1])) if step_ms else float("nan")
             timing.append((time.time() - t0, med, busy, step_ms))
-        payloads = [torch.load(os.path.join(tmp, f"run{r}", "ckpt", str(DET_CKPT), "state.pt"),
-                               map_location="cpu", weights_only=True) for r in range(2)]
-        flat = [dict(_flat_items(p)) for p in payloads]
-        check(flat[0].keys() == flat[1].keys() and all(
-            torch.equal(v, flat[1][k]) if isinstance(v, torch.Tensor) else v == flat[1][k]
-            for k, v in flat[0].items()),
-            f"the two deterministic runs' step-{DET_CKPT} checkpoints are equal bit for bit")
+        flat = [flat_checkpoint(os.path.join(tmp, f"run{r}", "ckpt", str(DET_CKPT), "state.pt"))
+                for r in range(2)]
+        check(same_checkpoint(flat[0], flat[1]),
+              f"the two deterministic runs' step-{DET_CKPT} checkpoints are equal bit for bit")
         rows_log = [[json.loads(line) for line in open(os.path.join(tmp, f"run{r}", "log",
                                                                     "metrics.jsonl"))]
                     for r in range(2)]
@@ -1130,7 +1163,20 @@ def det_cli_runs(device, smi: str, extra_args=()) -> Counter:
             log(f"{label} ({smi}): {wall:.1f} s in all; {med:.2f} ms/step (CUDA events, median "
                 f"of steps 2-{DET_STEPS - 1}; all {[round(t, 2) for t in step_ms]}); device busy "
                 f"{busy:.2f} ms in step {DET_STEPS} (torch.profiler)")
-    return counts
+    return counts, flat[0]
+
+
+def det_cli_args(d: str, det: bool, device) -> list:
+    """``cli train``'s arguments of a deterministic-phase run in ``d``."""
+    return ["train", "--max-steps", str(DET_STEPS), "--log-dir", os.path.join(d, "log"),
+            f"--train.ckpt_dir={d}/ckpt", f"--train.ckpt_every_steps={DET_CKPT}",
+            f"--train.profile_steps={DET_STEPS - 1}:{DET_STEPS}",
+            f"--train.deterministic={'true' if det else 'false'}", "--device", device.type]
+
+
+def step_launches(cfg: ColvoConfig, n_steps: int) -> dict:
+    """The kernel launches of ``n_steps`` train steps without the held-out loss."""
+    return dict(Counter(expected_launches(cfg, n_steps)) - Counter(expected_launches(cfg, 0)))
 
 
 def _flat_items(obj, prefix=""):
@@ -1263,13 +1309,14 @@ def _median_fps(fn, n_frames: int) -> float:
     return n_frames / float(np.median(times))
 
 
-def vo_phase(cfg: ColvoConfig, state, device, smi: str, timed: bool = True) -> dict:
+def vo_phase(cfg: ColvoConfig, state, device, smi: str, timed: bool = True) -> tuple:
     """Streaming VO on the trained weights at ``cfg``'s size: run_vo over a
     rendered sequence, its checks against per-pair serving, across wires
     and input formats and with symmetric pose, the evaluation on top
     (ATE/RPE, polyps, stitched cloud, PLY), and its times. No kernel of
     the training path may launch. Returns frames/s by mode (none unless
-    ``timed``, which needs a CUDA device)."""
+    ``timed``, which needs a CUDA device) and ``refine_keyframe_poses``'
+    arguments on the run_vo result (a keyframe a frame; uint8 frames)."""
     from colvo_torch.data import render_sequence
     from colvo_torch.evaluation import evaluate_pose
     from colvo_torch.vo import (PolypDetection, StreamingVO, VOResult, load_ply,
@@ -1372,9 +1419,11 @@ def vo_phase(cfg: ColvoConfig, state, device, smi: str, timed: bool = True) -> d
         + f"; cloud {len(cloud)} points at voxel 0.002 (stitch {1e3 * stitch_s:.1f} ms)")
     counts = launch_counts()
     check(counts == {}, f"the VO path launched training kernels: {counts}")
+    refine_inputs = {"poses": vo.poses, "keyframe_ids": vo.keyframe_ids, "depths": vo.depths,
+                     "frames_kf": u8[vo.keyframe_ids], "k": seq.k}
 
     if not timed:
-        return {}
+        return {}, refine_inputs
     # Times (host clock for frames/s; the card's name and limit beside them).
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1394,7 +1443,7 @@ def vo_phase(cfg: ColvoConfig, state, device, smi: str, timed: bool = True) -> d
     vo_busy(lambda: run_vo(runner, inputs["rgb"], keyframe_every=1, chunk_size=VO_CHUNK), smi)
     log(f"VO peak device memory over run_vo: {peak:.3f} GiB, {peak - held:.3f} GiB above the "
         f"{held:.3f} GiB held before it; the VO phase took {time.time() - t_phase:.1f} s")
-    return fps
+    return fps, refine_inputs
 
 
 def vo_stage_times(runner, frames, rel6, smi: str) -> None:
@@ -2183,6 +2232,11 @@ def serving_cli_phase(device, smi: str, weights: dict) -> None:
         decoded = [read_png(os.path.join(small, f)) for f in files]
         decode_ms = (time.perf_counter() - t0) * 1e3 / len(files)
         check(all(np.array_equal(a, b) for a, b in zip(decoded, u8)), "PNG frames round trip")
+        adam7 = os.path.join(tmp, "adam7.png")
+        with open(adam7, "wb") as f:
+            f.write(adam7_png(u8[0]))
+        check(np.array_equal(read_png(adam7), decoded[0]),
+              "an Adam7-interlaced frame reads as the non-interlaced one")
         t0 = time.perf_counter()
         decoded_big = [read_png(os.path.join(big, f)) for f in sorted(os.listdir(big))]
         decode_big_ms = (time.perf_counter() - t0) * 1e3 / SERVE_FRAMES
@@ -2369,6 +2423,448 @@ def serving_cli_phase(device, smi: str, weights: dict) -> None:
     log(f"serving CLI phase: {time.time() - t_phase:.1f} s")
 
 
+GRAIN_STEPS, GRAIN_CKPT = 6, 3  # the grain runs: steps, and the checkpoint run B resumes from
+DP_WORLD, DP_STEPS = 2, 2  # gloo ranks sharing the card, and their steps
+TOL_DP_LOSS_REL = 1e-5  # step 1's loss terms, two ranks against one process (the CPU test's)
+TOL_DP_GRAD = 1e-4  # step 1's pre-clip gradients, of max |g| (the CPU test's)
+REFINE_ITERS, REFINE_BATCH = 40, 64  # refine_keyframe_poses' defaults
+TOL_REFINE_POSE = 1e-4  # refined poses, kernel S against the plain sampler (the CPU test's)
+REFINE_SHORT = 4  # iterations of the refinement held to TOL_REFINE_POSE (the CPU test's)
+
+
+def grain_phase(device, smi: str, extra_args=()) -> Counter:
+    """``cli train --data.loader=grain --train.deterministic=true`` twice in
+    fresh processes at full width on the loop phase's synthetic corpus:
+    run A ``GRAIN_STEPS`` steps with a checkpoint every ``GRAIN_CKPT``, run
+    B resumed from a copy of A's step-``GRAIN_CKPT`` checkpoint to the same
+    step. The two last checkpoints (weights, Adam moments, step counts and
+    the loader's ``loader.bin``) must be equal bit for bit. Prints each
+    run's ms/step (CUDA events). ``extra_args`` may add overrides. Returns
+    the runs' launches."""
+    import shutil
+
+    t_phase = time.time()
+    cfg = ColvoConfig().apply_overrides(list(extra_args))
+    cfg.train.deterministic = True
+    counts = Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        timing = []
+        for run in ("A", "B"):
+            d = os.path.join(tmp, run)
+            if run == "B":
+                shutil.copytree(os.path.join(tmp, "A", "ckpt", str(GRAIN_CKPT)),
+                                os.path.join(d, "ckpt", str(GRAIN_CKPT)))
+            t0 = time.time()
+            out = run_child([sys.executable, "-c", DET_CHILD, "train", "--max-steps",
+                             str(GRAIN_STEPS), "--log-dir", os.path.join(d, "log"),
+                             f"--train.ckpt_dir={d}/ckpt", f"--train.ckpt_every_steps={GRAIN_CKPT}",
+                             "--data.loader=grain", "--train.deterministic=true", "--device",
+                             device.type, *(["--resume"] if run == "B" else []), *extra_args],
+                            f"cli train --data.loader=grain run {run}")
+            step_ms, got = child_step_ms(out)
+            n_steps = GRAIN_STEPS - (GRAIN_CKPT if run == "B" else 0)
+            want = step_launches(cfg, n_steps)
+            check(got == want or device.type == "cpu", f"grain run {run} launches {got} == {want}")
+            counts.update(got)
+            timing.append((run, time.time() - t0, step_ms))
+        ckpts = [os.path.join(tmp, run, "ckpt", str(GRAIN_STEPS)) for run in ("A", "B")]
+        loader = [open(os.path.join(c, "loader.bin"), "rb").read() for c in ckpts]
+        check(loader[0] == loader[1] and json.loads(loader[0])["next_position"]
+              == GRAIN_STEPS * cfg.data.batch_size, f"the grain runs' loader states {loader}")
+        flat = [flat_checkpoint(os.path.join(c, "state.pt")) for c in ckpts]
+        check(same_checkpoint(flat[0], flat[1]),
+              f"grain run B (resumed at step {GRAIN_CKPT}) ends on run A's step-{GRAIN_STEPS} "
+              "checkpoint bit for bit")
+    log(f"grain loader ({smi}): run B resumed from run A's step-{GRAIN_CKPT} checkpoint and its "
+        f"step-{GRAIN_STEPS} checkpoint equals A's bit for bit, loader.bin {loader[0].decode()}")
+    for run, wall, step_ms in timing:
+        log(f"grain run {run} ({smi}): {wall:.1f} s in all; {np.median(step_ms[1:]):.2f} ms/step "
+            f"(CUDA events, median of its steps 2..; all {[round(t, 2) for t in step_ms]})")
+    log(f"grain phase: {time.time() - t_phase:.1f} s")
+    return counts
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dp_phase(device, smi: str, batches, first_default: dict, det_ckpt: dict,
+             cfg: ColvoConfig = None, extra_args=()) -> Counter:
+    """Data parallel over ``torch.distributed``. One NCCL rank of ``cli
+    train --train.deterministic=true`` under ``torch.distributed.run`` on
+    the deterministic phase's data and seed: its step-``DET_CKPT``
+    checkpoint must equal that phase's bit for bit (the gradient
+    all-reduce is the identity at one rank). Then ``DP_WORLD`` gloo ranks
+    sharing the card (``dp_rank``), each on its rows of the slice phase's
+    batches from the slice phase's initial weights: ``DP_STEPS`` steps of
+    ``cfg`` (default ``ColvoConfig()``, bf16 convs), the ranks' weights
+    bit-equal after every step, each rank's launches those of its steps,
+    step 1's loss terms printed against the slice phase's default step 1
+    and its pre-clip gradients against one process's on the global batch.
+    cuDNN chooses its convolution algorithm by the batch size, so at 6
+    rows it rounds otherwise than at 12 (in bf16, and in float32 too),
+    and automask's threshold turns that into gradient differences of up
+    to a few per cent. So the CPU test's bounds hold the step in float32
+    with TF32 and cuDNN off: one more step from the same weights in that
+    precision against one process's, loss terms to 1e-5 relative (the
+    gauge to 1e-5 of the total) and gradients to 1e-4 of max |g|.
+    Prints the ms/step of the ranks sharing the card. ``extra_args`` are
+    the NCCL run's overrides. Returns the ranks' launches."""
+    t_phase = time.time()
+    cfg = cfg or ColvoConfig()
+    counts = Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "nccl")
+        t0 = time.time()
+        run_child([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                   "--nproc_per_node=1", "-m", "colvo_torch.cli", *det_cli_args(d, True, device),
+                   *extra_args], "torch.distributed.run cli train (one NCCL rank)")
+        nccl_s = time.time() - t0
+        got = flat_checkpoint(os.path.join(d, "ckpt", str(DET_CKPT), "state.pt"))
+        check(same_checkpoint(got, det_ckpt), f"one NCCL rank's step-{DET_CKPT} checkpoint equals "
+              "the deterministic phase's bit for bit")
+        log(f"one NCCL rank under torch.distributed.run ({smi}): step-{DET_CKPT} checkpoint equal "
+            f"to the single process's bit for bit; {nccl_s:.1f} s in all")
+
+        torch.save([{k: v.cpu() for k, v in b.items()} for b in batches[:DP_STEPS]],
+                   os.path.join(tmp, "batches.pt"))
+        cfg.dump(os.path.join(tmp, "cfg.json"))
+        with open(os.path.join(tmp, "device"), "w") as f:
+            f.write(device.type)
+        port, procs = _free_port(), []
+        for rank in range(DP_WORLD):
+            env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(DP_WORLD),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            env.pop("LOCAL_RANK", None)  # both ranks on the one card
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dp-rank", tmp], env=env,
+                cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        # one process on the global batch, while the ranks run
+        _, grads = recorded_step(init_state(cfg, device=device), batches[0], cfg)
+        cfg32 = f32(cfg)
+        with no_tf32():
+            m32, grads32 = recorded_step(init_state(cfg32, device=device), batches[0], cfg32)
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for rank, (p, out) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0, f"gloo rank {rank} exited {p.returncode}:\n" + out[-3000:])
+        res = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(DP_WORLD)]
+        rank_grads = [torch.load(os.path.join(tmp, f"grads{k}.pt")).to(device)
+                      for k in ("", "32")]
+
+    def gerr(got, want):
+        check(got.shape == want.shape, "the ranks' gradients have the model's size")
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    m1, r1 = res[0]["metrics"][0], res[0]["metrics32"]
+    err, err32 = gerr(rank_grads[0], grads), gerr(rank_grads[1], grads32)
+
+    log(f"data parallel, {DP_WORLD} gloo ranks sharing the card ({smi}), bf16 convs: step 1 "
+        "against the slice phase's default step 1: " + " ".join(
+            f"{k} {m1[k]:.8g}/{v:.8g}" for k, v in first_default.items())
+        + f"; pre-clip gradients {err:.3g} of max |g| from one process's on the global batch; "
+        f"weights equal across ranks after each step {[r['same_weights'] for r in res]}; "
+        f"launches a rank {res[0]['launches']}")
+    log(f"data parallel, float32, TF32 and cuDNN off: step 1 against one process: " + " ".join(
+        f"{k} {r1[k]:.8g}/{v:.8g}" for k, v in m32.items())
+        + f"; pre-clip gradients {err32:.3g} of max |g|")
+    want = step_launches(cfg, DP_STEPS + 1)
+    for rank, r in enumerate(res):
+        check(r["launches"] == want or device.type == "cpu",
+              f"gloo rank {rank} launches {r['launches']} == {want}")
+        counts.update(r["launches"])
+        check(all(r["same_weights"]), f"rank {rank}'s weights equal rank 0's after every step")
+        check(r["metrics"][0] == m1 and r["metrics32"] == r1,
+              f"rank {rank}'s step-1 metrics are rank 0's")
+    for k, v in m32.items():
+        # the gauge hinge squares a small difference: held relative to the total
+        scale = abs(m32["loss/total"] if k == "loss/gauge" else v)
+        check(abs(r1[k] - v) <= TOL_DP_LOSS_REL * max(scale, 1e-6),
+              f"float32 step 1 {k}: {DP_WORLD} ranks {r1[k]} vs one process {v}")
+    check(err32 <= TOL_DP_GRAD, f"float32 step 1 pre-clip gradients, {DP_WORLD} ranks against "
+          f"one process: {err32:.3g} of max |g|")
+    log(f"data parallel ms/step of the {DP_WORLD} ranks sharing one card ({smi}; host clock "
+        f"around each synchronised train_step, a record with no target): "
+        + ", ".join(f"rank {r} {[round(t, 2) for t in x['ms']]}" for r, x in enumerate(res)))
+    log(f"data-parallel phase: {time.time() - t_phase:.1f} s")
+    return counts
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """float32 matmuls without TF32, and convolutions by PyTorch's own
+    im2col + GEMM instead of cuDNN (whose algorithm, chosen by the batch
+    size, may be Winograd or FFT in float32), restored on exit."""
+    cuda, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = cuda.allow_tf32, cudnn.enabled
+    cuda.allow_tf32, cudnn.enabled = False, False
+    try:
+        yield
+    finally:
+        cuda.allow_tf32, cudnn.enabled = saved
+
+
+def f32(cfg: ColvoConfig) -> ColvoConfig:
+    """``cfg`` with float32 convolutions."""
+    out = ColvoConfig.from_dict(cfg.to_dict())
+    out.model.dtype = "float32"
+    return out
+
+
+def recorded_step(state, batch, cfg: ColvoConfig) -> tuple:
+    """One ``train_step``, with the gradients the clip receives (summed
+    over the ranks under a mesh) as one flat tensor: (metrics, grads)."""
+    import importlib
+
+    ts = importlib.import_module("colvo_torch.runtime.train_step")
+    grads, clip = [], ts.clip_by_global_norm
+
+    def recording(gs, max_norm):
+        grads.append(torch.cat([g.reshape(-1) for g in gs]).clone())
+        return clip(gs, max_norm)
+
+    with mock.patch.object(ts, "clip_by_global_norm", recording):
+        metrics = train_step(state, batch, cfg)
+    return {k: v.item() for k, v in metrics.items()}, grads[0]
+
+
+def dp_rank(tmp: str) -> None:
+    """One gloo rank of ``dp_phase``, on ``cuda:0`` beside the others (or
+    the CPU, as ``tmp/device`` says): the slice phase's initial weights
+    (rank 0's, broadcast), its rows of each of ``tmp``'s batches,
+    ``DP_STEPS`` train steps of ``tmp/cfg.json``'s configuration, then one
+    step from the same initial weights in float32 with TF32 and cuDNN off. Writes
+    ``rank<r>.json`` (metrics, ms, launches, weights equal to rank 0's
+    after each step) and, on rank 0, the two step 1s' pre-clip gradients."""
+    from colvo_torch.runtime import mesh as mesh_mod
+
+    check(mesh_mod.maybe_init_distributed("gloo"), "joined the gloo group")
+    cuda = open(os.path.join(tmp, "device")).read() == "cuda"
+    device = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = ColvoConfig.load(os.path.join(tmp, "cfg.json"))
+    mesh = mesh_mod.make_mesh(cfg.mesh)
+    batches = [{k: v.to(device) for k, v in mesh_mod.shard_batch(b, mesh).items()}
+               for b in torch.load(os.path.join(tmp, "batches.pt"))]
+
+    def replicated(cfg_):
+        state = init_state(cfg_, device=device)
+        mesh_mod.replicate_tree(state.model, mesh)
+        state.mesh = mesh
+        return state
+
+    state = replicated(cfg)
+    out = {"metrics": [], "ms": [], "same_weights": []}
+    reset_launch_counts()
+    for i in range(DP_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        if i == 0:
+            metrics, grads = recorded_step(state, batches[i], cfg)
+        else:
+            metrics = {k: v.item() for k, v in train_step(state, batches[i], cfg).items()}
+        sync()
+        out["ms"].append(1e3 * (time.perf_counter() - t0))
+        out["metrics"].append(metrics)
+        flat = torch.cat([p.detach().reshape(-1) for p in state.model.parameters()])
+        ref = flat.clone()
+        torch.distributed.broadcast(ref, src=0)
+        out["same_weights"].append(bool(torch.equal(flat, ref)))
+    del state
+    with no_tf32():
+        cfg32 = f32(cfg)
+        out["metrics32"], grads32 = recorded_step(replicated(cfg32), batches[0], cfg32)
+    out["launches"] = launch_counts()
+    if mesh.rank == 0:
+        torch.save(grads.cpu(), os.path.join(tmp, "grads.pt"))
+        torch.save(grads32.cpu(), os.path.join(tmp, "grads32.pt"))
+    with open(os.path.join(tmp, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def _rot_err_deg(a, b) -> float:
+    r = a[:3, :3].T @ b[:3, :3]
+    return float(np.degrees(np.arccos(np.clip((np.trace(r) - 1) / 2, -1, 1))))
+
+
+def refine_phase(device, smi: str, vo_inputs: dict) -> Counter:
+    """Keyframe pose refinement on the card. The reference test's contract
+    (tests/test_refine.py) at full width: a 1.2° + 2.7 mm error injected at
+    keyframe 4 must shrink below 0.5× and 0.7×, keyframe 0 and the
+    intra-segment chains stay put; with the plain sampler the same call
+    after the CPU test's 4 iterations gives the same poses to its bound
+    (after 40 Adam steps, whose first moves are ±lr·sign(g), they drift
+    further: a record). Then
+    ``refine_keyframe_poses`` on the VO phase's 64-frame result (a
+    keyframe a frame, so 63 pairs in one padded batch of 64): its
+    ``_segment_loss`` and delta gradient against the plain sampler's at
+    the CPU test's bounds and its poses after 4 iterations to 1e-4, its
+    launches (2·iters of S with d/dx, d/dy: the frame, C=3, and the depth,
+    C=1, an iteration; 4 value-only a batch), a residual that does not
+    grow, ms a call; its 40-iteration poses beside the plain sampler's, as
+    a record. Returns the launches of the two kernel calls
+    checked."""
+    from colvo_torch.data.synthetic import default_intrinsics, make_trajectory, render_frame
+    from colvo_torch.vo import refine as refine_mod
+
+    t_phase = time.time()
+    cfg = ColvoConfig()
+    h, w = cfg.data.height, cfg.data.width
+    plain = mock.patch.object(sampler, "sample", sampler.sample_plain)
+    k = default_intrinsics(h, w)
+    gt = make_trajectory(8, step=0.004, wobble=0.3, seed=31).astype(np.float64)
+    frames, depths = zip(*(render_frame(gt[i], k, h, w, radius=0.03) for i in (0, 4)))
+    poses = gt.copy()
+    bump = np.eye(4)
+    th = np.radians(1.2)
+    bump[:3, :3] = [[np.cos(th), -np.sin(th), 0], [np.sin(th), np.cos(th), 0], [0, 0, 1]]
+    bump[:3, 3] = [0.002, -0.001, 0.0015]
+    poses[4:] = np.einsum("ij,njk->nik", bump, poses[4:])
+    err0 = _rot_err_deg(poses[4], gt[4])
+    t_err0 = float(np.linalg.norm(poses[4][:3, 3] - gt[4][:3, 3]))
+    contract = dict(keyframe_ids=[0, 4], depths=[d.astype(np.float32) for d in depths],
+                    frames_kf=np.stack(frames).astype(np.float32), k=k, iters=REFINE_ITERS,
+                    lr=2e-3, batch=1, device=device)
+    reset_launch_counts()
+    refined, stats = refine_mod.refine_keyframe_poses(poses, **contract)
+    counts = Counter(launch_counts())
+    with plain:
+        refined_plain, _ = refine_mod.refine_keyframe_poses(poses, **contract)
+    perr = float(np.abs(refined - refined_plain).max())
+    short = {**contract, "iters": REFINE_SHORT}
+    with plain:
+        short_plain, _ = refine_mod.refine_keyframe_poses(poses, **short)
+    perr_short = float(np.abs(refine_mod.refine_keyframe_poses(poses, **short)[0]
+                              - short_plain).max())
+    err1 = _rot_err_deg(refined[4], gt[4])
+    t_err1 = float(np.linalg.norm(refined[4][:3, 3] - gt[4][:3, 3]))
+    log(f"refine contract at {h}x{w} ({smi}): {err0:.4f}° -> {err1:.4f}° ({err1 / err0:.3f}×, "
+        f"under 0.5), {1e3 * t_err0:.4f} mm -> {1e3 * t_err1:.4f} mm ({t_err1 / t_err0:.3f}×, "
+        f"under 0.7); residual {stats['residual_before']:.6g} -> {stats['residual_after']:.6g}; "
+        f"poses within {perr:.3g} of the plain sampler's ({perr_short:.3g} after "
+        f"{REFINE_SHORT} iterations)")
+    check(stats["residual_after"] <= stats["residual_before"] + 1e-9, f"refine residual {stats}")
+    check(err1 < 0.5 * err0 and t_err1 < 0.7 * t_err0, "refine recovers the injected error")
+    check(np.allclose(refined[0], poses[0], atol=1e-12) and all(
+        np.allclose(np.linalg.inv(refined[a]) @ refined[b], np.linalg.inv(poses[a]) @ poses[b],
+                    atol=1e-9) for a, b in ((0, 2), (4, 6))), "refine keeps keyframe 0 and "
+          "the intra-segment chains")
+    check(perr_short <= TOL_REFINE_POSE, f"refine contract, {REFINE_SHORT} iterations, kernel S "
+          f"against the plain sampler: {perr_short:.3g}")
+
+    m = len(vo_inputs["keyframe_ids"]) - 1
+    n_batches = -(-m // REFINE_BATCH)
+    seen = []
+    real_refine = refine_mod._refine
+
+    def keep_args(*args, **kwargs):
+        seen.append(args)
+        return real_refine(*args, **kwargs)
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(refine_mod, "_refine", keep_args):
+        got, stats = refine_mod.refine_keyframe_poses(**vo_inputs, device=device)
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    vo_counts = launch_counts()
+    want = {"S/grad/C3": REFINE_ITERS * n_batches, "S/grad/C1": REFINE_ITERS * n_batches,
+            "S/value/C3": 2 * n_batches, "S/value/C1": 2 * n_batches}
+    check(vo_counts == want or device.type == "cpu", f"refine launches {vo_counts} == {want}")
+    counts.update(vo_counts)
+    check(np.isfinite(got).all() and stats["residual_after"] <= stats["residual_before"],
+          f"refine on the VO result: finite poses, a residual that does not grow {stats}")
+    # the loss and its delta gradient on the call's own batch, at 0 and a small delta
+    rel, fi, fj, di, dj, kk = seen[0]
+    args = (rel, fi, fj, di, dj, kk, torch.linalg.inv(kk), 0.5)
+    gen = torch.Generator().manual_seed(3)
+    lerr, gerr = 0.0, 0.0
+    for scale in (0.0, 2e-3):
+        delta = (scale * torch.randn((rel.shape[0], 6), generator=gen)).to(device)
+        outs = []
+        for ctx in (contextlib.nullcontext(), plain):
+            d = delta.clone().requires_grad_(True)
+            with ctx:
+                loss, _ = refine_mod._segment_loss(d, *args)
+                loss.backward()
+            outs.append((loss.item(), d.grad))
+        (lk, gk), (lp, gp) = outs
+        lerr = max(lerr, abs(lk - lp) / abs(lp))
+        gerr = max(gerr, ((gk - gp).abs().max() / gp.abs().max()).item())
+    with plain:
+        t0 = time.perf_counter()
+        got_plain, plain_stats = refine_mod.refine_keyframe_poses(**vo_inputs, device=device)
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        short_plain, _ = refine_mod.refine_keyframe_poses(**vo_inputs, device=device,
+                                                          iters=REFINE_SHORT)
+    vo_short = float(np.abs(refine_mod.refine_keyframe_poses(
+        **vo_inputs, device=device, iters=REFINE_SHORT)[0] - short_plain).max())
+    t0 = time.perf_counter()
+    refine_mod.refine_keyframe_poses(**vo_inputs, device=device)
+    ms = 1e3 * (time.perf_counter() - t0)
+    seg = lambda p: np.stack([np.linalg.inv(a) @ b for a, b in zip(p[:-1], p[1:])])  # noqa: E731
+    log(f"refine_keyframe_poses on the VO phase's {m + 1} keyframes ({m} pairs, {n_batches} "
+        f"padded batch of {REFINE_BATCH}, {REFINE_ITERS} iterations; {smi}): _segment_loss "
+        f"{lerr:.3g} relative and its delta gradient {gerr:.3g} of max from the plain sampler's, "
+        f"the poses after {REFINE_SHORT} iterations {vo_short:.3g}; "
+        f"residual {stats['residual_before']:.6g} -> {stats['residual_after']:.6g} (plain "
+        f"{plain_stats['residual_after']:.6g}); poses {np.abs(got - got_plain).max():.3g} and "
+        f"frame-to-frame steps {np.abs(seg(got) - seg(got_plain)).max():.3g} from the plain "
+        f"sampler's (a record: 40 Adam steps on a flat residual); launches {vo_counts}; "
+        f"{ms:.1f} ms a call (host clock, the call's own sync; the first {first_ms:.1f} ms, the "
+        f"plain sampler's {plain_ms:.1f} ms)")
+    check(lerr <= 1e-5 and gerr <= 1e-4 and vo_short <= TOL_REFINE_POSE,
+          f"refine on the VO result against the plain sampler: _segment_loss {lerr:.3g} "
+          f"relative, its gradient {gerr:.3g} of max, poses after {REFINE_SHORT} iterations "
+          f"{vo_short:.3g}")
+    log(f"refine phase: {time.time() - t_phase:.1f} s")
+    return counts
+
+
+# Adam7's seven passes: (first column, first row, column step, row step)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+def adam7_png(rgb: np.ndarray) -> bytes:
+    """An Adam7-interlaced 8-bit RGB PNG of (H, W, 3) uint8 ``rgb``, each
+    pass's rows filtered with type r % 5 (None, Sub, Up, Average, Paeth),
+    as the CPU test's writer does (neither cv2 nor PIL writes one)."""
+    from colvo_torch.data import png
+
+    raw = b""
+    for x0, y0, dx, dy in ADAM7:
+        sub = rgb[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue  # an empty pass has no bytes at all
+        prev = np.zeros(sub.shape[1] * 3, np.int64)
+        for r, cur in enumerate(sub.reshape(sub.shape[0], -1).astype(np.int64)):
+            left = np.concatenate([np.zeros(3, np.int64), cur[:-3]])
+            upleft = np.concatenate([np.zeros(3, np.int64), prev[:-3]])
+            p = left + prev - upleft
+            pa, pb, pc = np.abs(p - left), np.abs(p - prev), np.abs(p - upleft)
+            paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, upleft))
+            pred = (np.zeros_like(cur), left, prev, (left + prev) // 2, paeth)[r % 5]
+            raw += bytes([r % 5]) + ((cur - pred) % 256).astype(np.uint8).tobytes()
+            prev = cur
+    h, w = rgb.shape[:2]
+    return (png.SIGNATURE + png._chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 1))
+            + png._chunk(b"IDAT", zlib.compress(raw)) + png._chunk(b"IEND", b""))
+
+
 KERNELS = (
     ("P1", "bilinear_sample[grad,C=3]", "colvo_torch/kernels/csrc/sampler.cu",
      "colvo/kernels/sampler.py:658", "S/grad/C3"),
@@ -2431,7 +2927,7 @@ def main() -> int:
         first[label] = metrics[0]
         if label == "default":
             serving_phase(cfg, state, device)
-            vo_phase(cfg, state, device, smi)
+            _, refine_inputs = vo_phase(cfg, state, device, smi)
             serve_weights = {k: v.detach().cpu().clone()
                              for k, v in state.model.state_dict().items()}
         else:
@@ -2447,9 +2943,11 @@ def main() -> int:
     counts.update(knob_phase(device, smi, batches, first["default"], step_ms["default"],
                              default_prof))
     log("--- deterministic: T's fixed-point variant, two cli train runs bit for bit ---")
-    det_kernel_rows, det_counts = det_phase(device, smi)
+    det_kernel_rows, det_counts, det_ckpt = det_phase(device, smi)
     rows.update(det_kernel_rows)
     counts.update(det_counts)
+    log("--- data parallel: one NCCL rank under torch.distributed.run, two gloo ranks ---")
+    counts.update(dp_phase(device, smi, batches, first["default"], det_ckpt))
     log("--- loop: cli train, export, train --resume ---")
     loop_counts, dataset, loop_ms = loop_phase(device, smi, step_ms["default"],
                                                dispatch_ms["default"])
@@ -2457,8 +2955,12 @@ def main() -> int:
     log("--- device loader: cli train data.loader=device, the store, the captured chunk ---")
     counts.update(device_loader_phase(device, smi, dataset, loop_ms, step_ms["default"],
                                       dispatch_ms["default"]))
+    log("--- grain loader: cli train data.loader=grain, a resume bit for bit ---")
+    counts.update(grain_phase(device, smi))
     log("--- serving CLI: infer, vo, recon, viz, eval, eval --data, import-torch ---")
     serving_cli_phase(device, smi, serve_weights)
+    log("--- refine: keyframe pose refinement ---")
+    counts.update(refine_phase(device, smi, refine_inputs))
 
     # Nothing of JAX came in, not even through a library the port imports.
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "colvo"))
@@ -2489,4 +2991,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:  # a rank of dp_phase
+        dp_rank(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

@@ -7,7 +7,9 @@ Commands: train · infer · vo · recon · eval · viz · export · import-torch
 as the reference's. Every command but ``export`` takes ``--device`` and
 runs on ``cuda`` unless ``--device cpu`` is given (``viz`` and
 ``import-torch`` do their work on the host, but keep the rule); ``export``
-converts a checkpoint on the host.
+converts a checkpoint on the host. ``train`` under ``torchrun``
+(``python -m torch.distributed.run --nproc_per_node=N -m colvo_torch.cli
+train ...``) is data parallel over the N ranks (``runtime/mesh.py``).
 """
 
 from __future__ import annotations
@@ -94,10 +96,21 @@ def main(argv=None) -> int:
 
     if args.command == "train":
         cfg = _load_cfg(args, overrides)
+        import torch
+
+        from colvo_torch.runtime.mesh import maybe_init_distributed
+
+        # the process group, when a torch.distributed launcher started us
+        joined = maybe_init_distributed(
+            "gloo" if torch.device(args.device).type == "cpu" else None)
         from colvo_torch.pipelines import train
 
-        train(cfg, log_dir=args.log_dir, max_steps=args.max_steps, resume=args.resume,
-              device=args.device)
+        try:
+            train(cfg, log_dir=args.log_dir, max_steps=args.max_steps, resume=args.resume,
+                  device=args.device)
+        finally:
+            if joined:
+                torch.distributed.destroy_process_group()
     elif args.command == "infer":
         cfg = _load_cfg(args, overrides)
         from colvo_torch.pipelines import infer_depth

@@ -2,10 +2,10 @@
 
 Knob names, defaults and the dotted-override / JSON serde are identical to
 the JAX package's, so one config file drives both. The rationale for each
-knob lives beside it in ``colvo/config.py``. Every loss, model and train
-knob is ported; the two that are not yet, ``data.loader="grain"`` and
-``mesh.data_parallel`` other than 1 or −1, raise ``NotImplementedError``
-where they are read.
+knob lives beside it in ``colvo/config.py``. Every knob is ported:
+``data.loader="grain"`` is the port's checkpointable loader
+(``data/grain_loader.py``), and ``mesh.data_parallel`` counts the ranks of
+a ``torch.distributed`` process group (``runtime/mesh.py``).
 """
 
 from __future__ import annotations
@@ -108,7 +108,7 @@ class TrainConfig:
 
 @dataclass
 class MeshConfig:
-    data_parallel: int = -1  # -1 = all local devices
+    data_parallel: int = -1  # -1 = every rank of the process group (one alone)
     axis_name: str = "data"
 
 

@@ -5,7 +5,9 @@ neither library).
 
 ``zlib`` inflates; the per-row filters are undone in C++
 (``colvo_torch/native/png.cpp``), since Sub, Average and Paeth run left to
-right within a row. Interlaced (Adam7) files are not read.
+right within a row. An Adam7-interlaced file holds seven sub-images one
+after the other, each with its own filter bytes: each is undone on its own
+and scattered into the frame.
 """
 
 from __future__ import annotations
@@ -20,6 +22,28 @@ from colvo_torch import native
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # samples a pixel, by colour type: gray, RGB, palette, gray+alpha, RGBA
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# Adam7's seven passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+          (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _deinterlace(data: bytes, h: int, w: int, bpp: int) -> np.ndarray:
+    """Inflated Adam7 data → the raw (h, w·bpp) pixel bytes: each pass's
+    sub-image unfiltered on its own (an empty pass has no bytes, not even
+    filter bytes) and scattered to its pixels."""
+    raw = np.empty((h, w, bpp), dtype=np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = max(0, -(-(w - x0) // dx)), max(0, -(-(h - y0) // dy))
+        if pw == 0 or ph == 0:
+            continue
+        n = ph * (pw * bpp + 1)
+        sub = native.png_unfilter(data[pos:pos + n], ph, pw * bpp, bpp)
+        raw[y0::dy, x0::dx] = sub.reshape(ph, pw, bpp)
+        pos += n
+    if pos != len(data):
+        raise ValueError(f"{len(data)} bytes of Adam7 data for {pos} bytes of passes")
+    return raw.reshape(h, w * bpp)
 
 
 def read_png(path: str) -> np.ndarray:
@@ -49,15 +73,19 @@ def read_png(path: str) -> np.ndarray:
     if header is None or not idat:
         raise ValueError(f"{path}: no IHDR or no image data")
     w, h, depth, ctype, _, _, interlace = header
-    if interlace:
-        raise NotImplementedError(f"{path}: Adam7-interlaced PNG files are not read")
+    if interlace not in (0, 1):
+        raise ValueError(f"{path}: interlace method {interlace}")
     if depth not in (8, 16) or ctype not in _CHANNELS or (ctype == 3 and depth != 8):
         raise NotImplementedError(f"{path}: bit depth {depth}, colour type {ctype}")
     if ctype == 3 and palette is None:
         raise ValueError(f"{path}: palette image without a PLTE chunk")
     ch = _CHANNELS[ctype]
     bpp = ch * depth // 8
-    px = native.png_unfilter(zlib.decompress(b"".join(idat)), h, w * bpp, bpp)
+    data = zlib.decompress(b"".join(idat))
+    if interlace:
+        px = _deinterlace(data, h, w, bpp)
+    else:
+        px = native.png_unfilter(data, h, w * bpp, bpp)
     if depth == 16:
         px = px.view(">u2").reshape(h, w, ch)
         if ctype == 0:

@@ -7,9 +7,27 @@ from typing import Tuple
 import torch
 
 
-def smoothness_loss(disp: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
+class LocalReductions:
+    """The loss's batch-level reductions in one process: ``torch.sum`` and
+    ``torch.mean``. ``runtime.mesh.Mesh`` has the same two methods, global
+    over the data-parallel ranks."""
+
+    @staticmethod
+    def sum(x: torch.Tensor) -> torch.Tensor:
+        return torch.sum(x)
+
+    @staticmethod
+    def mean(x: torch.Tensor) -> torch.Tensor:
+        return torch.mean(x)
+
+
+LOCAL = LocalReductions()
+
+
+def smoothness_loss(disp: torch.Tensor, img: torch.Tensor, mesh=LOCAL) -> torch.Tensor:
     """Edge-aware, mean-normalized disparity smoothness
-    ``Σ |∂d̂|·exp(−|∂I|)``, d̂ = d / mean(d). disp (B, H, W, 1), img (B, H, W, 3)."""
+    ``Σ |∂d̂|·exp(−|∂I|)``, d̂ = d / mean(d). disp (B, H, W, 1), img (B, H, W, 3).
+    The batch means are ``mesh``'s (d̂'s mean is per image)."""
     mean_disp = torch.mean(disp, dim=(1, 2), keepdim=True)
     norm_disp = disp / (mean_disp + 1e-7)
 
@@ -21,7 +39,7 @@ def smoothness_loss(disp: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
 
     grad_x = grad_x * torch.exp(-img_gx)
     grad_y = grad_y * torch.exp(-img_gy)
-    return torch.mean(grad_x) + torch.mean(grad_y)
+    return mesh.mean(grad_x) + mesh.mean(grad_y)
 
 
 def geometry_consistency(
@@ -29,13 +47,15 @@ def geometry_consistency(
     sampled_depth: torch.Tensor,
     valid: torch.Tensor,
     behind: torch.Tensor | None = None,
+    mesh=LOCAL,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """DCDP cross-frame depth-consistency residual
     ``|D_c − D_s| / (D_c + D_s)`` on valid pixels → (loss, weight = 1 − diff).
 
     ``behind`` (z ≤ 0) pixels score 1 + |z|/s, gated on a per-image behind
     fraction above 5 % (else a constant 1), and always count toward the
-    mean; see the JAX function for why.
+    mean; see the JAX function for why. The masked mean's sums are
+    ``mesh``'s (the behind fraction is per image).
     """
     raw = computed_depth
     if behind is not None:
@@ -54,7 +74,7 @@ def geometry_consistency(
         diff = torch.where(behind, pen, diff)
         valid = torch.maximum(valid, behind.to(diff.dtype))
     diff = diff * valid
-    loss = torch.sum(diff) / (torch.sum(valid) + 1e-7)
+    loss = mesh.sum(diff) / (mesh.sum(valid) + 1e-7)
     weight = torch.clamp(1.0 - diff, 0.0, 1.0) * valid
     return loss, weight
 

@@ -57,6 +57,7 @@ from colvo_torch.kernels import (
     warp_photometric,
 )
 from colvo_torch.losses.photometric import lcc_calibrate, photometric_error
+from colvo_torch.losses.terms import LOCAL
 from colvo_torch.losses.terms import automask as automask_fn
 from colvo_torch.losses.terms import geometry_consistency, smoothness_loss
 from colvo_torch.models.depth_decoder import upsample_nearest
@@ -128,6 +129,7 @@ def snippet_loss(
     model_cfg: ModelConfig,
     frames_clean: torch.Tensor | None = None,
     geo_scale: torch.Tensor | float = 1.0,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total self-supervised loss over one snippet batch.
 
@@ -135,9 +137,13 @@ def snippet_loss(
     (B, S, 6) target→source; frames (B, 1+S, H, W, 3) network inputs;
     k / k_inv (3, 3) full-resolution intrinsics; frames_clean the
     un-jittered copies for the photometric comparison (default ``frames``).
+    ``mesh`` (``runtime.mesh.Mesh``) makes every batch-level reduction
+    global over the data-parallel ranks, whose rows together are the
+    batch; without it they are this process's ``torch.sum``/``torch.mean``.
     Returns (scalar loss, aux dict of per-term scalars + full-res depth).
     """
     _check_config(loss_cfg)
+    red = LOCAL if mesh is None else mesh
     if frames.ndim != 5 or poses.ndim != 3 or poses.shape[-1] != 6:
         raise ValueError(f"bad shapes frames {tuple(frames.shape)} poses {tuple(poses.shape)}")
     if poses.shape[1] != frames.shape[1] - 1:
@@ -341,7 +347,7 @@ def snippet_loss(
             sampled_r = geo_sampled[n_scales + scale]
             geo_reverse.append([
                 geometry_consistency(z_r, sampled_r[s], _valid_mask(pix_r, *pix_r.shape[1:3]),
-                                     behind=z_r <= 0)[0]
+                                     behind=z_r <= 0, mesh=red)[0]
                 for s, (pix_r, z_r) in enumerate(rev)])
 
     aux: Dict[str, torch.Tensor] = {}
@@ -371,7 +377,7 @@ def snippet_loss(
                 if loss_cfg.geo_full_res:
                     gvalid = gvalid * _valid_mask(pix, height, width)
                 g_loss, g_weight = geometry_consistency(
-                    z_g, geo_sampled[scale][s], gvalid, behind=z_g <= 0
+                    z_g, geo_sampled[scale][s], gvalid, behind=z_g <= 0, mesh=red
                 )
                 if sym:
                     g_loss = 0.5 * (g_loss + geo_reverse[scale][s])
@@ -393,14 +399,14 @@ def snippet_loss(
         if loss_cfg.automask:
             min_err, mask = automask_fn(errors, _at(identity, scale))
             mask32 = mask.float()
-            photo = torch.sum(min_err.float() * mask32) / (torch.sum(mask32) + 1e-7)
+            photo = red.sum(min_err.float() * mask32) / (red.sum(mask32) + 1e-7)
         elif loss_cfg.min_reprojection:
-            photo = torch.mean(torch.amin(errors, dim=-1).float())
+            photo = red.mean(torch.amin(errors, dim=-1).float())
         else:
-            photo = torch.mean(errors.float())
+            photo = red.mean(errors.float())
 
         tgt_small = tgt_clean[:, :: 2**scale, :: 2**scale]
-        smooth = smoothness_loss(disp_s, tgt_small) / (2**scale)
+        smooth = smoothness_loss(disp_s, tgt_small, red) / (2**scale)
 
         photo_total = photo_total + photo
         smooth_total = smooth_total + smooth
@@ -423,8 +429,8 @@ def snippet_loss(
     # Depth<->pose gauge hinge on r = mean||t|| / mean(depth): zero value
     # and gradient inside [gauge_lo, gauge_hi].
     if loss_cfg.gauge_weight > 0:
-        t_mag = torch.mean(torch.linalg.norm(poses[..., 3:].float(), dim=-1))
-        d_mean = torch.mean(full_depth.float())
+        t_mag = red.mean(torch.linalg.norm(poses[..., 3:].float(), dim=-1))
+        d_mean = red.mean(full_depth.float())
         log_r = torch.log(t_mag + 1e-12) - torch.log(d_mean + 1e-12)
         lo = math.log(loss_cfg.gauge_lo)
         hi = math.log(loss_cfg.gauge_hi)

@@ -1,10 +1,15 @@
 """Training loop (port of ``colvo/runtime/loop.py``).
 
-Epochs over the snippet dataset with device prefetch (or from a corpus
-held on the device, ``data.loader="device"``), periodic checkpoints, async
-metrics, the NaN guards, basin detect-and-restart, the profiler window and
-the eval hook, on one device; ``train.deterministic`` runs it bitwise
-reproducibly (``deterministic_mode``). No step of the loop
+Epochs over the snippet dataset with device prefetch (from the numpy
+loader or the checkpointable ``data.loader="grain"``), or from a corpus
+held on the device (``data.loader="device"``); periodic checkpoints (with
+the grain loader's state), async metrics, the NaN guards, basin
+detect-and-restart, the profiler window and the eval hook. Under a
+``torch.distributed`` process group the step is data parallel over its
+ranks (``runtime.mesh``): each rank trains on its rows of the global
+batch, and rank 0 alone writes checkpoints, metrics, traces and the eval
+hook's output. ``train.deterministic`` runs it bitwise reproducibly
+(``deterministic_mode``). No step of the loop
 waits for the device, except the bounded dispatch-ahead drain, the one
 fetch of the restart check, the eval hook and the end of the run.
 """
@@ -24,26 +29,37 @@ from colvo_torch import resolve_device
 from colvo_torch.config import ColvoConfig
 from colvo_torch.data import SnippetDataset, batch_iterator
 from colvo_torch.data.device_store import DeviceSnippetStore
+from colvo_torch.data.grain_loader import grain_batch_iterator
 from colvo_torch.data.prefetch import prefetch_to_device
 from colvo_torch.runtime.checkpoint import CheckpointManager
+from colvo_torch.runtime.mesh import cross_process_barrier, make_mesh, replicate_tree, shard_batch
 from colvo_torch.runtime.metrics import AsyncMetricsLogger, DeviceScalars, MetricsWriter
 from colvo_torch.runtime.train_step import init_state, train_step
 
-# Host→device prefetch depth of the numpy loader.
+# Host→device prefetch depth of the host-side loaders. The grain
+# iterator's state history is sized from it.
 _PREFETCH = 2
 
 
 def _check_supported(cfg: ColvoConfig) -> None:
-    if cfg.data.loader == "grain":
-        raise NotImplementedError(
-            "data.loader='grain' (the checkpointable multi-worker loader) is not ported "
-            "yet: ROADMAP.md §A.4")
-    if cfg.data.loader not in ("numpy", "device"):
+    if cfg.data.loader not in ("numpy", "grain", "device"):
         raise ValueError(f"unknown data.loader {cfg.data.loader!r}")
-    if cfg.mesh.data_parallel not in (1, -1):
-        raise NotImplementedError(
-            f"mesh.data_parallel={cfg.mesh.data_parallel}: data parallelism is not "
-            "ported yet (ROADMAP.md §A.5); the loop runs on one device")
+
+
+class _SilentWriter:
+    """The metrics writer of a rank other than 0: it writes nothing (the
+    logger still counts non-finite losses, which are global)."""
+
+    log_dir = None
+
+    def log_scalars(self, step, scalars) -> None:
+        pass
+
+    def log_image(self, step, tag, img) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def train(
@@ -106,8 +122,19 @@ def _train(cfg, dataset, log_dir, max_steps, eval_hook, eval_hook_factory, resum
         max_steps if max_steps is not None else steps_per_epoch * cfg.train.epochs
     )
 
+    # Data parallel over the process group's ranks (one alone): the
+    # weights are rank 0's, each rank steps on its rows of the global batch.
+    mesh = make_mesh(cfg.mesh)
+    if cfg.data.batch_size % mesh.size:
+        raise ValueError(f"data.batch_size={cfg.data.batch_size} does not split over "
+                         f"{mesh.size} ranks")
+    lead = mesh.rank == 0  # the rank that writes
     state = init_state(cfg, device=device, steps_per_epoch=steps_per_epoch)
-    if eval_hook is None and eval_hook_factory is not None and cfg.train.eval_every_epochs > 0:
+    state.mesh = mesh
+    replicate_tree(state.model, mesh)
+    if not lead:
+        eval_hook = None  # rank 0 alone evaluates and writes the panels
+    elif eval_hook is None and eval_hook_factory is not None and cfg.train.eval_every_epochs > 0:
         eval_hook = eval_hook_factory(cfg, state.model)
     eval_every = max(1, steps_per_epoch * max(cfg.train.eval_every_epochs, 1))
 
@@ -116,13 +143,17 @@ def _train(cfg, dataset, log_dir, max_steps, eval_hook, eval_hook_factory, resum
         save_interval_steps=cfg.train.ckpt_every_steps,
     )
     start_step = 0
-    if resume and ckpt.latest_step() is not None:
-        state, start_step, _ = ckpt.restore(state, with_loader_state=True)
-        print(f"resumed from step {start_step}", flush=True)
+    restored_loader_state = None
+    if resume:
+        cross_process_barrier("resume")  # every rank reads what rank 0 wrote
+        if ckpt.latest_step() is not None:
+            state, start_step, restored_loader_state = ckpt.restore(
+                state, with_loader_state=True)
+            print(f"resumed from step {start_step}", flush=True)
 
     # The fetch of logged scalars runs on the logger's thread, behind a
     # CUDA event of its own (metrics.py).
-    logger = AsyncMetricsLogger(MetricsWriter(log_dir),
+    logger = AsyncMetricsLogger(MetricsWriter(log_dir) if lead else _SilentWriter(),
                                 fps_scale=float(cfg.data.batch_size))
 
     profile_window = None
@@ -137,16 +168,34 @@ def _train(cfg, dataset, log_dir, max_steps, eval_hook, eval_hook_factory, resum
         store = DeviceSnippetStore(dataset.sequences, dataset.intrinsics,
                                    cfg.data.frame_offsets, device=device)
         batches = store.batches(cfg.data, seed=cfg.train.seed)
+    elif cfg.data.loader == "grain":
+        # keep: the checkpointed step trails the last batch pulled by at
+        # most the prefetch depth, plus a margin
+        batches = grain_batch_iterator(dataset, cfg.data, seed=cfg.train.seed,
+                                       keep=_PREFETCH + 14)
     else:
         batches = batch_iterator(dataset, cfg.data, seed=cfg.train.seed)
-    # Skip already-consumed batches on resume (a position-only
-    # approximation: it reproduces the stream only inside the first epoch).
-    for _ in range(start_step % steps_per_epoch):
-        next(batches)
-    if cfg.data.loader == "device":
-        stream = batches  # already on the device
+    grain = cfg.data.loader == "grain"
+    if grain and restored_loader_state is not None:
+        # Exact resume: the checkpoint holds the grain iterator's state at
+        # the saved step, so the stream continues bit for bit.
+        batches.set_state(restored_loader_state)
     else:
-        stream = prefetch_to_device(batches, size=_PREFETCH, device=device)
+        # Skip already-consumed batches on resume (a position-only
+        # approximation: it reproduces the stream only inside the first epoch).
+        for _ in range(start_step % steps_per_epoch):
+            next(batches)
+    # Grain batches consumed before this run's first step; with the count of
+    # steps taken since (``consumed``, which a restart does not reset) it
+    # keys the state saved with a checkpoint.
+    grain_base = batches.count if grain else 0
+    consumed = 0
+    # every rank draws the global batch and keeps its rows
+    rows = (shard_batch(b, mesh) for b in batches) if mesh.size > 1 else batches
+    if cfg.data.loader == "device":
+        stream = rows  # already on the device
+    else:
+        stream = prefetch_to_device(rows, size=_PREFETCH, device=device)
 
     step = start_step
     inflight: deque = deque()  # (step, DeviceScalars) awaiting retirement
@@ -176,7 +225,7 @@ def _train(cfg, dataset, log_dir, max_steps, eval_hook, eval_hook_factory, resum
         for batch in stream:
             if step >= total_steps:
                 break
-            if profile_window and step == profile_window[0]:
+            if lead and profile_window and step == profile_window[0]:
                 activities = [torch.profiler.ProfilerActivity.CPU]
                 if device.type == "cuda":
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -184,6 +233,7 @@ def _train(cfg, dataset, log_dir, max_steps, eval_hook, eval_hook_factory, resum
                 prof.start()
             metrics = train_step(state, batch, cfg)
             step += 1
+            consumed += 1
 
             if prof is not None and step == profile_window[1]:
                 if device.type == "cuda":
@@ -236,7 +286,10 @@ def _train(cfg, dataset, log_dir, max_steps, eval_hook, eval_hook_factory, resum
                     inflight.clear()  # the discarded attempt's fetches
                     state = init_state(cfg, seed=new_seed, device=device,
                                        steps_per_epoch=steps_per_epoch)
-                    ckpt.reset()  # on the checkpoint worker, after earlier saves
+                    state.mesh = mesh
+                    replicate_tree(state.model, mesh)
+                    if lead:
+                        ckpt.reset()  # on the checkpoint worker, after earlier saves
                     step = 0
                     start_step = 0
                     restart_checked = False
@@ -250,7 +303,11 @@ def _train(cfg, dataset, log_dir, max_steps, eval_hook, eval_hook_factory, resum
                     drain_inflight(0)
                 # Snapshot on the compute stream, written by the manager's
                 # worker: the next step's in-place update cannot race it.
-                ckpt.save(step, state)
+                # The grain state is that after exactly this step's batches,
+                # though the prefetcher has pulled further.
+                if lead:
+                    ckpt.save(step, state, loader_state=(
+                        batches.state_at(grain_base + consumed) if grain else None))
 
             if eval_hook is not None and step % eval_every == 0:
                 # Hook contract: (step, state, writer) → optional scalars,

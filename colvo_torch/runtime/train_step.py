@@ -16,7 +16,7 @@ from __future__ import annotations
 
 from collections import Counter
 from dataclasses import dataclass
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +27,7 @@ from colvo_torch.data.device_store import device_augment, gather
 from colvo_torch.kernels import add_launch_counts, launch_counts, reset_launch_counts
 from colvo_torch.losses import snippet_loss
 from colvo_torch.models import ColVOModel
+from colvo_torch.runtime.mesh import Mesh
 from colvo_torch.runtime.optim import Adam
 
 # Eager steps a chunk runs on a side stream before its capture.
@@ -35,10 +36,14 @@ _WARMUP_STEPS = 2
 
 @dataclass
 class TrainState:
+    """The model, its optimizer and the step count; under data parallel
+    also the ``mesh`` the batch is split over (None: one process)."""
+
     model: ColVOModel
     optimizer: torch.optim.Optimizer
     step: int
     steps_per_epoch: int
+    mesh: Optional[Mesh] = None
 
 
 def learning_rate(cfg: ColvoConfig, step: int, steps_per_epoch: int = 1000) -> float:
@@ -122,13 +127,15 @@ def to_device(batch: Mapping[str, np.ndarray], device: torch.device) -> Dict[str
 
 
 def loss_fn(model: ColVOModel, batch: Mapping[str, torch.Tensor], cfg: ColvoConfig,
-            geo_scale: float = 1.0):
-    """Forward + ``snippet_loss`` → (loss, aux without the depth map)."""
+            geo_scale: float = 1.0, mesh: Optional[Mesh] = None):
+    """Forward + ``snippet_loss`` → (loss, aux without the depth map);
+    with ``mesh``, ``batch`` is this rank's rows and the loss the global
+    batch's."""
     disps, poses = model(batch["frames"])
     k = batch["k"]
     loss, aux = snippet_loss(
         disps, poses, batch["frames"], k, torch.linalg.inv_ex(k).inverse, cfg.loss, cfg.model,
-        frames_clean=batch.get("frames_clean"), geo_scale=geo_scale,
+        frames_clean=batch.get("frames_clean"), geo_scale=geo_scale, mesh=mesh,
     )
     aux.pop("depth/full", None)
     return loss, aux
@@ -158,13 +165,17 @@ def _set_learning_rate(opt: torch.optim.Optimizer, lr: float | torch.Tensor) -> 
 def _update(state: TrainState, batch: Mapping[str, torch.Tensor], cfg: ColvoConfig,
             geo: float | torch.Tensor, lr: float | torch.Tensor,
             set_to_none: bool = True) -> Dict[str, torch.Tensor]:
-    """Forward, loss, backward, clip and Adam on ``batch``; the metrics."""
+    """Forward, loss, backward, clip and Adam on ``batch``; the metrics.
+    Under data parallel the gradients are summed over the ranks before the
+    clip."""
     model, opt = state.model, state.optimizer
     model.train()
     opt.zero_grad(set_to_none=set_to_none)
-    loss, aux = loss_fn(model, batch, cfg, geo)
+    loss, aux = loss_fn(model, batch, cfg, geo, state.mesh)
     loss.backward()
     params = [p for p in model.parameters() if p.grad is not None]
+    if state.mesh is not None:
+        state.mesh.all_reduce_grads([p.grad for p in params])
     grad_norm = clip_by_global_norm([p.grad for p in params], cfg.train.grad_clip)
     _set_learning_rate(opt, lr)
     opt.step()
@@ -176,7 +187,7 @@ def _update(state: TrainState, batch: Mapping[str, torch.Tensor], cfg: ColvoConf
 def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
                cfg: ColvoConfig) -> Dict[str, torch.Tensor]:
     """One optimisation step on ``batch`` ({frames, frames_clean, k} on the
-    state's device); updates ``state`` in place and returns the metrics
+    state's device; this rank's rows under data parallel); updates ``state`` in place and returns the metrics
     (aux terms and ``grad_norm``) as device scalars."""
     metrics = _update(state, batch, cfg, geo_scale(cfg, state.step),
                       learning_rate(cfg, state.step, state.steps_per_epoch))
@@ -196,6 +207,9 @@ class ScanTrain:
     """
 
     def __init__(self, state: TrainState, cfg: ColvoConfig, n_steps: int):
+        if state.mesh is not None and state.mesh.size > 1:
+            raise ValueError("make_scan_train runs on one rank; the reference's loop never "
+                             "runs its scan under a mesh")
         self.state, self.cfg, self.n_steps = state, cfg, n_steps
         self.device = next(state.model.parameters()).device
         self.step = torch.zeros((), dtype=torch.int64, device=self.device)

@@ -1,5 +1,7 @@
-"""Streaming VO, trajectory alignment, reconstruction and polyp
-localisation (port of ``colvo/vo`` without ``refine``)."""
+"""Streaming VO, trajectory alignment, reconstruction, polyp
+localisation and keyframe pose refinement (port of ``colvo/vo``;
+``refine_keyframe_poses`` is imported from ``colvo_torch.vo.refine``, as
+the reference's is)."""
 
 from colvo_torch.vo.align import align_poses, align_trajectory, umeyama
 from colvo_torch.vo.driver import VOResult, chain_relative_poses, run_vo

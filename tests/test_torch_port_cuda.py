@@ -745,3 +745,65 @@ def test_chunk_captures_under_remat_and_the_bf16_moment(device, knob):
     if knob == "train.adam_mu_dtype":
         moments = [state.optimizer.state[p]["exp_avg"] for p in state.model.parameters()]
         assert all(m.dtype == torch.bfloat16 for m in moments)
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_group_all_reduces_and_the_mesh_is_one(device, monkeypatch):
+    """``maybe_init_distributed`` under a launcher's variables joins a
+    one-rank NCCL group; its all-reduce (SUM) is the identity, bit for bit,
+    on the loss's global sum and on the flat gradient all-reduce."""
+    import socket
+
+    from colvo_torch.runtime import mesh as mesh_mod
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for var, value in (("RANK", "0"), ("LOCAL_RANK", "0"), ("WORLD_SIZE", "1"),
+                       ("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", str(port))):
+        monkeypatch.setenv(var, value)
+    assert mesh_mod.maybe_init_distributed()
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        mesh = mesh_mod.make_mesh()
+        assert (mesh.size, mesh.rank) == (1, 0)
+        g = torch.Generator(device=device).manual_seed(0)
+        grads = [torch.randn((7, 5), device=device, generator=g),
+                 torch.randn((3,), device=device, generator=g)]
+        before = [x.clone() for x in grads]
+        mesh.all_reduce_grads(grads)
+        assert all(torch.equal(a, b) for a, b in zip(grads, before))
+        x = torch.randn((1000,), device=device, generator=g)
+        y = x.sum().clone()
+        torch.distributed.all_reduce(y)
+        assert torch.equal(y, x.sum())
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_refine_with_kernel_s_matches_the_plain_sampler(device):
+    """``refine_keyframe_poses`` on the card through kernel S (2 launches
+    with d/dx, d/dy an iteration, 4 value-only a batch) against the same
+    call with the sampler's plain version: poses to 1e-4."""
+    from unittest import mock
+
+    from colvo_torch.data.synthetic import default_intrinsics, make_trajectory, render_frame
+    from colvo_torch.vo.refine import refine_keyframe_poses
+
+    h, w, iters = 64, 96, 5
+    k = default_intrinsics(h, w)
+    gt = make_trajectory(8, step=0.004, wobble=0.3, seed=31).astype(np.float64)
+    ids = [0, 2, 4, 6]
+    frames, depths = zip(*(render_frame(gt[i], k, h, w, radius=0.03) for i in ids))
+    kw = dict(keyframe_ids=ids, depths=[d.astype(np.float32) for d in depths],
+              frames_kf=np.stack(frames).astype(np.float32), k=k, iters=iters, lr=2e-3,
+              batch=2, device=device)
+    kernels.reset_launch_counts()
+    got, _ = refine_keyframe_poses(gt, **kw)
+    counts = kernels.launch_counts()
+    assert counts == {"S/grad/C3": 2 * iters, "S/grad/C1": 2 * iters, "S/value/C3": 4,
+                      "S/value/C1": 4}, counts
+    with mock.patch.object(sampler, "sample", sampler.sample_plain):
+        want, _ = refine_keyframe_poses(gt, **kw)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)

@@ -44,7 +44,7 @@ def test_importing_every_module_loads_no_jax_or_colvo():
     for name in ("runtime.loop", "runtime.checkpoint", "runtime.metrics", "data.prefetch",
                  "data.device_store", "pipelines", "cli", "evaluation.viz", "data.png",
                  "data.sources", "data.benchmark", "evaluation.raster", "runtime.torch_import",
-                 "runtime.optim"):
+                 "runtime.optim", "data.grain_loader", "runtime.mesh", "vo.refine"):
         assert f"colvo_torch.{name}" in result["imported"]
     assert [m for m in result["loaded"] if _forbidden(m)] == []
     assert [m for m in result["loaded"] if m.split(".")[0] in NOT_LOADED_BY_AN_IMPORT] == []
@@ -69,3 +69,14 @@ def test_source_imports_nothing_forbidden(path):
     bad = [m for m in _imports(path)
            if _forbidden(m) or m.split(".")[0] in ABSENT_ON_THE_CARD]
     assert bad == [], f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_grain_loader_loads_neither_grain_nor_jax():
+    """The port's checkpointable loader keeps grain's contract without
+    grain, whose import loads JAX."""
+    code = ("import json, sys; import colvo_torch.data.grain_loader; "
+            "print(json.dumps(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         check=True, timeout=300)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert [m for m in loaded if m.split(".")[0] in ("grain", "jax", "jaxlib")] == []

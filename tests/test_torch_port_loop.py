@@ -1,7 +1,7 @@
 """colvo_torch's training entry point (cli train → pipelines.train →
 runtime/loop.py::train) against colvo's behaviour: restart, the
-dispatch-side NaN stop, the LR schedule's epoch length, the loaders and
-meshes it refuses, the prefetcher, the CLI's train and export, and the
+dispatch-side NaN stop, the LR schedule's epoch length, the loader and
+mesh it refuses, the prefetcher, the CLI's train and export, and the
 eval hook against the reference's on the same weights, on the CPU."""
 
 import json
@@ -222,15 +222,16 @@ def test_restart_metric_must_be_a_step_metric(tmp_path):
 
 
 @pytest.mark.parametrize("knob,value,error", [
-    ("data.loader", "grain", NotImplementedError),
     ("data.loader", "torch", ValueError),
-    ("mesh.data_parallel", 2, NotImplementedError),
+    ("mesh.data_parallel", 2, ValueError),
 ])
 def test_unported_loaders_and_meshes_raise(tmp_path, knob, value, error):
+    """An unknown loader, and a mesh of more ranks than the process group
+    has (none here: one process), are refused before a step."""
     cfg = tiny_config(tmp_path)
     section, leaf = knob.split(".")
     setattr(getattr(cfg, section), leaf, value)
-    with pytest.raises(error, match="ROADMAP" if error is NotImplementedError else "loader"):
+    with pytest.raises(error, match="loader" if section == "data" else "WORLD_SIZE=1"):
         train_loop(cfg, _dataset(), log_dir=str(tmp_path / "log"), max_steps=1, device="cpu")
 
 

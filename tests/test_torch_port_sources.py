@@ -73,6 +73,79 @@ def _filtered_png(path, rows, ctype, depth, bpp):
                  + chunk(b"IDAT", zlib.compress(bytes(out))) + chunk(b"IEND", b""))
 
 
+# Adam7's passes: (first column, first row, column step, row step)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+def _adam7_png(path, px, ctype, depth, palette=None):
+    """An Adam7-interlaced PNG of the raw (h, w, bytes a pixel) uint8
+    pixels, written here with zlib and struct (neither cv2 nor PIL writes
+    one): each pass's sub-image filtered as ``_filtered_png`` filters rows
+    (row r of a pass with type r % 5), the passes one after the other."""
+    h, w, bpp = px.shape
+    out = b""
+    for x0, y0, dx, dy in ADAM7:
+        sub = px[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue  # an empty pass has no bytes at all
+        _filtered_png(path, sub.reshape(sub.shape[0], -1), ctype, depth, bpp)
+        out += zlib.decompress(_chunks(path)[b"IDAT"])
+    chunk = png._chunk
+    body = png.SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 1))
+    if palette is not None:
+        body += chunk(b"PLTE", palette.tobytes())
+    with open(path, "wb") as fh:
+        fh.write(body + chunk(b"IDAT", zlib.compress(out)) + chunk(b"IEND", b""))
+
+
+def _chunks(path):
+    data, pos, out = open(path, "rb").read(), 8, {}
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        out[tag] = out.get(tag, b"") + data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    return out
+
+
+@pytest.mark.parametrize("h, w", [(37, 53), (5, 3)], ids=["37x53", "5x3-empty-passes"])
+@pytest.mark.parametrize("kind", ["gray8", "rgb8", "rgba8", "palette", "rgb16", "gray16"])
+def test_read_png_adam7_equals_cv2_imread(tmp_path, kind, h, w):
+    """Adam7 files at 8 and 16 bits, gray, RGB, RGBA and palette, read as
+    cv2.imread reads them (IMREAD_UNCHANGED for 16-bit gray) and as the
+    same pixels non-interlaced; at 5×3 passes 2, 3 and 4 are empty."""
+    rng = np.random.default_rng(7)
+    img = _image(h, w, seed=5)
+    palette = None
+    if kind == "gray8":
+        ctype, depth, px = 0, 8, img[..., :1]
+    elif kind == "rgb8":
+        ctype, depth, px = 2, 8, img
+    elif kind == "rgba8":
+        ctype, depth, px = 6, 8, np.concatenate([img, img[..., 1:2]], -1)
+    elif kind == "palette":
+        palette = rng.integers(0, 256, (40, 3)).astype(np.uint8)
+        ctype, depth, px = 3, 8, rng.integers(0, 40, (h, w, 1)).astype(np.uint8)
+    else:
+        ch = 3 if kind == "rgb16" else 1
+        ctype, depth = (2 if ch == 3 else 0), 16
+        px = rng.integers(0, 65536, (h, w, ch)).astype(">u2").view(np.uint8)
+    p, flat = str(tmp_path / "adam7.png"), str(tmp_path / "flat.png")
+    _adam7_png(p, px, ctype, depth, palette)
+    _filtered_png(flat, px.reshape(h, -1), ctype, depth, px.shape[2])
+    if palette is not None:  # the flat file needs the palette too
+        c = _chunks(flat)
+        with open(flat, "wb") as fh:
+            fh.write(png.SIGNATURE + png._chunk(b"IHDR", c[b"IHDR"])
+                     + png._chunk(b"PLTE", palette.tobytes())
+                     + png._chunk(b"IDAT", c[b"IDAT"]) + png._chunk(b"IEND", b""))
+    got = png.read_png(p)
+    want = cv2.imread(p, cv2.IMREAD_UNCHANGED) if kind == "gray16" else _cv2_rgb(p)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, png.read_png(flat))
+
+
 @pytest.fixture(scope="module")
 def png_dir(tmp_path_factory):
     """PNG files of every colour type and bit depth the codec reads."""
@@ -164,10 +237,12 @@ def test_write_png_round_trip_and_readers_agree(tmp_path):
 def test_read_png_refuses_what_it_does_not_read(tmp_path):
     img = _image(16, 16)
     data = png.png_bytes(img)  # the same file with IHDR's interlace byte set
-    ihdr = png._chunk(b"IHDR", struct.pack(">IIBBBBB", 16, 16, 8, 2, 0, 0, 1))
-    (tmp_path / "adam7.png").write_bytes(data[:8] + ihdr + data[8 + len(ihdr):])
-    with pytest.raises(NotImplementedError, match="Adam7"):
-        png.read_png(str(tmp_path / "adam7.png"))
+    for method in (1, 2):
+        ihdr = png._chunk(b"IHDR", struct.pack(">IIBBBBB", 16, 16, 8, 2, 0, 0, method))
+        (tmp_path / "interlaced.png").write_bytes(data[:8] + ihdr + data[8 + len(ihdr):])
+        # (a non-interlaced stream is no Adam7 stream: its rows cut the passes wrongly)
+        with pytest.raises(ValueError, match="Adam7|row" if method == 1 else "interlace method"):
+            png.read_png(str(tmp_path / "interlaced.png"))
     Image.fromarray(img[..., 0] > 128).save(tmp_path / "bits1.png")
     with pytest.raises(NotImplementedError, match="bit depth 1"):
         png.read_png(str(tmp_path / "bits1.png"))
