@@ -34,9 +34,10 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
    each of the seven loss protocols alone, ``photo_native`` with
    ``fused_kernel``, ``batched_photo`` with bf16 planes, ``model.remat``,
    ``model.batched_snippet=false``, ``train.adam_mu_dtype=bfloat16``), each
-   a slice run of 3 steps and a held-out loss from the same weights and
+   a slice run of 3 steps through ``make_train_step`` (a captured step, as
+   ``cli train`` takes it) and a held-out loss from the same weights and
    batches, with the same checks (launch counts derived from the config by
-   ``expected_launches``); the knobs that compute the default's function
+   ``expected_launches``, the warm-up's step included); the knobs that compute the default's function
    held to the default's step 1; ms/step, device busy and peak memory
    beside the default's. Then one ``make_scan_train`` chunk (K=4) under
    ``model.remat`` + ``loss.photo_remat`` + the bf16 Adam moment against an
@@ -64,7 +65,8 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
 5. Serving phase, after the default path's steps:
    ``InferenceRunner.infer_coupled`` on frame pairs.
 6. VO phase, on the same weights: ``run_vo`` streams a rendered 64-frame
-   sequence at full width (uint8 RGB in, float16 wire); its trajectory
+   sequence at full width (uint8 RGB in, float16 wire; the init and chunk
+   steps are replays of the runner's programs); its trajectory
    and depths must be sane, its float32 wire must agree with per-pair
    ``infer_coupled``, the float16 and uint8 wires and I420 input must stay
    within their bounds, symmetric pose must keep the forward translation,
@@ -72,14 +74,16 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
    errors and a stitched cloud (with a PLY round trip) follow, as in the
    reference's ``evaluate_synthetic``; no kernel may launch. Then
    frames/s of each input format and wire (at least 30), the layers of
-   one chunk, the card's busy share and peak memory.
+   one chunk (the chunk step's eager body and its program's replay), the
+   card's busy share and peak memory.
 7. Loop phase: the training entry point at full width, in process through
    ``colvo_torch.cli``: ``train`` for 8 steps on the synthetic dataset
    (metrics every 2 steps, checkpoints every 4, the profiler over steps
    5-7, the eval hook at step 7), ``export``, ``train --resume`` to step
    10. The metrics rows, the eval hook's panels, the checkpoints, the
    resume, the step-8 checkpoint against the live state bit for bit, the
-   export and run 1's launch counts (the slice's per step, times 8) are
+   export, run 1's steps as one captured step's replays and its launch
+   counts (the slice's per step, times 8 replays plus the warm-up's) are
    checked; loop ms/step against the slice's, the card's busy share over
    the profiled steps, peak memory and the producer thread's ms a batch
    are printed. Then the dispatch-side NaN stop and a basin restart at
@@ -115,11 +119,22 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
    Refine phase: ``refine_keyframe_poses`` on the reference test's
    perturbed pose at 256×320 (the error must shrink as there), then on
    the VO phase's 64 keyframes (one padded batch) against the plain
-   sampler, with its launches and ms a call.
+   sampler, with its launches (one warm-up call, then a replay a batch)
+   and ms a call.
+   Graphs phase: each captured program against its eager body from the
+   same inputs and state, with both times: ``infer_coupled`` and
+   ``run_vo`` in every input format and wire bit for bit; 3 default
+   steps (step 1's loss terms bit for bit, grad_norm and weights within
+   1e-3) and the captured step's peak memory against the eager step's
+   (at most 2×); 3 deterministic steps bit for bit in a fresh process;
+   the loop on the numpy, grain and device loaders, 9 steps each, one
+   captured step's replays with exact launches, and the card's busy
+   share over 8 profiled replays; ``refine_keyframe_poses`` within 1e-6.
 10. Prints the kernel table as one JSON line (launches over the slice
    and knob runs, the deterministic runs, the data-parallel ranks, loop
    run 1, the grain runs, the device-loader run, the chunks' replays and
-   the refine calls; every kernel must have launched), then the device
+   the refine calls and the graphs phase; every kernel must have
+   launched), then the device
    line ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -154,6 +169,7 @@ from colvo_torch.kernels import build, launch_counts, reset_launch_counts  # noq
 from colvo_torch.kernels import fused_loss, sampler, scatter  # noqa: E402
 from colvo_torch.losses.photometric import lcc_calibrate  # noqa: E402
 from colvo_torch.runtime import InferenceRunner, init_state, loss_fn, to_device, train_step  # noqa: E402
+from colvo_torch.runtime import graphs  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
 # outside the tensor cores.
@@ -206,6 +222,21 @@ def check(ok, what: str) -> None:
     """A failed check ends the run (unlike ``assert``, also under -O)."""
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+# Calls a captured program runs eagerly on a side stream before its capture;
+# its first call then replays once.
+STEP_WARMUP = graphs.WARMUP
+
+
+def wrap_step_fns(wrap):
+    """Patch ``runtime.loop.make_step_fn`` so that every step function the
+    loop makes (a captured ``TrainStep``, or the eager branch) is
+    ``wrap(step_fn)``."""
+    from colvo_torch.runtime import loop as loop_mod
+
+    real = loop_mod.make_step_fn
+    return mock.patch.object(loop_mod, "make_step_fn", lambda state, cfg: wrap(real(state, cfg)))
 
 
 def _events_ms(fn, iters: int) -> float:
@@ -646,13 +677,22 @@ def expected_launches(cfg: ColvoConfig, n_steps: int) -> dict:
     return {k: v for k, v in counts.items() if v}
 
 
-def slice_phase(cfg: ColvoConfig, device, batches, n_steps: int = TRAIN_STEPS):
+def slice_phase(cfg: ColvoConfig, device, batches, n_steps: int = TRAIN_STEPS,
+                captured: bool = False):
     """Train steps at ``cfg``'s size + a held-out no-grad loss on
     ``batches[n_steps]``; returns the state, the metrics by step, the
     launch counts, the median ms/step (CUDA events), the median host time
-    of a ``train_step`` call (its dispatch) and, from one more profiled
-    step, the device's busy ms and the peak GiB."""
+    of a step call (its dispatch) and, from one more profiled step, the
+    device's busy ms and the peak GiB. The steps are eager ``train_step``
+    calls, or with ``captured`` replays of ``make_train_step`` (whose first
+    call warms up ``STEP_WARMUP`` times and captures)."""
+    from colvo_torch.runtime import make_train_step
+
     state = init_state(cfg, device=device)
+    if captured:
+        step = make_train_step(state, cfg)
+    else:
+        step = lambda state_, batch: train_step(state_, batch, cfg)  # noqa: E731
 
     # Step 1's loss, recomputed with the plain kernels on the same weights.
     with torch.no_grad(), mock.patch.object(sampler, "sample", sampler.sample_plain), \
@@ -665,6 +705,8 @@ def slice_phase(cfg: ColvoConfig, device, batches, n_steps: int = TRAIN_STEPS):
     ref_aux = {k: v.item() for k, v in ref_aux.items()}
 
     reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               if device.type == "cuda" else None for _ in range(n_steps)]
     metrics, host_s = [], []
@@ -672,7 +714,8 @@ def slice_phase(cfg: ColvoConfig, device, batches, n_steps: int = TRAIN_STEPS):
         if events[i]:
             events[i][0].record()
         t0 = time.perf_counter()
-        metrics.append(train_step(state, batches[i], cfg))
+        # the caller's copies: a replay overwrites the program's outputs
+        metrics.append({k: v.clone() for k, v in step(state, batches[i]).items()})
         host_s.append(time.perf_counter() - t0)
         if events[i]:
             events[i][1].record()
@@ -681,6 +724,9 @@ def slice_phase(cfg: ColvoConfig, device, batches, n_steps: int = TRAIN_STEPS):
     counts = launch_counts()
     if device.type == "cuda":
         torch.cuda.synchronize()
+    # a replay allocates nothing: the captured step's memory is taken over
+    # its first call (warm-up, capture into the graph's pool, replay)
+    run_peak = torch.cuda.max_memory_allocated() / 2**30
     step_ms = [s.elapsed_time(e) for s, e in events] if device.type == "cuda" else []
 
     metrics = [{k: v.item() for k, v in m.items()} for m in metrics]
@@ -697,11 +743,14 @@ def slice_phase(cfg: ColvoConfig, device, batches, n_steps: int = TRAIN_STEPS):
     med, host_med = float("nan"), 1e3 * float(np.median(host_s[1:]))
     busy, peak = float("nan"), float("nan")
     if device.type == "cuda":
-        busy, peak = profile_step(state, batches[0], cfg)
+        busy, peak = profile_step(lambda: step(state, batches[0]))
+        if captured:
+            peak = run_peak
         med = float(np.median(step_ms[1:]))
-        log(f"train step: {med:.2f} ms/step (median of steps 2..{n_steps}, CUDA events; "
+        log(f"train step{' (captured)' if captured else ''}: {med:.2f} ms/step (median of "
+            f"steps 2..{n_steps}, CUDA events; "
             f"all: {[round(t, 2) for t in step_ms]}); device busy {busy:.2f} ms of it "
-            f"({100 * busy / med:.1f} %, kernel time of the profiled step); a train_step call "
+            f"({100 * busy / med:.1f} %, kernel time of the profiled step); a step call "
             f"returns after {host_med:.2f} ms on the host clock (median, its dispatch)")
     return state, metrics, counts, med, host_med, (busy, peak)
 
@@ -728,7 +777,7 @@ KNOB_PATHS = (
 )
 # The captured chunk of the knob phase: the memory knobs together.
 KNOB_CHUNK = {"model.remat": True, "loss.photo_remat": True, "train.adam_mu_dtype": "bfloat16"}
-CHUNK_WARMUP = 2  # eager steps a chunk's first call runs before its capture (train_step.py)
+CHUNK_WARMUP = STEP_WARMUP  # eager chunks (K steps each) a chunk's first call runs first
 
 
 def knob_config(knobs: dict) -> ColvoConfig:
@@ -748,15 +797,17 @@ def knob_phase(device, smi: str, batches, default_first: dict, default_ms: float
     knobs, to the default path's step 1 (1e-3 relative); ms/step, the
     device's busy ms and the peak GiB beside the default's. Then one
     ``make_scan_train`` chunk of ``CHUNK_K`` steps under ``KNOB_CHUNK``.
-    Returns the phase's kernel launches."""
+    The steps are replays of ``make_train_step``, as ``cli train`` takes
+    them: every knob must capture. Returns the phase's kernel launches."""
     t_phase = time.time()
     counts, table = Counter(), []
     for label, knobs, exact in KNOB_PATHS:
         log(f"--- knob: {label} ---")
         cfg = knob_config(knobs)
         state, metrics, path_counts, ms, _, (busy, peak) = slice_phase(
-            cfg, device, batches, n_steps=KNOB_STEPS)
-        expect = expected_launches(cfg, KNOB_STEPS)
+            cfg, device, batches, n_steps=KNOB_STEPS, captured=True)
+        # the warm-up's steps, then the captured launches × the replays
+        expect = expected_launches(cfg, KNOB_STEPS + STEP_WARMUP)
         check(path_counts == expect, f"{label} launch counts {path_counts} == {expect}")
         counts.update(path_counts)
         if cfg.loss.scatter_audit:
@@ -775,9 +826,10 @@ def knob_phase(device, smi: str, batches, default_first: dict, default_ms: float
         table.append((label, ms, busy, peak))
         del state
     counts.update(knob_chunk(device, smi))
-    log(f"knob phase ({smi}): ms/step (median of steps 2..{KNOB_STEPS}, CUDA events), device "
-        f"busy ms of a profiled step, peak GiB; the default path's {default_ms:.2f} / "
-        f"{default_prof[0]:.2f} / {default_prof[1]:.2f}")
+    log(f"knob phase ({smi}): ms/step (median of replays 2..{KNOB_STEPS}, CUDA events), device "
+        f"busy ms of a profiled replay, peak GiB over the steps (the first call's warm-up and "
+        f"capture); the default path's eager {default_ms:.2f} / {default_prof[0]:.2f} / "
+        f"{default_prof[1]:.2f}")
     for label, ms, busy, peak in table:
         log(f"  knob {label:28s} {ms:8.2f} ms/step  {busy:7.2f} ms busy  {peak:6.2f} GiB")
     log(f"knob phase: {time.time() - t_phase:.1f} s")
@@ -811,12 +863,13 @@ def knob_chunk(device, smi: str) -> Counter:
     peak = torch.cuda.max_memory_allocated()
     counts = Counter(launch_counts())
     want = Counter(expected_launches(cfg, CHUNK_K)) - Counter(expected_launches(cfg, 0))
-    # the first call's launches: its eager warm-up steps and one replay
-    warm = Counter(expected_launches(cfg, CHUNK_WARMUP)) - Counter(expected_launches(cfg, 0))
+    # the first call's launches: its eager warm-up chunk and one replay
+    warm = Counter(expected_launches(cfg, CHUNK_WARMUP * CHUNK_K)) - Counter(
+        expected_launches(cfg, 0))
     check(chunk.graph is not None and state.step == CHUNK_K, "knob chunk: captured K steps")
     check(Counter(chunk.captured_launches) == want and counts == want + warm,
           f"knob chunk: captured {chunk.captured_launches} == {dict(want)}; the first call's "
-          f"{dict(counts)} == those + {CHUNK_WARMUP} warm-up steps' {dict(warm)}")
+          f"{dict(counts)} == those + {CHUNK_WARMUP} warm-up chunk's {dict(warm)}")
     check(all(st["exp_avg"].dtype == torch.bfloat16 for st in state.optimizer.state.values()),
           "knob chunk: first moments bf16")
     check(all(bool(torch.isfinite(v).all()) for v in first.values()), "knob chunk metrics finite")
@@ -850,8 +903,9 @@ DET_CKPT = 4  # the step whose checkpoints the two deterministic runs must share
 DET_CALLS = 20  # calls of the deterministic T that must give the same bits
 DET_GLOBAL = (4, (256, 320), (512, 640))  # planes, output and source: the global path
 # A fresh process that runs the CLI (``python -m colvo_torch.cli`` does the
-# same) with CUDA events around each train step, then prints the steps'
-# device-clock ms and its kernel launches.
+# same) with CUDA events around each step of the loop, then prints the
+# steps' device-clock ms, its kernel launches and the kinds of step
+# function the loop made (``TrainStep``: a captured program).
 DET_CHILD = """
 import json, sys
 import torch
@@ -859,27 +913,33 @@ from colvo_torch import cli
 from colvo_torch.kernels import launch_counts
 from colvo_torch.runtime import loop
 
-events = []
-step_fn = loop.train_step
+events, kinds = [], []
+make = loop.make_step_fn
 
 
-def timed_step(*args, **kwargs):
-    if not torch.cuda.is_available():
-        return step_fn(*args, **kwargs)
-    pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-    pair[0].record()
-    out = step_fn(*args, **kwargs)
-    pair[1].record()
-    events.append(pair)
-    return out
+def timed_make(state, cfg):
+    step_fn = make(state, cfg)
+    kinds.append(type(step_fn).__name__)
+
+    def timed_step(state, batch):
+        if not torch.cuda.is_available():
+            return step_fn(state, batch)
+        pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        out = step_fn(state, batch)
+        pair[1].record()
+        events.append(pair)
+        return out
+    return timed_step
 
 
-loop.train_step = timed_step
+loop.make_step_fn = timed_make
 rc = cli.main(sys.argv[1:])
 if events:
     torch.cuda.synchronize()
 print("step ms " + json.dumps([a.elapsed_time(b) for a, b in events]), flush=True)
 print("launch counts " + json.dumps(launch_counts()), flush=True)
+print("step fns " + json.dumps(kinds), flush=True)
 sys.exit(rc)
 """
 
@@ -1095,7 +1155,10 @@ def run_child(cmd, what: str) -> str:
 
 
 def child_step_ms(out: str) -> tuple:
-    """``DET_CHILD``'s printed step times and launch counts."""
+    """``DET_CHILD``'s printed step times and launch counts; fails unless
+    its loop took the captured step (one ``TrainStep``)."""
+    kinds = json.loads(out.rsplit("step fns ", 1)[1].splitlines()[0])
+    check(kinds == ["TrainStep"], f"the loop's step functions {kinds} are one captured step")
     step_ms = json.loads(out.rsplit("step ms ", 1)[1].splitlines()[0])
     return step_ms, json.loads(out.rsplit("launch counts ", 1)[1].splitlines()[0])
 
@@ -1133,7 +1196,7 @@ def det_cli_runs(device, smi: str, extra_args=()) -> tuple:
             out = run_child(cmd, f"{'deterministic' if det else 'default'} cli train")
             outs.append(out)
             cfg.train.deterministic = det
-            want = step_launches(cfg, DET_STEPS)
+            want = step_launches(cfg, DET_STEPS + STEP_WARMUP)
             step_ms, got = child_step_ms(out)
             # (a rehearsal on the CPU launches no kernel)
             check(got == want or device.type == "cpu", f"run {run} launches {got} == {want}")
@@ -1206,8 +1269,8 @@ BUCKETS = (
 )
 
 
-def profile_step(state, batch, cfg: ColvoConfig) -> tuple:
-    """One more train step under ``torch.profiler``: device time by kernel,
+def profile_step(step) -> tuple:
+    """One more train step, ``step()``, under ``torch.profiler``: device time by kernel,
     by bucket and by ATen op and input shapes, the device's busy share of
     the step, peak memory. Returns the device's kernel time in ms and the
     step's peak memory in GiB."""
@@ -1219,7 +1282,7 @@ def profile_step(state, batch, cfg: ColvoConfig) -> tuple:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         start.record()
-        train_step(state, batch, cfg)
+        step()
         end.record()
         torch.cuda.synchronize()
     step_ms = start.elapsed_time(end)
@@ -1448,9 +1511,9 @@ def vo_phase(cfg: ColvoConfig, state, device, smi: str, timed: bool = True) -> t
 
 def vo_stage_times(runner, frames, rel6, smi: str) -> None:
     """The layers of one chunk (rgb uint8 in, float16 wire out): H2D from
-    pinned memory, the chunk step (eager, and as CUDA-graph replays), D2H
-    of the wire into pinned memory (CUDA events), the host decode and the
-    native chain of the whole sequence (host clock)."""
+    pinned memory, the chunk step (its body eager, and the program's
+    replays), D2H of the wire into pinned memory (CUDA events), the host
+    decode and the native chain of the whole sequence (host clock)."""
     from colvo_torch.vo import StreamingVO, chain_relative_poses
 
     sv = StreamingVO(runner, chunk_size=VO_CHUNK)
@@ -1462,8 +1525,8 @@ def vo_stage_times(runner, frames, rel6, smi: str) -> None:
         wire = sv.chunk_step(ci, cb, dev)[0]
         out = torch.empty(wire.shape, dtype=wire.dtype, pin_memory=True)
         h2d = eager_ms(lambda: pinned.to("cuda", non_blocking=True))
-        step_eager = eager_ms(lambda: sv.chunk_step(ci, cb, dev))
-        step_graph = time_ms(lambda: sv.chunk_step(ci, cb, dev))
+        step_eager = eager_ms(lambda: sv.chunk_body(ci, cb, dev))
+        step_graph = eager_ms(lambda: sv.chunk_step(ci, cb, dev))
         d2h = eager_ms(lambda: out.copy_(wire, non_blocking=True))
     torch.cuda.synchronize()
     buf = out.numpy()
@@ -1476,8 +1539,8 @@ def vo_stage_times(runner, frames, rel6, smi: str) -> None:
         chain_relative_poses(rel6)
     chain = (time.perf_counter() - t0) / 20 * 1e3
     log(f"VO layers, one chunk of {VO_CHUNK} ({smi}): H2D {h2d:.4f} ms ({pinned.numel() / 2**20:.2f} "
-        f"MiB, CUDA events); chunk step {step_eager:.3f} ms eager, {step_graph:.3f} ms on the "
-        f"device (CUDA-graph replays); D2H {d2h:.4f} ms ({wire.numel() / 2**20:.2f} MiB wire); "
+        f"MiB, CUDA events); chunk step {step_eager:.3f} ms eager, {step_graph:.3f} ms a replay "
+        f"of its program (CUDA events); D2H {d2h:.4f} ms ({wire.numel() / 2**20:.2f} MiB wire); "
         f"host decode {decode:.3f} ms; native chain of {len(rel6)} poses {chain:.3f} ms (host clock)")
 
 
@@ -1592,7 +1655,7 @@ def loop_phase(device, smi: str, slice_ms: float, slice_dispatch_ms: float) -> d
     every 2, checkpoints every 4, the profiler over ``LOOP_PROFILE``, the
     eval hook at the epoch's end, step 7), ``export`` writes the weights,
     run 2 resumes to ``LOOP_RESUME_TO``. The producer thread's batch time
-    and each ``train_step`` call's host time are taken during run 1, and
+    and each step call's host time are taken during run 1, and
     the producer's again alone on run 1's dataset. Then the dispatch-side
     NaN stop and a basin restart at ``LOOP_SMALL``. Returns run 1's kernel
     launches, its dataset and its ms/step."""
@@ -1605,8 +1668,8 @@ def loop_phase(device, smi: str, slice_ms: float, slice_dispatch_ms: float) -> d
 
     t_phase = time.time()
     cfg = ColvoConfig()
-    runs, datasets, producer_s, calls = [], [], [], []
-    real_train, real_step = pipelines.train_loop, loop_mod.train_step
+    runs, datasets, producer_s, calls, kinds = [], [], [], [], []
+    real_train = pipelines.train_loop
 
     def recording(cfg_, dataset, **kwargs):
         datasets.append(dataset)
@@ -1614,11 +1677,15 @@ def loop_phase(device, smi: str, slice_ms: float, slice_dispatch_ms: float) -> d
         runs.append(out[1])
         return out
 
-    def timed_step(*args):
-        t0 = time.perf_counter()
-        out = real_step(*args)
-        calls.append((t0, time.perf_counter()))
-        return out
+    def timed(step_fn):
+        kinds.append(type(step_fn).__name__)
+
+        def timed_step(*args):
+            t0 = time.perf_counter()
+            out = step_fn(*args)
+            calls.append((t0, time.perf_counter()))
+            return out
+        return timed_step
 
     with tempfile.TemporaryDirectory() as tmp, \
             mock.patch.object(pipelines, "train_loop", recording):
@@ -1631,14 +1698,17 @@ def loop_phase(device, smi: str, slice_ms: float, slice_dispatch_ms: float) -> d
         t0 = time.time()
         with mock.patch.object(loop_mod, "batch_iterator",
                                _timed_batches(loop_mod.batch_iterator, producer_s)), \
-                mock.patch.object(loop_mod, "train_step", timed_step):
+                wrap_step_fns(timed):
             check(cli.main(["train", "--max-steps", str(LOOP_STEPS),
                             "--train.profile_steps={}:{}".format(*LOOP_PROFILE)] + common) == 0,
                   "cli train, run 1")
         run1_s = time.time() - t0
         counts = launch_counts()
         peak = torch.cuda.max_memory_allocated() / 2**30
-        per_step = Counter(expected_launches(cfg, LOOP_STEPS)) - Counter(expected_launches(cfg, 0))
+        check(kinds == ["TrainStep"], f"run 1's steps are replays of one captured step: {kinds}")
+        # the warm-up's step, then the captured step's launches × the replays
+        per_step = Counter(expected_launches(cfg, LOOP_STEPS + STEP_WARMUP)) - Counter(
+            expected_launches(cfg, 0))
         check(counts == dict(per_step), f"loop run 1 launches {counts} == {dict(per_step)}")
 
         # The checkpoint of step 8 holds run 1's final state bit for bit.
@@ -1717,8 +1787,9 @@ def loop_phase(device, smi: str, slice_ms: float, slice_dispatch_ms: float) -> d
         f"nothing else running; all {[round(1e3 * t, 1) for t in alone_s]})")
     dispatch = [1e3 * (b - a) for a, b in calls]
     gaps = [1e3 * (b[0] - a[0]) for a, b in zip(calls, calls[1:])]
-    log(f"loop: a train_step call returned after {np.median(dispatch[1:]):.2f} ms on the host "
-        f"clock in run 1 (median of steps 2-{LOOP_STEPS}; the slice's {slice_dispatch_ms:.2f}); "
+    log(f"loop: a step call (a replay) returned after {np.median(dispatch[1:]):.2f} ms on the "
+        f"host clock in run 1 (median of steps 2-{LOOP_STEPS}; the first, with its warm-up and "
+        f"capture, {dispatch[0]:.1f}; an eager train_step in the slice {slice_dispatch_ms:.2f}); "
         f"one call started every {np.median(gaps):.2f} ms (median; all "
         f"{[round(g, 1) for g in gaps]}; the eval hook runs between steps 7 and 8)")
     log("loop: the host over the profiled window: " + host)
@@ -1742,16 +1813,17 @@ def loop_small_runs(device) -> None:
         cfg.train.log_every, cfg.train.dispatch_ahead_windows = 1, 1
         cfg.train.ckpt_dir = os.path.join(tmp, "nan_ckpt")
         calls = []
-        real_step = loop_mod.train_step
 
-        def counted(state, batch, cfg_):
-            calls.append(state.step + 1)
-            return real_step(state, batch, cfg_)
+        def counted(step_fn):
+            def step(state, batch):
+                calls.append(state.step + 1)
+                return step_fn(state, batch)
+            return step
 
         ds = SnippetDataset([poisoned], [seq.k], cfg.data.frame_offsets)
         raised = None
         try:
-            with mock.patch.object(loop_mod, "train_step", counted):
+            with wrap_step_fns(counted):
                 loop_mod.train(cfg, ds, log_dir=os.path.join(tmp, "nan_log"), max_steps=30,
                                device=device)
         except RuntimeError as e:
@@ -1808,27 +1880,30 @@ def device_loop_run(device, smi: str, dataset, numpy_loop_ms: float,
     dataset, as run 1 (``LOOP_STEPS`` steps, metrics every 2, checkpoints
     every 4, the profiler over ``LOOP_PROFILE``, the eval hook at step 7):
     its rows, panels, checkpoints and launches checked; loop ms/step beside
-    run 1's, the interval between ``train_step`` calls, the card's busy
+    run 1's, the interval between step calls, the card's busy
     share over the profiled window, peak memory and the store's upload.
     Returns its launches."""
     from colvo_torch import cli, pipelines
     from colvo_torch.runtime import loop as loop_mod
 
     cfg = ColvoConfig()
-    runs, calls, uploads = [], [], []
-    real_train, real_step, real_store = (pipelines.train_loop, loop_mod.train_step,
-                                         loop_mod.DeviceSnippetStore)
+    runs, calls, uploads, kinds = [], [], [], []
+    real_train, real_store = pipelines.train_loop, loop_mod.DeviceSnippetStore
 
     def recording(cfg_, dataset_, **kwargs):
         out = real_train(cfg_, dataset_, **kwargs)
         runs.append(out[1])
         return out
 
-    def timed_step(*args):
-        t0 = time.perf_counter()
-        out = real_step(*args)
-        calls.append((t0, time.perf_counter()))
-        return out
+    def timed(step_fn):
+        kinds.append(type(step_fn).__name__)
+
+        def timed_step(*args):
+            t0 = time.perf_counter()
+            out = step_fn(*args)
+            calls.append((t0, time.perf_counter()))
+            return out
+        return timed_step
 
     def timed_store(*args, **kwargs):
         torch.cuda.synchronize()
@@ -1841,7 +1916,7 @@ def device_loop_run(device, smi: str, dataset, numpy_loop_ms: float,
     with tempfile.TemporaryDirectory() as tmp, \
             mock.patch.object(pipelines, "build_dataset", lambda cfg_: dataset), \
             mock.patch.object(pipelines, "train_loop", recording), \
-            mock.patch.object(loop_mod, "train_step", timed_step), \
+            wrap_step_fns(timed), \
             mock.patch.object(loop_mod, "DeviceSnippetStore", timed_store):
         log_dir, ckpt_dir = os.path.join(tmp, "log"), os.path.join(tmp, "ckpt")
         torch.cuda.synchronize()
@@ -1855,7 +1930,9 @@ def device_loop_run(device, smi: str, dataset, numpy_loop_ms: float,
         run_s = time.time() - t0
         counts = launch_counts()
         peak = torch.cuda.max_memory_allocated() / 2**30
-        per_step = Counter(expected_launches(cfg, LOOP_STEPS)) - Counter(expected_launches(cfg, 0))
+        check(kinds == ["TrainStep"], f"the device loader's steps are replays: {kinds}")
+        per_step = Counter(expected_launches(cfg, LOOP_STEPS + STEP_WARMUP)) - Counter(
+            expected_launches(cfg, 0))
         check(counts == dict(per_step), f"device-loader run launches {counts} == {dict(per_step)}")
         check(runs[0].step == LOOP_STEPS, f"the device-loader run ended at step {runs[0].step}")
         check(sorted(int(d) for d in os.listdir(ckpt_dir)) == [4, 8], "checkpoints at 4 and 8")
@@ -1886,7 +1963,7 @@ def device_loop_run(device, smi: str, dataset, numpy_loop_ms: float,
         f"the numpy loader's run 1 {numpy_loop_ms:.2f} ms/step in the same process; the store "
         f"took {1e3 * upload_s:.1f} ms to build and upload {n_bytes / 1e6:.1f} MB of uint8 "
         f"frames; the run took {run_s:.1f} s")
-    log(f"device loader: one train_step call started every {np.median(gaps):.2f} ms (median; "
+    log(f"device loader: one step call started every {np.median(gaps):.2f} ms (median; "
         f"all {[round(g, 1) for g in gaps]}), a call returned after {np.median(dispatch[1:]):.2f} "
         f"ms on the host clock (median of steps 2-{LOOP_STEPS}; the slice's "
         f"{slice_dispatch_ms:.2f}); the card busy {busy:.2f} ms of the {window:.2f} ms profiled "
@@ -2463,7 +2540,7 @@ def grain_phase(device, smi: str, extra_args=()) -> Counter:
                             f"cli train --data.loader=grain run {run}")
             step_ms, got = child_step_ms(out)
             n_steps = GRAIN_STEPS - (GRAIN_CKPT if run == "B" else 0)
-            want = step_launches(cfg, n_steps)
+            want = step_launches(cfg, n_steps + STEP_WARMUP)
             check(got == want or device.type == "cpu", f"grain run {run} launches {got} == {want}")
             counts.update(got)
             timing.append((run, time.time() - t0, step_ms))
@@ -2723,7 +2800,18 @@ def refine_phase(device, smi: str, vo_inputs: dict) -> Counter:
     t_phase = time.time()
     cfg = ColvoConfig()
     h, w = cfg.data.height, cfg.data.width
-    plain = mock.patch.object(sampler, "sample", sampler.sample_plain)
+
+    @contextlib.contextmanager
+    def plain_sampler():
+        # A program replays the kernels it captured: the plain sampler's
+        # calls capture programs of their own, dropped after them.
+        refine_mod._refine.programs.clear()
+        try:
+            with mock.patch.object(sampler, "sample", sampler.sample_plain):
+                yield
+        finally:
+            refine_mod._refine.programs.clear()
+
     k = default_intrinsics(h, w)
     gt = make_trajectory(8, step=0.004, wobble=0.3, seed=31).astype(np.float64)
     frames, depths = zip(*(render_frame(gt[i], k, h, w, radius=0.03) for i in (0, 4)))
@@ -2741,11 +2829,11 @@ def refine_phase(device, smi: str, vo_inputs: dict) -> Counter:
     reset_launch_counts()
     refined, stats = refine_mod.refine_keyframe_poses(poses, **contract)
     counts = Counter(launch_counts())
-    with plain:
+    with plain_sampler():
         refined_plain, _ = refine_mod.refine_keyframe_poses(poses, **contract)
     perr = float(np.abs(refined - refined_plain).max())
     short = {**contract, "iters": REFINE_SHORT}
-    with plain:
+    with plain_sampler():
         short_plain, _ = refine_mod.refine_keyframe_poses(poses, **short)
     perr_short = float(np.abs(refine_mod.refine_keyframe_poses(poses, **short)[0]
                               - short_plain).max())
@@ -2781,8 +2869,10 @@ def refine_phase(device, smi: str, vo_inputs: dict) -> Counter:
         got, stats = refine_mod.refine_keyframe_poses(**vo_inputs, device=device)
     first_ms = 1e3 * (time.perf_counter() - t0)
     vo_counts = launch_counts()
-    want = {"S/grad/C3": REFINE_ITERS * n_batches, "S/grad/C1": REFINE_ITERS * n_batches,
-            "S/value/C3": 2 * n_batches, "S/value/C1": 2 * n_batches}
+    # a program's first call warms up once, then every batch is a replay
+    calls = STEP_WARMUP + n_batches
+    want = {"S/grad/C3": REFINE_ITERS * calls, "S/grad/C1": REFINE_ITERS * calls,
+            "S/value/C3": 2 * calls, "S/value/C1": 2 * calls}
     check(vo_counts == want or device.type == "cpu", f"refine launches {vo_counts} == {want}")
     counts.update(vo_counts)
     check(np.isfinite(got).all() and stats["residual_after"] <= stats["residual_before"],
@@ -2795,7 +2885,7 @@ def refine_phase(device, smi: str, vo_inputs: dict) -> Counter:
     for scale in (0.0, 2e-3):
         delta = (scale * torch.randn((rel.shape[0], 6), generator=gen)).to(device)
         outs = []
-        for ctx in (contextlib.nullcontext(), plain):
+        for ctx in (contextlib.nullcontext(), plain_sampler()):
             d = delta.clone().requires_grad_(True)
             with ctx:
                 loss, _ = refine_mod._segment_loss(d, *args)
@@ -2804,7 +2894,7 @@ def refine_phase(device, smi: str, vo_inputs: dict) -> Counter:
         (lk, gk), (lp, gp) = outs
         lerr = max(lerr, abs(lk - lp) / abs(lp))
         gerr = max(gerr, ((gk - gp).abs().max() / gp.abs().max()).item())
-    with plain:
+    with plain_sampler():
         t0 = time.perf_counter()
         got_plain, plain_stats = refine_mod.refine_keyframe_poses(**vo_inputs, device=device)
         plain_ms = 1e3 * (time.perf_counter() - t0)
@@ -2812,6 +2902,7 @@ def refine_phase(device, smi: str, vo_inputs: dict) -> Counter:
                                                           iters=REFINE_SHORT)
     vo_short = float(np.abs(refine_mod.refine_keyframe_poses(
         **vo_inputs, device=device, iters=REFINE_SHORT)[0] - short_plain).max())
+    refine_mod.refine_keyframe_poses(**vo_inputs, device=device)  # captures the program
     t0 = time.perf_counter()
     refine_mod.refine_keyframe_poses(**vo_inputs, device=device)
     ms = 1e3 * (time.perf_counter() - t0)
@@ -2824,13 +2915,322 @@ def refine_phase(device, smi: str, vo_inputs: dict) -> Counter:
         f"{plain_stats['residual_after']:.6g}); poses {np.abs(got - got_plain).max():.3g} and "
         f"frame-to-frame steps {np.abs(seg(got) - seg(got_plain)).max():.3g} from the plain "
         f"sampler's (a record: 40 Adam steps on a flat residual); launches {vo_counts}; "
-        f"{ms:.1f} ms a call (host clock, the call's own sync; the first {first_ms:.1f} ms, the "
-        f"plain sampler's {plain_ms:.1f} ms)")
+        f"{ms:.1f} ms a call (host clock, a replay and the call's own sync; the first, with its "
+        f"warm-up and capture, {first_ms:.1f} ms; the plain sampler's first {plain_ms:.1f} ms)")
     check(lerr <= 1e-5 and gerr <= 1e-4 and vo_short <= TOL_REFINE_POSE,
           f"refine on the VO result against the plain sampler: _segment_loss {lerr:.3g} "
           f"relative, its gradient {gerr:.3g} of max, poses after {REFINE_SHORT} iterations "
           f"{vo_short:.3g}")
     log(f"refine phase: {time.time() - t_phase:.1f} s")
+    return counts
+
+
+GRAPH_STEPS = 3  # steps of the graphs phase's eager and captured runs, from one init
+GRAPH_TIMED = 5  # more replays of the captured step, timed
+GRAPH_LOOP_STEPS, GRAPH_LOOP_PROFILE = 9, (1, 9)  # each loader's loop: 8 profiled replays
+GRAPH_LOADERS = ("numpy", "grain", "device")
+# Captured against eager default steps from the same weights and batches,
+# as the card test of the chunk holds them (a second eager run beside them
+# shows the floor): T adds with float atomics, in another order each run,
+# so step 1's gradients differ in their last bits (grad_norm to 1e-4
+# relative), and later steps start from weights that do: their loss terms
+# are held at the widening tolerances of equivalent programs run apart,
+# 1e-3 and 1e-2 relative (tests/test_device_store.py:149-152), their
+# grad_norm is a record (a near-tie automask decision moves it by ~2e-3).
+# Adam moves a weight by at most ~lr a step (|m̂|/√v̂ ≤ 1.004 over 3 steps)
+# whatever its gradient's size, so the weights after GRAPH_STEPS steps are
+# held within 2·GRAPH_STEPS·lr·1.004 of the eager run's.
+TOL_GRAPH_STEPS = (1e-4, 1e-3, 1e-2)
+# A fresh process (cuBLAS reads CUBLAS_WORKSPACE_CONFIG when its handle is
+# made): GRAPH_STEPS eager and captured deterministic steps from one init,
+# each timed by CUDA events; prints whether metrics, weights and Adam
+# moments are equal bit for bit, the ms and the kernel launches.
+GRAPH_DET_CHILD = """
+import json, sys
+import torch
+from colvo_torch.config import ColvoConfig
+from colvo_torch.data import batch_iterator, synthetic_dataset
+from colvo_torch.kernels import launch_counts
+from colvo_torch.runtime import init_state, make_train_step, to_device, train_step
+from colvo_torch.runtime.loop import deterministic_mode
+
+dev = torch.device(sys.argv[1])
+n_steps = int(sys.argv[2])
+cfg = ColvoConfig().apply_overrides(sys.argv[3:])
+cfg.train.deterministic = True
+it = batch_iterator(synthetic_dataset(cfg.data, n_sequences=2, n_frames=8), cfg.data, seed=0)
+batches = [to_device(next(it), dev) for _ in range(n_steps)]
+
+
+def timed(fn):
+    if dev.type != "cuda":
+        return fn(), float("nan")
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+with deterministic_mode(True):
+    eager = init_state(cfg, device=dev)
+    graphed = init_state(cfg, device=dev)
+    step_fn = make_train_step(graphed, cfg)
+    same, ms = True, {"eager": [], "captured": []}
+    for batch in batches:
+        want, t_eager = timed(lambda: train_step(eager, batch, cfg))
+        got, t_graph = timed(lambda: step_fn(graphed, batch))
+        ms["eager"].append(t_eager)
+        ms["captured"].append(t_graph)
+        same = same and all(torch.equal(got[k], v) for k, v in want.items())
+    for p, q in zip(eager.model.parameters(), graphed.model.parameters()):
+        a, b = eager.optimizer.state[p], graphed.optimizer.state[q]
+        same = same and torch.equal(p, q) and all(torch.equal(a[k], b[k]) for k in a)
+print("graph det " + json.dumps({"same": bool(same), "ms": ms, "launches": launch_counts()}),
+      flush=True)
+"""
+
+
+def graphs_phase(device, smi: str, weights: dict, batches, dataset, vo_inputs: dict,
+                 extra_args=()) -> Counter:
+    """Each captured program held against its eager body, from the same
+    inputs and state, with both times (the body by CUDA events around
+    eager calls, the program around its replays) and peak memory.
+    Serving: ``infer_coupled`` and ``run_vo`` in every input format and
+    wire (and symmetric pose), bit for bit (the decoded wires: depths and
+    poses); the card's busy share over one ``run_vo``. Training:
+    ``GRAPH_STEPS`` default steps, step 1's loss terms bit for bit,
+    grad_norm and the weights after them to ``TOL_GRAPH_REL``; the
+    captured step's peak memory at most 2× the eager step's; under
+    ``train.deterministic``, in a fresh process, the metrics, weights and
+    Adam moments bit for bit. The loop on each of ``GRAPH_LOADERS`` for
+    ``GRAPH_LOOP_STEPS`` steps with the profiler over 8 replays: the
+    steps are one ``TrainStep``'s replays, its launches the warm-up's plus
+    the captured ones × the replays, the card's busy share and ms/step.
+    Refine: ``refine_keyframe_poses`` on the VO result, bit for bit or
+    within 1e-6. Returns the launches of the phase's programs."""
+    from colvo_torch.runtime import loop as loop_mod
+    from colvo_torch.runtime import make_train_step
+    from colvo_torch.runtime.infer import _coupled_body
+    from colvo_torch.vo import StreamingVO, run_vo
+    from colvo_torch.vo import refine as refine_mod
+    from colvo_torch.vo.stream import _init_body, rgb_to_i420
+
+    t_phase = time.time()
+    on_card = device.type == "cuda"
+    timer = eager_ms if on_card else (lambda fn: (fn(), float("nan"))[1])
+    cfg = ColvoConfig().apply_overrides(list(extra_args))
+    counts, table = Counter(), []
+    gib = lambda b: b / 2**30  # noqa: E731
+
+    # --- serving
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    runner = InferenceRunner(cfg, weights, device=device)
+    u8 = np.asarray(vo_inputs["frames_kf"])
+    f32 = u8.astype(np.float32) / 255.0
+    got = runner.infer_coupled(f32[:4], f32[1:5])
+    with torch.inference_mode():
+        a, b = (torch.from_numpy(x).to(device) for x in (f32[:4], f32[1:5]))
+        want = [t.cpu().numpy() for t in _coupled_body(runner, a, b)]
+        check(all(np.array_equal(g, w) for g, w in zip(got, want)),
+              "infer_coupled: the program's outputs equal its eager body's bit for bit")
+        prog = runner.program(_coupled_body)
+        table.append(("infer_coupled (4 pairs)", timer(lambda: _coupled_body(runner, a, b)),
+                      timer(lambda: prog(a, b))))
+    inputs = {"rgb": list(u8), "i420": list(rgb_to_i420(u8)),
+              "i420full": list(rgb_to_i420(u8, video_range=False))}
+
+    def eager_init(vo, frame):
+        return _init_body(vo.runner, frame, input_format=vo.input_format)
+
+    modes = [(fmt, wire, False) for fmt in inputs for wire in ("float32", "float16", "uint8")]
+    for fmt, wire, sym in modes + [("rgb", "float16", True)]:
+        kw = dict(chunk_size=VO_CHUNK, depth_dtype=wire, input_format=fmt, symmetric_pose=sym)
+        d_g, p_g = StreamingVO(runner, **kw).run(inputs[fmt])
+        with mock.patch.object(StreamingVO, "chunk_step", StreamingVO.chunk_body), \
+                mock.patch.object(StreamingVO, "init_step", eager_init):
+            d_e, p_e = StreamingVO(runner, **kw).run(inputs[fmt])
+        check(np.array_equal(p_g, p_e) and len(d_g) == len(d_e)
+              and all(np.array_equal(x, y) for x, y in zip(d_g, d_e)),
+              f"run_vo {fmt}/{wire}{' symmetric' if sym else ''}: the programs' wires equal "
+              "the eager bodies' bit for bit")
+    with torch.inference_mode():
+        sv = StreamingVO(runner, chunk_size=VO_CHUNK)
+        f0 = torch.from_numpy(u8[:1]).to(device)
+        chunk = torch.from_numpy(np.stack(u8[1:1 + VO_CHUNK])).to(device)
+        table.append(("init_step (1 frame)", timer(lambda: _init_body(runner, f0, "rgb")),
+                      timer(lambda: sv.init_step(f0))))
+        _, ci, cb = (x.clone() for x in sv.init_step(f0))
+        table.append((f"chunk_step ({VO_CHUNK} frames)", timer(lambda: sv.chunk_body(ci, cb, chunk)),
+                      timer(lambda: sv.chunk_step(ci, cb, chunk))))
+    vo_fn = lambda: run_vo(runner, inputs["rgb"], keyframe_every=1, chunk_size=VO_CHUNK)  # noqa
+    busy, wall, _ = busy_share(vo_fn) if on_card else (float("nan"), float("nan"), {})
+    serve_peak = gib(torch.cuda.max_memory_allocated() - held)
+    log(f"graphs, serving ({smi}): infer_coupled and run_vo in {len(modes) + 1} modes (rgb, "
+        f"i420, i420full × float32, float16, uint8; rgb/float16 symmetric) equal their eager "
+        f"bodies bit for bit; one run_vo of {len(u8)} frames: the card busy {busy:.2f} ms of "
+        f"{wall:.2f} ms ({100 * busy / wall:.1f} %, profiled); the runner's programs and runs "
+        f"peaked {serve_peak:.3f} GiB above the {gib(held):.3f} GiB held before them")
+    del runner, prog, sv, ci, cb
+
+    # --- training, the default path: eager steps, then captured ones, from one init
+    def cloned(m):
+        return {k: v.clone() for k, v in m.items()}
+
+    def step_events(fn):
+        if not on_card:
+            return fn(), float("nan")
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn()
+        e1.record()
+        return out, (e0, e1)
+
+    peaks, runs, replay_ms = {}, {}, float("nan")
+    for kind in ("eager", "eager again", "captured"):
+        state = init_state(cfg, device=device)
+        step = make_train_step(state, cfg) if kind == "captured" else (
+            lambda state_, batch: train_step(state_, batch, cfg))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = []
+        for i in range(GRAPH_STEPS):
+            m, ev = step_events(lambda: cloned(step(state, batches[i])))
+            out.append((m, ev))
+            if i == 0:
+                torch.cuda.synchronize()
+                peaks[kind] = gib(torch.cuda.max_memory_allocated())
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for _, (a, b) in out] if on_card else [float("nan")]
+        runs[kind] = ([m for m, _ in out], [p.detach().clone() for p in state.model.parameters()],
+                      ms)
+        if kind == "captured" and on_card:  # after the weights are taken
+            replay_ms = _events_ms(lambda: step(state, batches[GRAPH_STEPS]), GRAPH_TIMED)
+        del state, step, out
+    m_e, w_e, ms_e = runs["eager"]
+    w0 = [p.detach() for p in init_state(cfg, device=device).model.parameters()]
+
+    def apart(kind):
+        """Per step, each metric's relative difference from the eager run's;
+        the largest |Δw| after the steps and ‖Δw‖ over the eager update's
+        norm ‖w − w0‖."""
+        m, w = runs[kind][:2]
+        rel = [{k: abs(a[k].item() - b[k].item()) / max(abs(b[k].item()), 1e-12) for k in b}
+               for a, b in zip(m, m_e)]
+        diff = torch.stack([torch.linalg.vector_norm(p - q) for p, q in zip(w, w_e)])
+        upd = torch.stack([torch.linalg.vector_norm(q - r) for q, r in zip(w_e, w0)])
+        return (rel, max((p - q).abs().max().item() for p, q in zip(w, w_e)),
+                (torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(upd)).item())
+
+    (rel_g, dw_g, nw_g), (rel_e, dw_e, nw_e) = apart("captured"), apart("eager again")
+    m_g, _, ms_g = runs["captured"]
+    w_tol = 2 * GRAPH_STEPS * cfg.train.lr * 1.004
+
+    def worst(rel, i, grad_norm):
+        return max(v for k, v in rel[i].items() if (k == "grad_norm") == grad_norm)
+
+    log(f"graphs, the default step ({smi}), captured against eager by step (a second eager "
+        f"run in brackets): loss terms {[f'{worst(rel_g, i, False):.3g} [{worst(rel_e, i, False):.3g}]' for i in range(GRAPH_STEPS)]}, "
+        f"grad_norm {[f'{worst(rel_g, i, True):.3g} [{worst(rel_e, i, True):.3g}]' for i in range(GRAPH_STEPS)]} "
+        f"relative; the weights after {GRAPH_STEPS} steps max |Δw| {dw_g:.3g} [{dw_e:.3g}] "
+        f"(lr {cfg.train.lr:g}), ‖Δw‖ {nw_g:.3g} [{nw_e:.3g}] of the update's norm; peak memory "
+        f"{peaks['eager']:.2f} GiB eager, {peaks['captured']:.2f} GiB over the first captured "
+        f"call (warm-up, capture, replay); ms a step by CUDA events: eager "
+        f"{[round(t, 2) for t in ms_e]}, captured {[round(t, 2) for t in ms_g]} (the first with "
+        f"its warm-up and capture), {replay_ms:.2f} a replay over {GRAPH_TIMED}")
+    check(all(torch.equal(m_g[0][k], v) for k, v in m_e[0].items() if k != "grad_norm"),
+          "captured step 1's loss terms equal the eager step's bit for bit")
+    check(worst(rel_g, 0, True) <= TOL_GRAPH_STEPS[0]
+          and all(worst(rel_g, i, False) <= TOL_GRAPH_STEPS[i] for i in range(GRAPH_STEPS))
+          and dw_g <= w_tol,
+          f"captured against eager: step 1's grad_norm, the later steps' loss terms within "
+          f"{TOL_GRAPH_STEPS}; the weights within {w_tol:.3g}")
+    check(peaks["captured"] <= 2 * peaks["eager"],
+          f"the captured step's peak {peaks['captured']:.2f} GiB within 2× the eager step's "
+          f"{peaks['eager']:.2f} GiB")
+    table.append(("train step (default)", float(np.median(ms_e[1:])), replay_ms))
+    del runs, m_e, m_g, w_e, w0
+
+    # --- training, deterministic, in a fresh process
+    out = run_child([sys.executable, "-c", GRAPH_DET_CHILD, device.type, str(GRAPH_STEPS),
+                     *extra_args], "graphs phase: deterministic eager and captured steps")
+    det = json.loads(out.rsplit("graph det ", 1)[1].splitlines()[0])
+    check(det["same"], f"{GRAPH_STEPS} deterministic captured steps equal {GRAPH_STEPS} eager "
+          "ones bit for bit (metrics, weights, Adam moments)")
+    counts.update(det["launches"])
+    table.append(("train step (deterministic)", float(np.median(det["ms"]["eager"][1:])),
+                  float(np.median(det["ms"]["captured"][1:]))))
+    log(f"graphs, deterministic ({smi}): {GRAPH_STEPS} captured steps equal {GRAPH_STEPS} eager "
+        f"ones bit for bit in a fresh process; ms by CUDA events: eager {det['ms']['eager']}, "
+        f"captured {det['ms']['captured']}; launches {det['launches']}")
+
+    # --- the loop on each loader, 8 replays under the profiler
+    for loader in GRAPH_LOADERS:
+        lcfg = ColvoConfig().apply_overrides(list(extra_args))
+        lcfg.data.loader = loader
+        lcfg.train.eval_every_epochs = 0
+        lcfg.train.log_every = 1
+        lcfg.train.profile_steps = "{}:{}".format(*GRAPH_LOOP_PROFILE)
+        kinds, starts = [], []
+
+        def timed(step_fn):
+            kinds.append(type(step_fn).__name__)
+
+            def step(*args):
+                starts.append(time.perf_counter())
+                return step_fn(*args)
+            return step
+
+        with tempfile.TemporaryDirectory() as tmp, wrap_step_fns(timed):
+            lcfg.train.ckpt_dir = os.path.join(tmp, "ckpt")
+            reset_launch_counts()
+            loop_mod.train(lcfg, dataset, log_dir=tmp, max_steps=GRAPH_LOOP_STEPS, device=device)
+            got = launch_counts()
+            trace = os.path.join(tmp, "trace_steps_{}_{}.json".format(*GRAPH_LOOP_PROFILE))
+            busy, window = trace_busy(trace) if on_card else (float("nan"), float("nan"))
+        check(kinds == ["TrainStep"], f"the {loader} loader's steps are one program's: {kinds}")
+        want = step_launches(lcfg, GRAPH_LOOP_STEPS + STEP_WARMUP)
+        check(got == want or not on_card, f"{loader} loop launches {got} == {want}")
+        counts.update(got)
+        gaps = [1e3 * (b - a) for a, b in zip(starts, starts[1:])]
+        log(f"graphs, the loop on the {loader} loader ({smi}): {GRAPH_LOOP_STEPS} steps, one "
+            f"captured step's replays; the card busy {busy:.2f} ms of the {window:.2f} ms "
+            "window of steps {}-{} ({:.1f} %, profiled); a step started every {:.2f} ms "
+            "(median of steps 3-{}; all {})".format(
+                *GRAPH_LOOP_PROFILE, 100 * busy / window, float(np.median(gaps[1:])),
+                GRAPH_LOOP_STEPS, [round(g, 1) for g in gaps]))
+
+    # --- refine on the VO result: the program against its body
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, _ = refine_mod.refine_keyframe_poses(**vo_inputs, device=device)
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    got, _ = refine_mod.refine_keyframe_poses(**vo_inputs, device=device)
+    graph_ms = 1e3 * (time.perf_counter() - t0)
+    counts.update(launch_counts())
+    with mock.patch.object(refine_mod, "_refine", refine_mod._refine_body):
+        refine_mod.refine_keyframe_poses(**vo_inputs, device=device)
+        t0 = time.perf_counter()
+        want, _ = refine_mod.refine_keyframe_poses(**vo_inputs, device=device)
+        eager_call_ms = 1e3 * (time.perf_counter() - t0)
+    err = float(np.abs(got - want).max())
+    check(err <= 1e-6, f"refine_keyframe_poses: the program's poses within 1e-6 of the eager "
+          f"body's ({err:.3g})")
+    pairs = len(vo_inputs["keyframe_ids"]) - 1
+    table.append((f"refine_keyframe_poses ({pairs} pairs; host clock)", eager_call_ms, graph_ms))
+    log(f"graphs, refine ({smi}): the program's poses {err:.3g} from the eager body's (max "
+        f"abs); a call {graph_ms:.1f} ms (host clock, synchronised), eager {eager_call_ms:.1f} "
+        f"ms; the first call in this phase {first_ms:.1f} ms")
+
+    log(f"graphs ({smi}): program, eager body ms, program ms (CUDA events unless said)")
+    for name, eager, graphed in table:
+        log(f"  {name:58s} {eager:9.3f} {graphed:9.3f}")
+    log(f"graphs phase: {time.time() - t_phase:.1f} s")
     return counts
 
 
@@ -2961,6 +3361,8 @@ def main() -> int:
     serving_cli_phase(device, smi, serve_weights)
     log("--- refine: keyframe pose refinement ---")
     counts.update(refine_phase(device, smi, refine_inputs))
+    log("--- graphs: each captured program against its eager body ---")
+    counts.update(graphs_phase(device, smi, serve_weights, batches, dataset, refine_inputs))
 
     # Nothing of JAX came in, not even through a library the port imports.
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "colvo"))

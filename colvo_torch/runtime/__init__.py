@@ -16,6 +16,7 @@ from colvo_torch.runtime.train_step import (
     learning_rate_t,
     loss_fn,
     make_scan_train,
+    make_train_step,
     to_device,
     train_step,
 )
@@ -25,6 +26,7 @@ __all__ = [
     "init_state",
     "train_step",
     "make_scan_train",
+    "make_train_step",
     "loss_fn",
     "learning_rate",
     "geo_scale",

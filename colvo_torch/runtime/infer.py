@@ -1,9 +1,14 @@
 """Inference runner (port of ``colvo/runtime/infer.py``): depth, pose and
-coupled depth+pose over trained weights, moved to the device once."""
+coupled depth+pose over trained weights, moved to the device once.
+
+Each function is one program (``runtime.graphs``), as the reference jits
+``_depth``, ``_pose`` and ``_coupled``: on CUDA a CUDA graph captured once
+a batch shape and replayed at every later call."""
 
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from functools import partial
+from typing import Callable, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -12,6 +17,46 @@ from colvo_torch import resolve_device
 from colvo_torch.config import ColvoConfig
 from colvo_torch.geometry import disp_to_depth
 from colvo_torch.models import ColVOModel
+from colvo_torch.runtime.graphs import Graphed
+
+
+def _nchw(imgs: torch.Tensor) -> torch.Tensor:
+    return imgs.permute(0, 3, 1, 2).contiguous()
+
+
+def _depth_of(runner: "InferenceRunner", disp: torch.Tensor) -> torch.Tensor:
+    m = runner.cfg.model
+    return disp_to_depth(disp[:, 0], m.min_depth, m.max_depth)[1]
+
+
+def _depth_body(runner: "InferenceRunner", imgs: torch.Tensor):
+    disps, _ = runner.model.depth(_nchw(imgs))
+    return _depth_of(runner, disps[0]), disps[0][:, 0]
+
+
+def _pair(runner: "InferenceRunner", img_a: torch.Tensor, img_b: torch.Tensor):
+    a, b = _nchw(img_a), _nchw(img_b)
+    # Both frames' depth in one batched pass (GroupNorm is per-sample).
+    disps, feats = runner.model.depth(torch.cat([a, b]))
+    fa, fb = feats.chunk(2)
+    aa, tr = runner.model.pose(a, b, [fa, fb] if runner.cfg.model.dcdp_fusion else None)
+    return disps[0].chunk(2), aa, tr
+
+
+def _pose_body(runner: "InferenceRunner", img_a: torch.Tensor, img_b: torch.Tensor):
+    _, aa, tr = _pair(runner, img_a, img_b)
+    return torch.cat([aa, tr], dim=-1)
+
+
+def _coupled_body(runner: "InferenceRunner", img_a: torch.Tensor, img_b: torch.Tensor):
+    (da, db), aa, tr = _pair(runner, img_a, img_b)
+    return _depth_of(runner, da), _depth_of(runner, db), aa, tr
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    """A program's output as a fresh host array (the next call overwrites
+    the output)."""
+    return x.to("cpu", copy=True).numpy()
 
 
 class InferenceRunner:
@@ -28,38 +73,34 @@ class InferenceRunner:
         self.model = ColVOModel(cfg.model)
         self.model.load_state_dict(state_dict)
         self.model.to(self.device).eval()
+        self._programs: Dict[Callable, Graphed] = {}
 
-    def _nchw(self, imgs: np.ndarray) -> torch.Tensor:
-        x = torch.as_tensor(np.asarray(imgs), dtype=torch.float32).to(self.device)
-        return x.permute(0, 3, 1, 2).contiguous()
+    def program(self, body: Callable) -> Graphed:
+        """``body(runner, ...)`` over this runner's weights as a program
+        (``runtime.graphs.Graphed``, inputs copied to the runner's device),
+        made once a body: its graphs live as long as the runner."""
+        prog = self._programs.get(body)
+        if prog is None:
+            prog = self._programs[body] = Graphed(partial(body, self), device=self.device)
+        return prog
 
-    def _depth(self, disp: torch.Tensor) -> torch.Tensor:
-        m = self.cfg.model
-        return disp_to_depth(disp[:, 0], m.min_depth, m.max_depth)[1]
+    @staticmethod
+    def _frames(imgs: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(imgs), dtype=torch.float32)
 
     @torch.inference_mode()
     def infer_depth(self, imgs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """(B, H, W, 3) → (depth (B, H, W), disp (B, H, W))."""
-        disps, _ = self.model.depth(self._nchw(imgs))
-        return self._depth(disps[0]).cpu().numpy(), disps[0][:, 0].cpu().numpy()
-
-    def _pair(self, img_a: np.ndarray, img_b: np.ndarray):
-        a, b = self._nchw(img_a), self._nchw(img_b)
-        # Both frames' depth in one batched pass (GroupNorm is per-sample).
-        disps, feats = self.model.depth(torch.cat([a, b]))
-        fa, fb = feats.chunk(2)
-        aa, tr = self.model.pose(a, b, [fa, fb] if self.cfg.model.dcdp_fusion else None)
-        return disps[0].chunk(2), aa, tr
+        depth, disp = self.program(_depth_body)(self._frames(imgs))
+        return _host(depth), _host(disp)
 
     @torch.inference_mode()
     def infer_pose(self, img_a: np.ndarray, img_b: np.ndarray) -> np.ndarray:
         """Two frame batches → (B, 6) pose params (axisangle, translation)."""
-        _, aa, tr = self._pair(img_a, img_b)
-        return torch.cat([aa, tr], dim=-1).cpu().numpy()
+        return _host(self.program(_pose_body)(self._frames(img_a), self._frames(img_b)))
 
     @torch.inference_mode()
     def infer_coupled(self, img_a: np.ndarray, img_b: np.ndarray):
         """Fused depth+pose for streaming VO: (depth_a, depth_b, aa, tr)."""
-        (da, db), aa, tr = self._pair(img_a, img_b)
-        out = (self._depth(da), self._depth(db), aa, tr)
-        return tuple(o.cpu().numpy() for o in out)
+        out = self.program(_coupled_body)(self._frames(img_a), self._frames(img_b))
+        return tuple(_host(o) for o in out)

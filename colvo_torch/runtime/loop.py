@@ -9,7 +9,9 @@ detect-and-restart, the profiler window and the eval hook. Under a
 ranks (``runtime.mesh``): each rank trains on its rows of the global
 batch, and rank 0 alone writes checkpoints, metrics, traces and the eval
 hook's output. ``train.deterministic`` runs it bitwise reproducibly
-(``deterministic_mode``). No step of the loop
+(``deterministic_mode``). Each step is one replay of the captured step
+(``make_step_fn``), but under a mesh of more than one rank and under
+``train.debug_nans``, which run it eagerly. No step of the loop
 waits for the device, except the bounded dispatch-ahead drain, the one
 fetch of the restart check, the eval hook and the end of the run.
 """
@@ -34,7 +36,7 @@ from colvo_torch.data.prefetch import prefetch_to_device
 from colvo_torch.runtime.checkpoint import CheckpointManager
 from colvo_torch.runtime.mesh import cross_process_barrier, make_mesh, replicate_tree, shard_batch
 from colvo_torch.runtime.metrics import AsyncMetricsLogger, DeviceScalars, MetricsWriter
-from colvo_torch.runtime.train_step import init_state, train_step
+from colvo_torch.runtime.train_step import init_state, make_train_step, train_step
 
 # Host→device prefetch depth of the host-side loaders. The grain
 # iterator's state history is sized from it.
@@ -114,6 +116,26 @@ def deterministic_mode(on: bool):
         torch.use_deterministic_algorithms(saved[4], warn_only=saved[5])
         if saved[-1] is None:
             os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+
+
+def make_step_fn(state, cfg: ColvoConfig) -> Callable:
+    """The loop's step function ``(state, batch) → metrics`` for ``state``:
+    the captured step of ``make_train_step`` (a CUDA graph on the card),
+    except in two cases, each of which runs ``train_step`` eagerly:
+
+    * a mesh of more than one rank: the loss's ~34 scalar all-reduces go
+      through gloo or NCCL a step, and gloo cannot be captured;
+    * ``train.debug_nans``: anomaly mode checks every backward op's output
+      on the host.
+    """
+    def eager(state, batch):
+        return train_step(state, batch, cfg)
+
+    if state.mesh is not None and state.mesh.size > 1:
+        return eager
+    if cfg.train.debug_nans:
+        return eager
+    return make_train_step(state, cfg)
 
 
 def _train(cfg, dataset, log_dir, max_steps, eval_hook, eval_hook_factory, resume, device):
@@ -197,6 +219,9 @@ def _train(cfg, dataset, log_dir, max_steps, eval_hook, eval_hook_factory, resum
     else:
         stream = prefetch_to_device(rows, size=_PREFETCH, device=device)
 
+    # Made after the restore: the step's graph holds this state's tensors,
+    # and its device counter starts from the restored step.
+    step_fn = make_step_fn(state, cfg)
     step = start_step
     inflight: deque = deque()  # (step, DeviceScalars) awaiting retirement
 
@@ -231,7 +256,7 @@ def _train(cfg, dataset, log_dir, max_steps, eval_hook, eval_hook_factory, resum
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
                 prof = torch.profiler.profile(activities=activities)
                 prof.start()
-            metrics = train_step(state, batch, cfg)
+            metrics = step_fn(state, batch)
             step += 1
             consumed += 1
 
@@ -284,10 +309,12 @@ def _train(cfg, dataset, log_dir, max_steps, eval_hook, eval_hook_factory, resum
                           f"at step {step}; reinit with seed {new_seed}",
                           flush=True)
                     inflight.clear()  # the discarded attempt's fetches
+                    del step_fn, metrics  # the old graph holds the old model's tensors
                     state = init_state(cfg, seed=new_seed, device=device,
                                        steps_per_epoch=steps_per_epoch)
                     state.mesh = mesh
                     replicate_tree(state.model, mesh)
+                    step_fn = make_step_fn(state, cfg)
                     if lead:
                         ckpt.reset()  # on the checkpoint worker, after earlier saves
                     step = 0

@@ -6,17 +6,19 @@ linear warmup) and the geo-weight ramp. Parameters are float32; convs
 compute in ``model.dtype``. The step updates the model and optimizer in
 place (PyTorch style) and returns device tensors without synchronising.
 
+``make_train_step`` is the step as one program: on CUDA a CUDA graph,
+captured once a batch shape and replayed once a call (``runtime.graphs``).
 ``make_scan_train`` folds K such steps over a device-resident corpus into
-one chunk; on CUDA the chunk is one CUDA graph, replayed once a call. On
-CUDA, Adam (``optim.Adam``) is capturable and reads its learning rate from
-a device tensor, so no step reads a host scalar.
+one chunk, one CUDA graph replayed once a call. On CUDA, Adam
+(``optim.Adam``) is capturable and reads its learning rate from a device
+tensor, so no step reads a host scalar. ``train_step`` is the eager step,
+the body both capture.
 """
 
 from __future__ import annotations
 
-from collections import Counter
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,14 +26,11 @@ import torch
 from colvo_torch import resolve_device
 from colvo_torch.config import ColvoConfig
 from colvo_torch.data.device_store import device_augment, gather
-from colvo_torch.kernels import add_launch_counts, launch_counts, reset_launch_counts
 from colvo_torch.losses import snippet_loss
 from colvo_torch.models import ColVOModel
+from colvo_torch.runtime.graphs import Graphed
 from colvo_torch.runtime.mesh import Mesh
 from colvo_torch.runtime.optim import Adam
-
-# Eager steps a chunk runs on a side stream before its capture.
-_WARMUP_STEPS = 2
 
 
 @dataclass
@@ -195,6 +194,74 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
     return metrics
 
 
+def _mutable(state: TrainState, counter: torch.Tensor) -> List[torch.Tensor]:
+    """The tensors a step updates in place: the weights, every tensor of the
+    optimizer's state and parameter groups, and the device step counter."""
+    opt = state.optimizer
+    out = list(state.model.parameters())
+    out += [v for st in opt.state.values() for v in st.values() if isinstance(v, torch.Tensor)]
+    out += [g["lr"] for g in opt.param_groups if isinstance(g["lr"], torch.Tensor)]
+    return out + [counter]
+
+
+class TrainStep:
+    """One train step as a captured program; see ``make_train_step``.
+
+    Attributes:
+        step: the int64 device step counter the learning rate and the geo
+            ramp are computed from; set to ``state.step`` before each call.
+        program: the captured ``_update`` (``runtime.graphs.Graphed``).
+    """
+
+    def __init__(self, state: TrainState, cfg: ColvoConfig):
+        if state.mesh is not None and state.mesh.size > 1:
+            raise ValueError("make_train_step captures one rank's step; under a mesh of "
+                             f"{state.mesh.size} ranks the loss all-reduces through the host")
+        self.state, self.cfg = state, cfg
+        self.device = next(state.model.parameters()).device
+        self.step = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.program = Graphed(self._body, device=self.device,
+                               state=lambda: _mutable(self.state, self.step))
+
+    def _body(self, batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        cfg, state = self.cfg, self.state
+        return _update(state, batch, cfg, geo_scale_t(cfg, self.step),
+                       learning_rate_t(cfg, self.step, state.steps_per_epoch),
+                       set_to_none=False)
+
+    def __call__(self, state: TrainState, batch: Mapping[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+        if state is not self.state:
+            raise ValueError("a train step trains the state it was made for")
+        self.step.fill_(state.step)
+        metrics = self.program(dict(batch))
+        state.step += 1
+        return metrics
+
+
+def make_train_step(state: TrainState, cfg: ColvoConfig) -> TrainStep:
+    """The train step as one program (port of
+    ``colvo/runtime/train_step.py::make_train_step``, a ``jax.jit`` with the
+    state donated).
+
+    Returns ``step_fn(state, batch) → metrics``: the step of ``train_step``
+    on ``batch`` ({frames, frames_clean, k}), with the learning rate and
+    the geo ramp computed on the device from an int64 counter set to
+    ``state.step``, and the gradients zeroed in place. On CUDA the first
+    call of a batch shape warms up once on a side stream, puts back the
+    weights, Adam's moments and the counter, and captures the step into a
+    ``torch.cuda.CUDAGraph``; every call copies the batch into the graph's
+    static inputs and replays it (``runtime.graphs``). The metrics are the
+    graph's static outputs: the next call overwrites them, so a caller that
+    keeps them past it copies them. ``step_fn`` trains the state it was
+    made for; a new state (a restart) needs a new ``step_fn``. A capture
+    that fails raises. Under a mesh of more than one rank it raises: the
+    loss's all-reduces go through the host there, and ``train_step`` runs
+    eagerly (``runtime/loop.py``).
+    """
+    return TrainStep(state, cfg)
+
+
 class ScanTrain:
     """K train steps over a device-resident corpus as one chunk; see
     ``make_scan_train``.
@@ -203,7 +270,6 @@ class ScanTrain:
         step: the chunk's int64 step counter on the device; each step's
             learning rate and geo ramp are computed from it.
         indices: (n_steps, B) int64, the snippets the last chunk drew.
-        captured_launches: the kernel launches of one replay (CUDA).
     """
 
     def __init__(self, state: TrainState, cfg: ColvoConfig, n_steps: int):
@@ -215,20 +281,31 @@ class ScanTrain:
         self.step = torch.zeros((), dtype=torch.int64, device=self.device)
         self.indices = torch.zeros((n_steps, cfg.data.batch_size), dtype=torch.int64,
                                    device=self.device)
-        self.captured_launches: Dict[str, int] = {}
-        self.graph = None
+        self.program: Optional[Graphed] = None
         self._inputs: Tuple = ()
-        self._metrics: Dict[str, torch.Tensor] = {}
+
+    @property
+    def graph(self) -> Optional[torch.cuda.CUDAGraph]:
+        """The chunk's CUDA graph once captured (None before, and on the CPU)."""
+        progs = list(self.program.programs.values()) if self.program else []
+        return progs[0].graph if progs else None
+
+    @property
+    def captured_launches(self) -> Dict[str, int]:
+        """The kernel launches of one replay (CUDA)."""
+        progs = list(self.program.programs.values()) if self.program else []
+        return progs[0].launches if progs else {}
 
     def _steps(self, frames_u8: torch.Tensor, table: torch.Tensor, k: torch.Tensor,
-               generator: torch.Generator, n: int) -> Dict[str, torch.Tensor]:
-        """``n`` steps, each: B snippet indices drawn with replacement, the
-        uint8 gather and scale, the augmentation, forward, loss, backward,
-        clip, Adam; the device counter advances. The gradients are zeroed
-        in place, not freed, so that a capture reuses their memory."""
+               generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """``n_steps`` steps, each: B snippet indices drawn with replacement,
+        the uint8 gather and scale, the augmentation, forward, loss,
+        backward, clip, Adam; the device counter advances. The gradients
+        are zeroed in place, not freed, so that a capture reuses their
+        memory."""
         cfg, state = self.cfg, self.state
         out = []
-        for i in range(n):
+        for i in range(self.n_steps):
             idx = torch.randint(0, table.shape[0], (cfg.data.batch_size,), generator=generator,
                                 device=self.device)
             self.indices[i].copy_(idx)
@@ -242,68 +319,23 @@ class ScanTrain:
             self.step.add_(1)
         return {key: torch.stack([m[key] for m in out]) for key in out[0]}
 
-    def _capture(self, frames_u8, table, k, generator) -> None:
-        """Warm up on a side stream (kernel builds, cuDNN's choices, the
-        gradients and Adam's moments come into being), put back the
-        weights, the moments and the generator, then capture ``n_steps``
-        steps into one graph. The capture launches nothing, so the launch
-        counters are set back to what they read before it. A failed
-        capture raises."""
-        state = self.state
-        params = list(state.model.parameters())
-        opt = state.optimizer
-        weights = [p.detach().clone() for p in params]
-        moments = {p: {key: v.clone() for key, v in opt.state[p].items()}
-                   for p in params if p in opt.state}
-        rng = generator.get_state()
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self.step.fill_(state.step)
-            self._steps(frames_u8, table, k, generator, _WARMUP_STEPS)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        with torch.no_grad():
-            for p, w in zip(params, weights):
-                p.copy_(w)
-            for p in params:  # a moment made by the warm-up starts at zero
-                for key, v in opt.state[p].items():
-                    if p in moments:
-                        v.copy_(moments[p][key])
-                    else:
-                        v.zero_()
-        generator.set_state(rng)
-        del weights, moments
-
-        graph = torch.cuda.CUDAGraph()
-        if hasattr(graph, "register_generator_state"):
-            graph.register_generator_state(generator)
-        self.step.fill_(state.step)
-        before = launch_counts()
-        with torch.cuda.graph(graph):
-            self._metrics = self._steps(frames_u8, table, k, generator, self.n_steps)
-        self.captured_launches = dict(Counter(launch_counts()) - Counter(before))
-        reset_launch_counts()
-        add_launch_counts(before)
-        self.graph, self._inputs = graph, (frames_u8, table, k, generator)
-
     def __call__(self, state: TrainState, frames_u8: torch.Tensor, table: torch.Tensor,
                  k: torch.Tensor, generator: torch.Generator):
         if state is not self.state:
             raise ValueError("a chunk trains the state it was made for")
         inputs = (frames_u8, table, k, generator)
-        if self.device.type != "cuda":
-            self.step.fill_(state.step)
-            metrics = self._steps(*inputs, self.n_steps)
-        else:
-            if self.graph is None:
-                self._capture(*inputs)
-            elif any(a is not b for a, b in zip(inputs, self._inputs)):
-                raise ValueError("a captured chunk reads the frames, table, k and generator "
-                                 "it was captured with")
-            self.step.fill_(state.step)
-            self.graph.replay()
-            add_launch_counts(self.captured_launches)
-            metrics = {key: v.clone() for key, v in self._metrics.items()}
+        if self.program is None:
+            # The corpus is read where it lies (it is not copied a call), so
+            # the program is bound to these tensors and this generator.
+            self._inputs = inputs
+            self.program = Graphed(lambda: self._steps(*inputs), device=self.device,
+                                   state=lambda: _mutable(self.state, self.step),
+                                   generators=(generator,))
+        elif any(a is not b for a, b in zip(inputs, self._inputs)):
+            raise ValueError("a captured chunk reads the frames, table, k and generator "
+                             "it was captured with")
+        self.step.fill_(state.step)
+        metrics = {key: v.clone() for key, v in self.program().items()}
         state.step += self.n_steps
         return state, metrics
 
@@ -321,13 +353,14 @@ def make_scan_train(state: TrainState, cfg: ColvoConfig, n_steps: int) -> ScanTr
     learning rate and the geo ramp computed on the device from the chunk's
     step counter.
 
-    On CUDA the first call warms up on a side stream, restores the state,
-    captures the ``n_steps`` steps into one ``torch.cuda.CUDAGraph`` (with
-    ``generator`` registered with it) and replays it; each later call is
-    one replay, so the host dispatches once a chunk, as the reference's
-    jitted scan does. The graph reads the tensors it was captured with:
-    later calls pass the same state, frames, table, k and generator. A
-    capture that fails raises; nothing falls back to eager steps. On the
-    CPU the same steps run eagerly.
+    On CUDA the first call warms up one chunk on a side stream, restores
+    the state and the generator, captures the ``n_steps`` steps into one
+    ``torch.cuda.CUDAGraph`` (with ``generator`` registered with it) and
+    replays it (``runtime.graphs``); each later call is one replay, so the
+    host dispatches once a chunk, as the reference's jitted scan does. The
+    program reads the tensors of the first call: later calls pass the same
+    state, frames, table, k and generator. A capture that fails raises;
+    nothing falls back to eager steps. On the CPU the same steps run
+    eagerly. The metrics are the caller's own copies.
     """
     return ScanTrain(state, cfg, n_steps)

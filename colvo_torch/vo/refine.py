@@ -13,7 +13,8 @@ the refined keyframe poses.
 
 On a CUDA device each loss evaluation under the gradient launches S twice
 (the frame, C=3, and the depth, C=1); the residuals before and after
-launch its value-only form.
+launch its value-only form. A call of a batch shape is one replay of a
+CUDA graph (``runtime.graphs``) that holds every iteration.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from colvo_torch.geometry.ops import _valid_mask
 from colvo_torch.geometry.se3 import se3_exp
 from colvo_torch.kernels import bilinear_sample_fast
 from colvo_torch.losses.photometric import lcc_calibrate, photometric_error
+from colvo_torch.runtime.graphs import Graphed
 from colvo_torch.runtime.optim import Adam
 
 
@@ -62,17 +64,19 @@ def _segment_loss(delta6, rel_init, frame_i, frame_j, depth_i, depth_j, k, k_inv
     return torch.mean(per_pair), per_pair
 
 
-def _refine(rel_init, frame_i, frame_j, depth_i, depth_j, k, iters: int = 40,
-            lr: float = 1e-3, geo_weight: float = 0.5):
+def _refine_body(rel_init, frame_i, frame_j, depth_i, depth_j, k, iters: int = 40,
+                 lr: float = 1e-3, geo_weight: float = 0.5):
     """``colvo/vo/refine.py::_refine_jit``: ``iters`` Adam steps on the
     delta, then a pair keeps its refined pose only where the residual fell
     (a diverged trajectory must not poison the chain). Returns (refined
-    (M, 4, 4) transforms, mean residual before, mean of the kept residuals)."""
-    k_inv = torch.linalg.inv(k)
+    (M, 4, 4) transforms, mean residual before, mean of the kept residuals).
+    The delta and Adam's moments are made here, so every call starts from
+    zero; nothing is read on the host."""
+    k_inv = torch.linalg.inv_ex(k).inverse
     args = (rel_init, frame_i, frame_j, depth_i, depth_j, k, k_inv, geo_weight)
     delta = torch.zeros((rel_init.shape[0], 6), dtype=torch.float32, device=k.device,
                         requires_grad=True)
-    opt = Adam([delta], lr=lr)
+    opt = Adam([delta], lr=lr, capturable=k.is_cuda)
     for _ in range(iters):
         opt.zero_grad(set_to_none=True)
         _segment_loss(delta, *args)[0].backward()
@@ -84,6 +88,13 @@ def _refine(rel_init, frame_i, frame_j, depth_i, depth_j, k, iters: int = 40,
         kept = torch.where(keep, delta, torch.zeros_like(delta))
         t_ref = torch.einsum("mij,mjk->mik", se3_exp(kept), rel_init)
     return t_ref, torch.mean(res0), torch.mean(torch.minimum(res0, res1))
+
+
+# The refinement as one program, as the reference jits ``_refine_jit``: on
+# CUDA one CUDA graph a (batch shape, iters, lr, geo_weight) holds all the
+# Adam iterations and the keep-or-reject step, kept for the process as
+# jit's cache is. Its outputs are overwritten by the next call.
+_refine = Graphed(_refine_body)
 
 
 def refine_keyframe_poses(
@@ -146,7 +157,7 @@ def refine_keyframe_poses(
 
         t_ref, r0, r1 = _refine(p(rel), p(frames_kf[:-1]), p(frames_kf[1:]), p(d[:-1]),
                                 p(d[1:]), k_t, iters=iters, lr=lr, geo_weight=geo_weight)
-        t_ref_all.append(t_ref.cpu().numpy()[: e - s])
+        t_ref_all.append(t_ref.to("cpu", copy=True).numpy()[: e - s])
         res0_all.append(float(r0))
         res1_all.append(float(r1))
     t_ref = np.concatenate(t_ref_all)

@@ -12,6 +12,11 @@ A colonoscopy video streams through in chunks of ``chunk_size`` frames:
   frame) and its float32 poses go back in one wire buffer, bit-cast into
   bytes on the device, so a chunk makes one device→host copy; poses are
   never rounded;
+* the first frame's step and the chunk step are each one program
+  (``runtime.graphs``), as the reference jits ``init_fn`` and ``chunk_fn``:
+  on a CUDA device a CUDA graph a (chunk shape, input format, wire dtype,
+  symmetric pose), kept on the runner and replayed once a chunk; the last
+  chunk is padded, so a stream replays one graph;
 * on a CUDA device, a chunk's host→device copy runs from pinned memory on
   a copy stream, the wire's device→host copy lands in pinned memory behind
   a recorded event, and fetch threads decode it; at most ``max_in_flight``
@@ -106,6 +111,67 @@ def normalize(frames: torch.Tensor, input_format: str = "rgb") -> torch.Tensor:
     return imgs.contiguous()
 
 
+def _sdisp(runner: InferenceRunner, disps) -> torch.Tensor:
+    """Scaled disparity (B, H, W) of the finest scale; depth = 1/sdisp."""
+    m = runner.cfg.model
+    return disp_to_depth(disps[0][:, 0], m.min_depth, m.max_depth)[0]
+
+
+def _init_body(runner: InferenceRunner, frame: torch.Tensor, input_format: str):
+    """The first frame (1, …) on the device → (float32 depth (1, H, W),
+    carry image, carry bottleneck)."""
+    img = normalize(frame, input_format)
+    disps, bneck = runner.model.depth(img)
+    return 1.0 / _sdisp(runner, disps), img, bneck
+
+
+def _chunk_body(runner: InferenceRunner, carry_img: torch.Tensor, carry_bneck: torch.Tensor,
+                frames: torch.Tensor, input_format: str, wire_dtype: torch.dtype,
+                symmetric_pose: bool):
+    """W new frames on the device → (uint8 wire, next carry image, next
+    carry bottleneck). Pairs are (carry→f0, f0→f1, …)."""
+    model, w = runner.model, frames.shape[0]
+    imgs = normalize(frames, input_format)
+    # Compute dtype: frames enter the model as float32 and each conv
+    # casts to its compute dtype (bf16 on the card), so the carried
+    # float32 image concatenates with this chunk's float32 frames.
+    disps, bnecks = model.depth(imgs)
+    img_a = torch.cat([carry_img, imgs[:-1]])
+    bneck_a = torch.cat([carry_bneck, bnecks[:-1]])
+    fuse = runner.cfg.model.dcdp_fusion
+    if symmetric_pose:
+        # Forward and reversed readings as one batch of 2W pairs
+        # (GroupNorm is per sample, so batching changes nothing).
+        feats = [torch.cat([bneck_a, bnecks]), torch.cat([bnecks, bneck_a])]
+        aa, tr = model.pose(torch.cat([img_a, imgs]), torch.cat([imgs, img_a]),
+                            feats if fuse else None)
+        aa, tr = 0.5 * (aa[:w] - aa[w:]), tr[:w]
+    else:
+        aa, tr = model.pose(img_a, imgs, [bneck_a, bnecks] if fuse else None)
+    pose6 = torch.cat([aa, tr], dim=-1).float()
+    # The carry: clones, so that it shares memory with nothing the next
+    # chunk writes.
+    return (_pack(_sdisp(runner, disps), pose6, wire_dtype), imgs[-1:].clone(),
+            bnecks[-1:].clone())
+
+
+def _pack(sdisp: torch.Tensor, pose6: torch.Tensor, wire_dtype: torch.dtype) -> torch.Tensor:
+    """Depths and poses → one flat uint8 buffer, by bit-casts."""
+    if wire_dtype == torch.uint8:
+        # per-frame linear quantisation in disparity space; (lo, step)
+        # ride along as float32
+        lo = sdisp.amin(dim=(1, 2))
+        span = sdisp.amax(dim=(1, 2)) - lo
+        step = torch.clamp(span / 255.0, min=1e-12)
+        # Clip before the cast: rounding can push the top bin a hair
+        # past 255, and an unclipped uint8 cast would wrap it to 0.
+        q = torch.round((sdisp - lo[:, None, None]) / step[:, None, None])
+        parts = [q.clamp(0, 255).to(torch.uint8), torch.stack([lo, step], dim=-1), pose6]
+    else:
+        parts = [(1.0 / sdisp).to(wire_dtype), pose6]
+    return torch.cat([p.reshape(-1).view(torch.uint8) for p in parts])
+
+
 class StreamingVO:
     """Chunked streaming depth + pose over an :class:`InferenceRunner`, on
     the runner's device.
@@ -149,60 +215,30 @@ class StreamingVO:
 
     # --- the device steps ------------------------------------------------
 
-    def _sdisp(self, disps) -> torch.Tensor:
-        """Scaled disparity (B, H, W) of the finest scale; depth = 1/sdisp."""
-        m = self.runner.cfg.model
-        return disp_to_depth(disps[0][:, 0], m.min_depth, m.max_depth)[0]
+    def _static(self) -> dict:
+        return {"input_format": self.input_format, "wire_dtype": self.wire_dtype,
+                "symmetric_pose": self.symmetric_pose}
 
     def init_step(self, frame: torch.Tensor):
-        """The first frame (1, …) on the device → (float32 depth (1, H, W),
-        carry image, carry bottleneck)."""
-        img = normalize(frame, self.input_format)
-        disps, bneck = self.runner.model.depth(img)
-        return 1.0 / self._sdisp(disps), img, bneck
+        """The first frame (1, …) → (float32 depth (1, H, W), carry image,
+        carry bottleneck): one replay of the runner's ``_init_body`` program
+        (``runtime.graphs``); the next init step overwrites them."""
+        return self.runner.program(_init_body)(frame, input_format=self.input_format)
 
     def chunk_step(self, carry_img: torch.Tensor, carry_bneck: torch.Tensor,
                    frames: torch.Tensor):
-        """W new frames on the device → (uint8 wire, next carry image, next
-        carry bottleneck). Pairs are (carry→f0, f0→f1, …)."""
-        model, w = self.runner.model, frames.shape[0]
-        imgs = normalize(frames, self.input_format)
-        # Compute dtype: frames enter the model as float32 and each conv
-        # casts to its compute dtype (bf16 on the card), so the carried
-        # float32 image concatenates with this chunk's float32 frames.
-        disps, bnecks = model.depth(imgs)
-        img_a = torch.cat([carry_img, imgs[:-1]])
-        bneck_a = torch.cat([carry_bneck, bnecks[:-1]])
-        fuse = self.runner.cfg.model.dcdp_fusion
-        if self.symmetric_pose:
-            # Forward and reversed readings as one batch of 2W pairs
-            # (GroupNorm is per sample, so batching changes nothing).
-            feats = [torch.cat([bneck_a, bnecks]), torch.cat([bnecks, bneck_a])]
-            aa, tr = model.pose(torch.cat([img_a, imgs]), torch.cat([imgs, img_a]),
-                                feats if fuse else None)
-            aa, tr = 0.5 * (aa[:w] - aa[w:]), tr[:w]
-        else:
-            aa, tr = model.pose(img_a, imgs, [bneck_a, bnecks] if fuse else None)
-        pose6 = torch.cat([aa, tr], dim=-1).float()
-        # The carry: clones, so that it keeps neither this chunk's buffers
-        # alive nor shares memory with anything the next chunk writes.
-        return self._pack(self._sdisp(disps), pose6), imgs[-1:].clone(), bnecks[-1:].clone()
+        """W new frames → (uint8 wire, next carry image, next carry
+        bottleneck): one replay of the runner's ``_chunk_body`` program, one
+        graph per (chunk shape, input format, wire dtype, symmetric pose).
+        The outputs are the program's static outputs, which the next chunk
+        step overwrites; the carry goes straight back in."""
+        return self.runner.program(_chunk_body)(carry_img, carry_bneck, frames,
+                                                **self._static())
 
-    def _pack(self, sdisp: torch.Tensor, pose6: torch.Tensor) -> torch.Tensor:
-        """Depths and poses → one flat uint8 buffer, by bit-casts."""
-        if self.wire_dtype == torch.uint8:
-            # per-frame linear quantisation in disparity space; (lo, step)
-            # ride along as float32
-            lo = sdisp.amin(dim=(1, 2))
-            span = sdisp.amax(dim=(1, 2)) - lo
-            step = torch.clamp(span / 255.0, min=1e-12)
-            # Clip before the cast: rounding can push the top bin a hair
-            # past 255, and an unclipped uint8 cast would wrap it to 0.
-            q = torch.round((sdisp - lo[:, None, None]) / step[:, None, None])
-            parts = [q.clamp(0, 255).to(torch.uint8), torch.stack([lo, step], dim=-1), pose6]
-        else:
-            parts = [(1.0 / sdisp).to(self.wire_dtype), pose6]
-        return torch.cat([p.reshape(-1).view(torch.uint8) for p in parts])
+    def chunk_body(self, carry_img: torch.Tensor, carry_bneck: torch.Tensor,
+                   frames: torch.Tensor):
+        """``chunk_step``'s body, run eagerly."""
+        return _chunk_body(self.runner, carry_img, carry_bneck, frames, **self._static())
 
     # --- the host side ---------------------------------------------------
 
@@ -295,12 +331,16 @@ class StreamingVO:
                     drain(pending.popleft())
                 dev = pipe.upload(k, chunk) if pipe else torch.from_numpy(np.stack(chunk))
                 wire, carry_img, carry_bneck = self.chunk_step(carry_img, carry_bneck, dev)
-                buf, event = pipe.download(k, wire) if pipe else (wire, None)
+                # The wire is the program's static output, which the next
+                # chunk overwrites: on the card its copy to the host is
+                # queued before that replay; on the CPU a fetch thread
+                # decodes it meanwhile, so it takes a copy.
+                buf, event = pipe.download(k, wire) if pipe else (wire.clone(), None)
                 pending.append(pool.submit(fetch, buf, event, n_valid))
             while pending:
                 drain(pending.popleft())
 
-        all_depths = [d0[0].cpu().numpy()] + depths if keep_depths else []
+        all_depths = [d0[0].to("cpu", copy=True).numpy()] + depths if keep_depths else []
         rel = np.concatenate(poses) if poses else np.zeros((0, 6), np.float32)
         return all_depths, rel
 
@@ -334,7 +374,8 @@ class _CudaPipe:
             self.h2d_done[s].record()
         self.compute.wait_stream(self.copy)
         # ``dev`` was allocated on the copy stream and is read on the
-        # compute stream: keep the allocator from reusing it early.
+        # compute stream (copied there into the chunk program's static
+        # input): keep the allocator from reusing it early.
         dev.record_stream(self.compute)
         return dev
 

@@ -784,12 +784,14 @@ def test_one_rank_nccl_group_all_reduces_and_the_mesh_is_one(device, monkeypatch
 @pytest.mark.cuda
 def test_refine_with_kernel_s_matches_the_plain_sampler(device):
     """``refine_keyframe_poses`` on the card through kernel S (2 launches
-    with d/dx, d/dy an iteration, 4 value-only a batch) against the same
-    call with the sampler's plain version: poses to 1e-4."""
+    with d/dx, d/dy an iteration, 4 value-only a batch; two batches of one
+    shape: one warm-up call, then two replays of the captured program)
+    against the same call with the sampler's plain version, captured anew:
+    poses to 1e-4."""
     from unittest import mock
 
     from colvo_torch.data.synthetic import default_intrinsics, make_trajectory, render_frame
-    from colvo_torch.vo.refine import refine_keyframe_poses
+    from colvo_torch.vo.refine import _refine, refine_keyframe_poses
 
     h, w, iters = 64, 96, 5
     k = default_intrinsics(h, w)
@@ -799,11 +801,125 @@ def test_refine_with_kernel_s_matches_the_plain_sampler(device):
     kw = dict(keyframe_ids=ids, depths=[d.astype(np.float32) for d in depths],
               frames_kf=np.stack(frames).astype(np.float32), k=k, iters=iters, lr=2e-3,
               batch=2, device=device)
+    _refine.programs.clear()
     kernels.reset_launch_counts()
     got, _ = refine_keyframe_poses(gt, **kw)
     counts = kernels.launch_counts()
-    assert counts == {"S/grad/C3": 2 * iters, "S/grad/C1": 2 * iters, "S/value/C3": 4,
-                      "S/value/C1": 4}, counts
-    with mock.patch.object(sampler, "sample", sampler.sample_plain):
-        want, _ = refine_keyframe_poses(gt, **kw)
+    assert counts == {"S/grad/C3": 3 * iters, "S/grad/C1": 3 * iters, "S/value/C3": 6,
+                      "S/value/C1": 6}, counts
+    _refine.programs.clear()  # a program holds the kernels it captured
+    try:
+        with mock.patch.object(sampler, "sample", sampler.sample_plain):
+            want, _ = refine_keyframe_poses(gt, **kw)
+    finally:
+        _refine.programs.clear()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["float32", "float16", "uint8"])
+def test_captured_chunk_step_equals_its_eager_body_bit_for_bit(device, wire):
+    """At 64×96: the replayed ``chunk_step`` (and ``init_step``) give the
+    wire and the carry of the eager body on the same inputs, bit for bit;
+    a second chunk replays the same graph."""
+    runner = _vo_runner(device)
+    vo = StreamingVO(runner, chunk_size=4, depth_dtype=wire)
+    frames = torch.from_numpy(np.stack(list(_u8_frames(9, seed=2)))).to(device)
+    from colvo_torch.vo.stream import _chunk_body, _init_body
+    with torch.inference_mode():
+        d0, ci, cb = (x.clone() for x in vo.init_step(frames[:1]))
+        e0, ei, eb = _init_body(runner, frames[:1], input_format="rgb")
+        assert all(torch.equal(a, b) for a, b in ((d0, e0), (ci, ei), (cb, eb)))
+        for lo in (1, 5):
+            chunk = frames[lo:lo + 4]
+            want = vo.chunk_body(ci, cb, chunk)
+            got = vo.chunk_step(ci, cb, chunk)
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and torch.equal(g, w)
+            ci, cb = got[1].clone(), got[2].clone()
+    assert len(runner.program(_chunk_body).programs) == 1
+
+
+_DET_CHILD = """
+import torch
+from colvo_torch.config import ColvoConfig
+from colvo_torch.data import SnippetDataset, batch_iterator, render_sequence
+from colvo_torch.runtime import init_state, make_train_step, to_device, train_step
+from colvo_torch.runtime.loop import deterministic_mode
+
+cfg = ColvoConfig()
+cfg.model.n_scales = 2
+cfg.data.height, cfg.data.width, cfg.data.batch_size = 64, 96, 2
+seq = render_sequence(n_frames=8, height=64, width=96, seed=3)
+it = batch_iterator(SnippetDataset([seq.frames], [seq.k], cfg.data.frame_offsets), cfg.data,
+                    seed=0)
+dev = torch.device("cuda")
+with deterministic_mode(True):
+    eager = init_state(cfg, seed=0, device=dev)
+    graphed = init_state(cfg, seed=0, device=dev)
+    step_fn = make_train_step(graphed, cfg)
+    for i in range(3):
+        batch = to_device(next(it), dev)
+        want = train_step(eager, batch, cfg)
+        got = step_fn(graphed, batch)
+        assert all(torch.equal(got[k], v) for k, v in want.items()), i
+    for p, q in zip(eager.model.parameters(), graphed.model.parameters()):
+        assert torch.equal(p, q)
+        a, b = eager.optimizer.state[p], graphed.optimizer.state[q]
+        assert all(torch.equal(a[k], b[k]) for k in ("exp_avg", "exp_avg_sq", "step"))
+print("deterministic steps equal", flush=True)
+"""
+
+
+@pytest.mark.cuda
+def test_three_deterministic_captured_steps_equal_three_eager_ones(device):
+    """Under ``train.deterministic``, in a fresh process (cuBLAS reads its
+    workspace setting when its handle is made): 3 replays of the captured
+    step give the metrics, weights and Adam moments of 3 eager
+    ``train_step`` calls, bit for bit (T's fixed-point cluster kernel
+    inside the graph)."""
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _DET_CHILD], cwd=root, capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "deterministic steps equal" in out.stdout
+
+
+@pytest.mark.cuda
+def test_a_capture_that_reads_the_card_on_the_host_raises(device):
+    """A step whose body reads a device value on the host (``.item()``)
+    cannot be captured: ``make_train_step`` raises rather than running it
+    eagerly, and no program is kept. Last in the file: a failed capture
+    may leave its stream unusable."""
+    import importlib
+    from unittest import mock
+
+    from colvo_torch.data import SnippetDataset, batch_iterator, render_sequence
+    from colvo_torch.runtime import init_state, make_train_step, to_device
+
+    cfg = ColvoConfig()
+    cfg.model.n_scales = 2
+    cfg.data.height, cfg.data.width, cfg.data.batch_size = 64, 96, 2
+    seq = render_sequence(n_frames=6, height=64, width=96, seed=3)
+    batch = to_device(next(batch_iterator(
+        SnippetDataset([seq.frames], [seq.k], cfg.data.frame_offsets), cfg.data, seed=0)),
+        device)
+    state = init_state(cfg, seed=0, device=device)
+    step_fn = make_train_step(state, cfg)
+    # the module (``colvo_torch.runtime.train_step`` names the function)
+    ts = importlib.import_module("colvo_torch.runtime.train_step")
+    real_clip = ts.clip_by_global_norm
+
+    def clip_reading_the_norm(grads, max_norm):
+        norm = real_clip(grads, max_norm)
+        norm.item()
+        return norm
+
+    with mock.patch.object(ts, "clip_by_global_norm", clip_reading_the_norm):
+        with pytest.raises(RuntimeError):
+            step_fn(state, batch)
+    assert state.step == 0
+    assert all(p.graph is None for p in step_fn.program.programs.values())

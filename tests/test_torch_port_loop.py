@@ -118,13 +118,17 @@ def test_dispatch_side_nan_stop(tmp_path):
     cfg.train.log_every = 1
     cfg.train.dispatch_ahead_windows = 1
     calls = []
-    real_step = port_loop.train_step
+    real_make = port_loop.make_step_fn
 
-    def train_step(state, batch, cfg_):
-        calls.append(state.step + 1)
-        return real_step(state, batch, cfg_)
+    def make_step_fn(state, cfg_):
+        step_fn = real_make(state, cfg_)
 
-    with mock.patch.object(port_loop, "train_step", train_step), \
+        def counted(state, batch):
+            calls.append(state.step + 1)
+            return step_fn(state, batch)
+        return counted
+
+    with mock.patch.object(port_loop, "make_step_fn", make_step_fn), \
             pytest.raises(RuntimeError, match="non-finite") as info:
         train_loop(cfg, _dataset(poison=2), log_dir=str(tmp_path / "log"), max_steps=30,
                    device="cpu")
@@ -136,23 +140,30 @@ def test_dispatch_side_nan_stop(tmp_path):
 def test_steps_per_epoch_reaches_the_lr_schedule(tmp_path):
     """steps_per_epoch = len(dataset) // batch_size goes into the state, so
     the LR decays after train.lr_decay_epochs of this dataset's epochs (at
-    step 2 here), not of the port's default 1000-step epoch."""
+    step 2 here), not of the port's default 1000-step epoch. The step takes
+    its learning rate from the device step counter, in float32
+    (``learning_rate_t``), as on the card."""
     cfg = tiny_config(tmp_path)
     cfg.train.lr_decay_epochs = 1
     cfg.train.log_every = 10
     lrs = []
-    real_step = port_loop.train_step
+    real_make = port_loop.make_step_fn
 
-    def train_step(state, batch, cfg_):
-        out = real_step(state, batch, cfg_)
-        lrs.append(state.optimizer.param_groups[0]["lr"])
-        return out
+    def make_step_fn(state, cfg_):
+        step_fn = real_make(state, cfg_)
 
-    with mock.patch.object(port_loop, "train_step", train_step):
+        def recorded(state, batch):
+            out = step_fn(state, batch)
+            lrs.append(state.optimizer.param_groups[0]["lr"])
+            return out
+        return recorded
+
+    with mock.patch.object(port_loop, "make_step_fn", make_step_fn):
         _, state = train_loop(cfg, _dataset(n_frames=6), log_dir=str(tmp_path / "log"),
                               max_steps=3, device="cpu")
     assert state.steps_per_epoch == 2
-    assert lrs == [3e-4, 3e-4, pytest.approx(3e-5, rel=1e-12)]
+    assert lrs == [float(np.float32(3e-4)), float(np.float32(3e-4)),
+                   float(np.float32(3e-4 * 0.1))]
 
 
 def test_profiler_window_and_eval_hook_in_the_loop(tmp_path):
