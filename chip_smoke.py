@@ -94,7 +94,8 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
 8. Device-loader phase: run 3 of ``cli train`` with ``data.loader=device``
    on the loop phase's dataset, as run 1 and checked as it is, with its
    ms/step beside run 1's, the interval between steps, the busy share,
-   peak memory and the store's upload; a store of 100 × 100 frames at
+   peak memory, the store's upload and the eval hook's split (its first
+   call captures the forward); a store of 100 × 100 frames at
    256×320 (2.46 GB of uint8, tiled): its upload, one batch's gather +
    augment, its memory; ``make_scan_train`` at K=4 against 4 eager train
    steps fed the same indices and augmentation draws (step 1's loss terms
@@ -129,12 +130,30 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
    (at most 2×); 3 deterministic steps bit for bit in a fresh process;
    the loop on the numpy, grain and device loaders, 9 steps each, one
    captured step's replays with exact launches, and the card's busy
-   share over 8 profiled replays; ``refine_keyframe_poses`` within 1e-6.
-10. Prints the kernel table as one JSON line (launches over the slice
+   share over 8 profiled replays; ``refine_keyframe_poses`` within 1e-6;
+   the device store's batch program (3 batches bit for bit the eager
+   gather + ``device_augment`` from one seed, no kernel launched) and the
+   eval hook's forward program (bit for bit its eager body, or within
+   1e-6 of max with the reason logged; 3 hook calls on one program, each
+   split into the wait for queued work, forward, host metrics and panel
+   writes), each with its
+   replay and eager ms.
+10. Demo phase: ``colvo_torch.scripts.demo_synthetic.main`` at full width,
+   cut to 400 steps with the eval hook every 3 epochs (41 steps an epoch:
+   a capture and two replays): every step's loss finite and the last 20
+   steps' mean below the first 20's, finite ``eval/*`` rows, the panels,
+   exact launches, the exported weights loaded by ``make_runner``,
+   ``evaluate_synthetic``'s metrics finite and its three figures; ms/step
+   and the Abs-Rel reached. Full-colon phase:
+   ``colvo_torch.scripts.fullcolon.main`` on the demo's weights at 600
+   frames (the reference's 3,000, cut) with keyframe refinement: finite
+   ATE and polyp errors, non-empty clouds, the PLY, the refinement's
+   launches; VO frames/s.
+11. Prints the kernel table as one JSON line (launches over the slice
    and knob runs, the deterministic runs, the data-parallel ranks, loop
    run 1, the grain runs, the device-loader run, the chunks' replays and
-   the refine calls and the graphs phase; every kernel must have
-   launched), then the device
+   the refine calls, the graphs phase, the demo's steps and the full-colon
+   run's refinement; every kernel must have launched), then the device
    line ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -1887,8 +1906,13 @@ def device_loop_run(device, smi: str, dataset, numpy_loop_ms: float,
     from colvo_torch.runtime import loop as loop_mod
 
     cfg = ColvoConfig()
-    runs, calls, uploads, kinds = [], [], [], []
+    runs, calls, uploads, kinds, hooks = [], [], [], [], []
     real_train, real_store = pipelines.train_loop, loop_mod.DeviceSnippetStore
+    real_hook = pipelines.make_training_eval_hook
+
+    def recorded_hook(cfg_, model):
+        hooks.append(real_hook(cfg_, model))
+        return hooks[-1]
 
     def recording(cfg_, dataset_, **kwargs):
         out = real_train(cfg_, dataset_, **kwargs)
@@ -1917,7 +1941,8 @@ def device_loop_run(device, smi: str, dataset, numpy_loop_ms: float,
             mock.patch.object(pipelines, "build_dataset", lambda cfg_: dataset), \
             mock.patch.object(pipelines, "train_loop", recording), \
             wrap_step_fns(timed), \
-            mock.patch.object(loop_mod, "DeviceSnippetStore", timed_store):
+            mock.patch.object(loop_mod, "DeviceSnippetStore", timed_store), \
+            mock.patch.object(pipelines, "make_training_eval_hook", recorded_hook):
         log_dir, ckpt_dir = os.path.join(tmp, "log"), os.path.join(tmp, "ckpt")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1970,7 +1995,16 @@ def device_loop_run(device, smi: str, dataset, numpy_loop_ms: float,
         "window (steps {}-{}, {:.1f} %); peak memory {:.2f} GiB".format(
             *LOOP_PROFILE, 100 * busy / window, peak))
     log("device loader: the host over the profiled window: " + host)
+    log(f"device loader: the eval hook at step 7 (its first call: the forward's warm-up, "
+        f"capture and replay) took {hook_split(hooks[0].times)}")
     return counts
+
+
+def hook_split(times: dict) -> str:
+    """The eval hook's call split into its parts (host clock)."""
+    return (f"{sum(times.values()):.1f} ms: waiting for the queued work {times['queue']:.1f}, "
+            f"forward {times['forward']:.1f} (the program's call and the outputs' copy to the "
+            f"host), host metrics {times['metrics']:.1f}, panel writes {times['panels']:.1f}")
 
 
 def store_times(device, smi: str, dataset) -> None:
@@ -3227,11 +3261,274 @@ def graphs_phase(device, smi: str, weights: dict, batches, dataset, vo_inputs: d
         f"abs); a call {graph_ms:.1f} ms (host clock, synchronised), eager {eager_call_ms:.1f} "
         f"ms; the first call in this phase {first_ms:.1f} ms")
 
+    # --- the device loader's batch and the eval hook's forward
+    table += batch_program_rows(device, smi, cfg, dataset, timer)
+    table += eval_program_rows(device, smi, cfg, weights, timer)
+
     log(f"graphs ({smi}): program, eager body ms, program ms (CUDA events unless said)")
     for name, eager, graphed in table:
         log(f"  {name:58s} {eager:9.3f} {graphed:9.3f}")
     log(f"graphs phase: {time.time() - t_phase:.1f} s")
     return counts
+
+
+GRAPH_BATCHES, GRAPH_BATCH_SEED = 3, 5  # batches of the store's program held to eager ones
+GRAPH_BATCH_TIMED = 4  # more batches, timed, in the same epoch
+GRAPH_HOOK_CALLS = 3  # eval hook calls: the first captures, the others replay
+
+
+def batch_program_rows(device, smi: str, cfg: ColvoConfig, dataset, timer) -> list:
+    """The device store's batch program (``data/device_store.py``) against
+    eager ``gather`` + ``device_augment`` from the same seed's permutation
+    and generator: ``GRAPH_BATCHES`` batches bit for bit, no kernel of ours
+    launched; replay ms against eager ms (CUDA events). Returns its row of
+    the phase's table."""
+    from colvo_torch.data import DeviceSnippetStore, device_augment
+    from colvo_torch.data.device_store import gather
+
+    store = DeviceSnippetStore(dataset.sequences, dataset.intrinsics, cfg.data.frame_offsets,
+                               device=device)
+    b = cfg.data.batch_size
+    check(store.n_snippets >= (GRAPH_BATCHES + GRAPH_BATCH_TIMED) * b,
+          f"{store.n_snippets} snippets hold the checked and timed batches in one epoch")
+    reset_launch_counts()
+    it = store.batches(cfg.data, seed=GRAPH_BATCH_SEED)
+    got = [{k: v.clone() for k, v in next(it).items()} for _ in range(GRAPH_BATCHES)]
+    launches = launch_counts()
+    rng = np.random.default_rng(GRAPH_BATCH_SEED)
+    gen = torch.Generator(device=device).manual_seed(GRAPH_BATCH_SEED)
+    order = torch.from_numpy(rng.permutation(store.n_snippets)).to(device)
+    same = []
+    for i, batch in enumerate(got):
+        aug, clean = device_augment(gather(store.frames, store.table, order[i * b:(i + 1) * b]),
+                                    gen, cfg.data)
+        same.append(torch.equal(batch["frames"], aug) and torch.equal(batch["frames_clean"], clean)
+                    and torch.equal(batch["k"], store.k))
+    progs = list(store.program.programs.values())
+    check(all(same) and launches == {} and len(progs) == 1
+          and (progs[0].graph is not None or device.type != "cuda"),
+          f"the batch program: {GRAPH_BATCHES} batches equal the eager gather + augment bit for "
+          f"bit {same}, one program {len(progs)}, no kernel launched {launches}")
+    replay = (_events_ms(lambda: next(it), GRAPH_BATCH_TIMED) if device.type == "cuda"
+              else float("nan"))
+    idx = order[:b]
+    eager = timer(lambda: device_augment(gather(store.frames, store.table, idx), gen, cfg.data))
+    log(f"graphs, the device loader's batch ({smi}): {GRAPH_BATCHES} batches of the program "
+        f"(B={b}, augmentation on) equal the eager gather + device_augment from seed "
+        f"{GRAPH_BATCH_SEED} bit for bit; launches {launches}; {replay:.4f} ms a batch replayed "
+        f"(CUDA events over {GRAPH_BATCH_TIMED} batches, the host's slice included), {eager:.4f} ms "
+        f"eager")
+    return [(f"device-loader batch (B={b})", eager, replay)]
+
+
+def eval_program_rows(device, smi: str, cfg: ColvoConfig, weights: dict, timer) -> list:
+    """The eval hook's captured forward (``pipelines.TrainingEvalHook``) on
+    ``weights``: ``GRAPH_HOOK_CALLS`` calls of the hook writing its panels
+    (the first captures, the others replay one program), each call's split
+    into the wait for queued work, forward, host metrics and panel writes;
+    the program's outputs
+    against its eager body on the same weights, bit for bit (or within 1e-6
+    of each output's max, the reason logged); no kernel of ours launched;
+    replay ms against eager ms (CUDA events). Returns its row."""
+    import types
+
+    from colvo_torch.models import ColVOModel
+    from colvo_torch.pipelines import make_training_eval_hook
+    from colvo_torch.runtime import MetricsWriter
+
+    model = ColVOModel(cfg.model)
+    model.load_state_dict(weights)
+    model.to(device).train()
+    hook = make_training_eval_hook(cfg, model)
+    state = types.SimpleNamespace(model=model)
+    reset_launch_counts()
+    splits, programs = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        writer = MetricsWriter(tmp, also_stdout=False)
+        for step in range(GRAPH_HOOK_CALLS):
+            scalars = hook(step, state, writer)
+            splits.append(dict(hook.times))
+            programs.append(hook.program)
+            check(all(np.isfinite(v) for v in scalars.values()), f"eval scalars {scalars}")
+        writer.close()
+        panels = sorted(f for f in os.listdir(tmp) if f.startswith("panels_"))
+    launches = launch_counts()
+    got = [t.clone() for t in hook.program()]
+    model.eval()
+    want = hook.forward(model)
+    rel = [((a.float() - w.float()).abs().max() / w.float().abs().max().clamp_min(1e-30)).item()
+           for a, w in zip(got, want)]
+    same = all(torch.equal(a, w) for a, w in zip(got, want))
+    check((same or max(rel) <= 1e-6) and launches == {}
+          and all(p is programs[0] for p in programs) and len(programs[0].programs) == 1
+          and len(panels) == 3 * GRAPH_HOOK_CALLS,
+          f"the eval hook's program against its eager body: bit for bit {same}, of max {rel}; "
+          f"one program over {GRAPH_HOOK_CALLS} calls; launches {launches}; panels {panels}")
+    if not same:
+        log("graphs, the eval hook: the program differs from its eager body in the last bits "
+            f"(of each output's max {rel}): cuDNN may choose another convolution algorithm "
+            "inside a capture than eagerly, and the bf16 convs round their sums in its order")
+    on_card = device.type == "cuda"
+    replay = _events_ms(hook.program, GRAPH_TIMED) if on_card else float("nan")
+    eager = timer(lambda: hook.forward(model))
+    model.train()
+    log(f"graphs, the eval hook ({smi}): the program's outputs equal its eager body's "
+        f"{'bit for bit' if same else f'within {max(rel):.3g} of max'} on the default "
+        f"path's weights; launches {launches}; the forward {replay:.3f} ms replayed, "
+        f"{eager:.3f} ms eager (CUDA events); the calls: "
+        + "; ".join(f"{'capture' if i == 0 else 'replay'} {hook_split(t)}"
+                    for i, t in enumerate(splits)))
+    return [("eval hook forward (16 frames, 15 pairs, a snippet)", eager, replay)]
+
+
+# The demo's 4000 steps and the full-colon run's 3,000 frames, cut for time.
+# Its corpus (8 × 64 frames, 496 snippets) gives 41 steps an epoch at B=12,
+# so the hook fires at steps 123, 246 and 369: a capture and two replays.
+DEMO_STEPS, DEMO_EVAL_EPOCHS = 400, 3
+DEMO_LOSS_WINDOW = 20  # the mean total of the last steps must be below the first steps'
+FULLCOLON_FRAMES = 600
+
+
+def demo_phase(device, smi: str, out: str) -> tuple:
+    """The port's demo (``colvo_torch.scripts.demo_synthetic.main``) at full
+    width for ``DEMO_STEPS`` steps with the eval hook every
+    ``DEMO_EVAL_EPOCHS`` epochs, into ``out``: every step's total loss
+    finite (copied from the step's outputs on the card) and the mean of the
+    last ``DEMO_LOSS_WINDOW`` below the first's; the hook's three calls on
+    one program, their ``eval/*`` rows finite and their panels written;
+    the launches the steps' (warm-up and replays); the exported weights
+    loaded by ``make_runner``; ``evaluate_synthetic``'s metrics finite and
+    its three figures on disk. Logs ms/step, the interval between steps,
+    the hook's calls and the Abs-Rel reached. Returns (launches, the
+    weights' path)."""
+    from colvo_torch import pipelines
+    from colvo_torch.scripts import demo_synthetic as demo
+
+    t_phase = time.time()
+    cfg = ColvoConfig()
+    totals, starts, calls = [], [], []
+    real_hook = demo.make_training_eval_hook
+
+    def recorded_hook(cfg_, model):
+        hook = real_hook(cfg_, model)
+
+        def call(step, state, writer):
+            scalars = hook(step, state, writer)
+            calls.append((step, dict(hook.times), hook.program))
+            return scalars
+        return call
+
+    def recorded(step_fn):
+        def step(*args):
+            starts.append(time.perf_counter())
+            metrics = step_fn(*args)
+            totals.append(metrics["loss/total"].clone())  # the next replay overwrites it
+            return metrics
+        return step
+
+    reset_launch_counts()
+    with wrap_step_fns(recorded), mock.patch.object(demo, "make_training_eval_hook",
+                                                    recorded_hook):
+        metrics = demo.main(DEMO_STEPS, out, device.type, eval_every_epochs=DEMO_EVAL_EPOCHS)
+    counts = launch_counts()
+    total = torch.stack(totals).cpu().numpy()
+    first, last = total[:DEMO_LOSS_WINDOW].mean(), total[-DEMO_LOSS_WINDOW:].mean()
+    check(len(total) == DEMO_STEPS and np.isfinite(total).all() and last < first,
+          f"the demo's {len(total)} step losses finite, the last {DEMO_LOSS_WINDOW}'s mean "
+          f"{last:.6g} below the first {DEMO_LOSS_WINDOW}'s {first:.6g}")
+    want = step_launches(cfg, DEMO_STEPS + STEP_WARMUP)
+    check(counts == want, f"demo launches {counts} == {want}")
+    with open(os.path.join(out, "train", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    evals = [r for r in rows if "eval/abs_rel" in r]
+    offsets = cfg.data.frame_offsets
+    snippets = demo.N_SEQUENCES * (demo.N_FRAMES - max(0, *offsets) + min(0, *offsets))
+    every = snippets // cfg.data.batch_size * DEMO_EVAL_EPOCHS
+    hook_steps = list(range(every, DEMO_STEPS + 1, every))
+    check(len(hook_steps) >= 2
+          and [r["step"] for r in evals] == hook_steps == [c[0] for c in calls]
+          and all(np.isfinite(v) for r in evals for v in r.values())
+          and all(c[2] is calls[0][2] for c in calls) and len(calls[0][2].programs) == 1,
+          f"the hook at steps {hook_steps}, one program, finite eval rows: {evals}")
+    for step in hook_steps:
+        for tag in ("disp", "automask", "warp_error"):
+            shape = _png_shape(os.path.join(out, "train", f"panels_{tag}_{step:08d}.png"))
+            check(shape == (cfg.data.height, cfg.data.width, 3), f"demo panel {tag} {shape}")
+    losses = [r for r in rows if "loss/total" in r]
+    check([r["step"] for r in losses] == [DEMO_STEPS]
+          and all(np.isfinite(v) for r in losses for v in r.values()), f"loss rows {losses}")
+    weights = os.path.join(out, "weights.npz")
+    runner = pipelines.make_runner(cfg, weights, device)
+    frame = np.full((1, cfg.data.height, cfg.data.width, 3), 0.5, np.float32)
+    check(np.isfinite(runner.infer_depth(frame)[0]).all(), "the exported weights infer")
+    check(all(np.isfinite(v) for v in metrics.values()) and "polyp/e_mean" in metrics,
+          f"evaluate_synthetic metrics {metrics}")
+    for name in ("qualitative_depth.png", "trajectory_predictions.png",
+                 "colon_reconstruction.png"):
+        check(len(_png_shape(os.path.join(out, "eval", name))) == 3, f"demo figure {name}")
+    wall = [r for r in rows if "wall_steps_per_sec" in r][0]["wall_steps_per_sec"]
+    gaps = np.diff(starts) * 1e3
+    log(f"demo ({smi}): {DEMO_STEPS} steps on the device loader at full width, "
+        f"{1e3 / wall:.2f} ms/step (wall_steps_per_sec: the first call's warm-up and capture, "
+        f"the hook's three calls and the final checkpoint included); a step started every "
+        f"{np.median(gaps[1:]):.2f} ms (median of steps 3-{DEMO_STEPS}); total loss "
+        f"{first:.6g} (mean of the first {DEMO_LOSS_WINDOW}) -> {last:.6g} (last "
+        f"{DEMO_LOSS_WINDOW}); launches {counts}")
+    log("demo: the eval hook's calls: " + "; ".join(
+        f"step {st} ({'capture' if i == 0 else 'replay'}) {hook_split(t)}, abs_rel "
+        f"{r['eval/abs_rel']:.4f}, ate {r['eval/ate']:.6g}"
+        for i, ((st, t, _), r) in enumerate(zip(calls, evals))))
+    log("demo: evaluate_synthetic on the exported weights: " + " ".join(
+        f"{k}={v:.6g}" for k, v in metrics.items()))
+    log(f"demo phase: {time.time() - t_phase:.1f} s")
+    return counts, weights
+
+
+def fullcolon_phase(device, smi: str, weights: str, out: str) -> Counter:
+    """The port's full-colon run (``colvo_torch.scripts.fullcolon.main``) on
+    the demo's weights at ``FULLCOLON_FRAMES`` frames with keyframe
+    refinement on (it runs kernel S; the default leaves it off), its render
+    cache in a temporary directory: finite ATE (before and after the
+    refinement) and polyp errors, non-empty clouds for ours and for GT, the
+    gzipped PLY's point count the record's, the figure written; the
+    refinement's launches (its program's warm-up where this signature was
+    not captured before, then a replay a batch). Logs the record and the
+    VO frames/s. Returns the launches."""
+    import gzip
+
+    from colvo_torch.scripts import fullcolon
+    from colvo_torch.vo import load_ply
+    from colvo_torch.vo import refine as refine_mod
+
+    t_phase = time.time()
+    before = len(refine_mod._refine.programs)
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as cache, mock.patch.object(tempfile, "tempdir", cache):
+        rec = fullcolon.main(FULLCOLON_FRAMES, weights, out, device.type, refine=True)
+    counts = launch_counts()
+    pairs = FULLCOLON_FRAMES // 10 - 1
+    calls = -(-pairs // REFINE_BATCH) + STEP_WARMUP * (len(refine_mod._refine.programs) - before)
+    want = {"S/grad/C3": REFINE_ITERS * calls, "S/grad/C1": REFINE_ITERS * calls,
+            "S/value/C3": 2 * calls, "S/value/C1": 2 * calls}
+    check(counts == want, f"full-colon launches {counts} == {want}")
+    keys = ["ate", "raw/ate", "rpe_rot_deg", "polyp/e1", "polyp/e2", "polyp/e3", "polyp/e_mean"]
+    check(all(np.isfinite(rec[k]) for k in keys) and rec["n_points_ours"] > 0
+          and rec["n_points_gt"] > 0, f"full-colon record {rec}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ply = os.path.join(tmp, "ours.ply")
+        with gzip.open(os.path.join(out, "fullcolon_ours.ply.gz"), "rb") as f, \
+                open(ply, "wb") as g:
+            g.write(f.read())
+        check(len(load_ply(ply).points) == rec["n_points_ours"], "the full-colon PLY")
+    check(len(_png_shape(os.path.join(out, "fullcolon_recon.png"))) == 3, "full-colon figure")
+    log(f"full-colon ({smi}): {FULLCOLON_FRAMES} frames, {rec['fps']} frames/s VO (uint8 wire, "
+        f"symmetric pose, chunks of 32; warm-up {rec['compile_s_excluded']} s excluded); ATE "
+        f"{rec['raw/ate']} before the refinement, {rec['ate']} after ({rec['refine/refine_s']} "
+        f"s, {rec['refine/pairs']} pairs); polyp e {rec['polyp/e1']} / {rec['polyp/e2']} / "
+        f"{rec['polyp/e3']} (mean {rec['polyp/e_mean']}); clouds ours {rec['n_points_ours']} / "
+        f"GT {rec['n_points_gt']} points; launches {counts}")
+    log(f"full-colon phase: {time.time() - t_phase:.1f} s")
+    return Counter(counts)
 
 
 # Adam7's seven passes: (first column, first row, column step, row step)
@@ -3363,6 +3660,12 @@ def main() -> int:
     counts.update(refine_phase(device, smi, refine_inputs))
     log("--- graphs: each captured program against its eager body ---")
     counts.update(graphs_phase(device, smi, serve_weights, batches, dataset, refine_inputs))
+    with tempfile.TemporaryDirectory() as tmp:
+        log(f"--- demo: the port's demo_synthetic, {DEMO_STEPS} steps ---")
+        demo_counts, weights = demo_phase(device, smi, os.path.join(tmp, "demo"))
+        counts.update(demo_counts)
+        log(f"--- full colon: the port's fullcolon, {FULLCOLON_FRAMES} frames ---")
+        counts.update(fullcolon_phase(device, smi, weights, os.path.join(tmp, "fullcolon")))
 
     # Nothing of JAX came in, not even through a library the port imports.
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "colvo"))

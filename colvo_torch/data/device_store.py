@@ -3,9 +3,12 @@
 For a corpus that fits in device memory (100 sequences × 100 frames at
 256×320 uint8 are 2.46 GB of the H100's 80 GB), every frame is uploaded
 once as uint8 and batches are assembled on the device: the index gather,
-the uint8 → float32 scale and the colour augmentation. The host draws each
-epoch's permutation and uploads it once; a batch is then a slice of it and
-about fifteen eager ops, none of which waits for the device.
+the uint8 → float32 scale and the colour augmentation (``assemble``). The
+host draws each epoch's permutation and uploads it once; a batch is then a
+slice of it through one captured program (``runtime.graphs.Graphed``, the
+counterpart of the reference's jitted ``_assemble`` and ``augment_fn``):
+on a card one CUDA-graph replay a batch, none of which waits for the
+device.
 
 The augmentation follows ``colvo_torch.data.augment``'s semantics: one draw
 per snippet, applied to all of its frames; the jitter on the network-input
@@ -90,6 +93,17 @@ def gather(frames_u8: torch.Tensor, table: torch.Tensor, idx: torch.Tensor) -> t
     return frames_u8[table[idx].long()].to(torch.float32) * (1.0 / 255.0)
 
 
+def assemble(frames_u8: torch.Tensor, table: torch.Tensor, idx: torch.Tensor, k: torch.Tensor,
+             generator: torch.Generator, cfg: DataConfig) -> Dict[str, torch.Tensor]:
+    """The batch of snippets ``idx``: ``gather``, then ``device_augment``
+    from ``generator`` where ``cfg.augment`` (else the clean frames twice).
+    Returns {frames, frames_clean, k}. The body of the store's batch
+    program and of each step of ``make_scan_train``."""
+    clean = gather(frames_u8, table, idx)
+    aug, clean = device_augment(clean, generator, cfg) if cfg.augment else (clean, clean)
+    return {"frames": aug, "frames_clean": clean, "k": k}
+
+
 class DeviceSnippetStore:
     """All frames on the device as uint8; batches assembled there.
 
@@ -99,6 +113,10 @@ class DeviceSnippetStore:
             batch is the contract).
         frame_offsets: source-frame offsets (``SnippetDataset``'s).
         device: where the corpus lives (``cuda`` unless told ``cpu``).
+
+    Attributes:
+        program: the batch program of the iterator ``batches`` made last
+            (``runtime.graphs.Graphed``; None before).
     """
 
     def __init__(
@@ -131,18 +149,32 @@ class DeviceSnippetStore:
         self.frames = torch.from_numpy(np.concatenate(frames_u8)).to(self.device)  # (T, H, W, 3)
         self.table = torch.from_numpy(np.asarray(table, np.int32)).to(self.device)  # (S, F)
         self.n_snippets = len(table)
+        self.program = None
 
     def batches(self, cfg: DataConfig, seed: int = 0,
                 epochs: Optional[int] = None) -> Iterator[dict]:
         """Yield {frames, frames_clean, k} batches on the device: a shuffled
         epoch after another (the reference's ``default_rng(seed)``
         permutations), the trailing partial batch dropped, the augmentation
-        drawn from a ``torch.Generator`` seeded with ``seed``."""
+        drawn from a ``torch.Generator`` seeded with ``seed``.
+
+        Each batch is one call of a program made for this iterator
+        (``Graphed`` over ``assemble``, the generator registered with it;
+        on a card captured at the first batch and replayed after). Its
+        batches are the program's static outputs, which the next batch
+        overwrites: a caller that keeps one past its next ``next`` copies
+        it. A consumer on the same stream (the loop's step, which copies
+        the batch into its own inputs) needs no copy."""
+        from colvo_torch.runtime.graphs import Graphed  # runtime imports this module
+
         if self.n_snippets < cfg.batch_size:
             raise ValueError(f"the store has {self.n_snippets} snippets but "
                              f"batch_size={cfg.batch_size}; no batch can be formed")
         rng = np.random.default_rng(seed)
         generator = torch.Generator(device=self.device).manual_seed(seed)
+        program = self.program = Graphed(
+            lambda idx: assemble(self.frames, self.table, idx, self.k, generator, cfg),
+            device=self.device, generators=(generator,))
         bsz = cfg.batch_size
         epoch = 0
         while epochs is None or epoch < epochs:
@@ -150,10 +182,5 @@ class DeviceSnippetStore:
             if self.device.type == "cuda":
                 order = order.pin_memory().to(self.device, non_blocking=True)
             for start in range(0, self.n_snippets - bsz + 1, bsz):
-                clean = gather(self.frames, self.table, order[start:start + bsz])
-                if cfg.augment:
-                    aug, clean = device_augment(clean, generator, cfg)
-                else:
-                    aug = clean
-                yield {"frames": aug, "frames_clean": clean, "k": self.k}
+                yield program(order[start:start + bsz])
             epoch += 1

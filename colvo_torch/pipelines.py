@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import json
 import os
+import time
+import weakref
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -28,6 +30,7 @@ from colvo_torch.geometry.ops import _valid_mask
 from colvo_torch.losses import lcc_calibrate, photometric_error, poses_to_transforms
 from colvo_torch.models import ColVOModel
 from colvo_torch.runtime import InferenceRunner, load_npz
+from colvo_torch.runtime.graphs import Graphed
 from colvo_torch.runtime.loop import train as train_loop
 from colvo_torch.vo import (
     PolypDetection,
@@ -70,73 +73,113 @@ def build_dataset(cfg: ColvoConfig) -> SnippetDataset:
     return SnippetDataset(seqs, ks, cfg.data.frame_offsets)
 
 
-def make_training_eval_hook(cfg: ColvoConfig, model: torch.nn.Module):
-    """Periodic during-training evaluation + image panels.
-
-    Scores depth (Abs-Rel & co) and pose (ATE, RPE) on a held-out rendered
-    sequence, and writes the panel set (colormapped disparity, automask,
-    LCC-calibrated warp error) through ``writer.log_image``. The hook
-    evaluates ``state.model`` (a restart replaces the model), on the
-    device of ``model``, under ``torch.no_grad()`` in eval mode; its warp is
-    the plain ``bilinear_sample``, so it launches no kernel.
-    """
-    device = next(model.parameters()).device
-    seq = render_sequence(
-        n_frames=16, height=cfg.data.height, width=cfg.data.width, seed=999
-    )
-    frames = torch.from_numpy(seq.frames).to(device)  # (N, H, W, 3)
-    imgs = frames.permute(0, 3, 1, 2).contiguous()
-    k = torch.from_numpy(seq.k).to(device)
-    k_inv = torch.linalg.inv(k)
-    offsets = cfg.data.frame_offsets
-    mid = len(seq.frames) // 2
-    snippet = frames[[mid] + [mid + o for o in offsets]][None]  # (1, 1+S, H, W, 3)
+@torch.no_grad()
+def _eval_forward(cfg: ColvoConfig, imgs: torch.Tensor, snippet: torch.Tensor, k: torch.Tensor,
+                  k_inv: torch.Tensor, net: torch.nn.Module):
+    """The reference's jitted ``_eval_fwd`` (``colvo/pipelines.py:111``):
+    depth over the held-out frames ``imgs`` (N, 3, H, W), the pose probe
+    over their consecutive pairs, and the panel set on ``snippet`` (1,
+    1+S, H, W, 3). Returns (depth (N, H, W), disp0 (H, W), automask (H, W),
+    warp error (H, W), rel6 (N-1, 6))."""
     m_cfg, l_cfg = cfg.model, cfg.loss
+    # depth over the whole held-out sequence (batched)
+    disps, bnecks = net.depth(imgs)
+    pred_disp = disps[0][:, 0]
+    # the pose probe: every consecutive pair in one batched call, with
+    # the streaming executor's (prev, cur) + DCDP carry convention
+    feats = [bnecks[:-1], bnecks[1:]] if m_cfg.dcdp_fusion else None
+    aa, tr = net.pose(imgs[:-1], imgs[1:], feats)
+    rel6 = torch.cat([aa, tr], dim=-1).float()
+    _, pred_depth = disp_to_depth(pred_disp, m_cfg.min_depth, m_cfg.max_depth)
+    # panel set on one snippet: disp, automask, warp error
+    sdisps, poses = net(snippet)
+    t_mats = poses_to_transforms(poses.float())
+    disp0 = sdisps[0][0][..., 0]
+    _, depth0 = disp_to_depth(disp0, m_cfg.min_depth, m_cfg.max_depth)
+    tgt = snippet[:, 0]
+    pts = backproject(depth0, k_inv)
+    errs, ids = [], []
+    for s in range(snippet.shape[1] - 1):
+        pix, _ = project(pts, k, t_mats[:, s])
+        warped = bilinear_sample(snippet[:, s + 1], pix)
+        if l_cfg.lcc and l_cfg.lcc_mode != "off":
+            vm = None
+            if l_cfg.lcc_mode.startswith("global"):
+                vm = _valid_mask(pix, pix.shape[1], pix.shape[2])
+            warped = lcc_calibrate(warped, tgt, l_cfg.lcc_mode, l_cfg.lcc_window,
+                                   valid_mask=vm)
+        errs.append(photometric_error(warped, tgt, l_cfg.ssim_alpha))
+        ids.append(photometric_error(snippet[:, s + 1], tgt, l_cfg.ssim_alpha))
+    warp_err_panel = errs[0][0]
+    errs, ids = torch.stack(errs, -1), torch.stack(ids, -1)
+    automask = (torch.amin(errs, -1) < torch.amin(ids, -1)).float()
+    return pred_depth, disp0[0], automask[0], warp_err_panel, rel6
 
-    @torch.no_grad()
-    def _eval_fwd(net):
-        # depth over the whole held-out sequence (batched)
-        disps, bnecks = net.depth(imgs)
-        pred_disp = disps[0][:, 0]
-        # the pose probe: every consecutive pair in one batched call, with
-        # the streaming executor's (prev, cur) + DCDP carry convention
-        feats = [bnecks[:-1], bnecks[1:]] if m_cfg.dcdp_fusion else None
-        aa, tr = net.pose(imgs[:-1], imgs[1:], feats)
-        rel6 = torch.cat([aa, tr], dim=-1).float()
-        _, pred_depth = disp_to_depth(pred_disp, m_cfg.min_depth, m_cfg.max_depth)
-        # panel set on one snippet: disp, automask, warp error
-        sdisps, poses = net(snippet)
-        t_mats = poses_to_transforms(poses.float())
-        disp0 = sdisps[0][0][..., 0]
-        _, depth0 = disp_to_depth(disp0, m_cfg.min_depth, m_cfg.max_depth)
-        tgt = snippet[:, 0]
-        pts = backproject(depth0, k_inv)
-        errs, ids = [], []
-        for s in range(len(offsets)):
-            pix, _ = project(pts, k, t_mats[:, s])
-            warped = bilinear_sample(snippet[:, s + 1], pix)
-            if l_cfg.lcc and l_cfg.lcc_mode != "off":
-                vm = None
-                if l_cfg.lcc_mode.startswith("global"):
-                    vm = _valid_mask(pix, pix.shape[1], pix.shape[2])
-                warped = lcc_calibrate(warped, tgt, l_cfg.lcc_mode, l_cfg.lcc_window,
-                                       valid_mask=vm)
-            errs.append(photometric_error(warped, tgt, l_cfg.ssim_alpha))
-            ids.append(photometric_error(snippet[:, s + 1], tgt, l_cfg.ssim_alpha))
-        warp_err_panel = errs[0][0]
-        errs, ids = torch.stack(errs, -1), torch.stack(ids, -1)
-        automask = (torch.amin(errs, -1) < torch.amin(ids, -1)).float()
-        return pred_depth, disp0[0], automask[0], warp_err_panel, rel6
 
-    def hook(step, state, writer):
+class TrainingEvalHook:
+    """The loop's eval hook (see ``make_training_eval_hook``).
+
+    Attributes:
+        program: the captured forward of the model it last evaluated
+            (``runtime.graphs.Graphed``; None before the first call).
+        times: the last call's host-clock ms of its parts: ``queue``
+            (on a card, waiting for the work queued before the hook, such
+            as the training steps the loop dispatched ahead), ``forward``
+            (the program's call and the copy of its outputs to the host),
+            ``metrics`` (depth errors, the pose chain, ATE/RPE) and
+            ``panels`` (the three ``writer.log_image`` calls).
+    """
+
+    def __init__(self, cfg: ColvoConfig, model: torch.nn.Module):
+        self.cfg = cfg
+        self.device = next(model.parameters()).device
+        self.seq = render_sequence(
+            n_frames=16, height=cfg.data.height, width=cfg.data.width, seed=999
+        )
+        frames = torch.from_numpy(self.seq.frames).to(self.device)  # (N, H, W, 3)
+        self.imgs = frames.permute(0, 3, 1, 2).contiguous()
+        self.k = torch.from_numpy(self.seq.k).to(self.device)
+        self.k_inv = torch.linalg.inv(self.k)
+        mid = len(self.seq.frames) // 2
+        offsets = cfg.data.frame_offsets
+        self.snippet = frames[[mid] + [mid + o for o in offsets]][None]  # (1, 1+S, H, W, 3)
+        self.program: Optional[Graphed] = None
+        self._net: Optional[weakref.ref] = None
+        self.times: Dict[str, float] = {}
+
+    def forward(self, net: torch.nn.Module):
+        """The eager body of the reference's jitted ``_eval_fwd`` on ``net``
+        (``_eval_forward``)."""
+        return _eval_forward(self.cfg, self.imgs, self.snippet, self.k, self.k_inv, net)
+
+    def _program_for(self, net: torch.nn.Module) -> Graphed:
+        """The captured forward of ``net``. A program reads the weights at
+        their addresses, so another model (a restart's) gets a new program
+        and the old one, with its graph and memory pool, is dropped first;
+        the hook holds the model it captured only weakly."""
+        if self._net is None or self._net() is not net:
+            self.program = None
+            ref = self._net = weakref.ref(net)
+            cfg, imgs, snippet, k, k_inv = self.cfg, self.imgs, self.snippet, self.k, self.k_inv
+            self.program = Graphed(lambda: _eval_forward(cfg, imgs, snippet, k, k_inv, ref()),
+                                   device=self.device)
+        return self.program
+
+    def __call__(self, step, state, writer):
+        cfg, seq = self.cfg, self.seq
         net = state.model
         was_training = net.training
-        net.eval()
+        t_in = time.perf_counter()
+        if self.device.type == "cuda":  # the copy to the host below waits for it anyway
+            torch.cuda.current_stream(self.device).synchronize()
+        t0 = time.perf_counter()
+        net.eval()  # also at the capture, which the first call makes
         try:
-            out = _eval_fwd(net)
+            out = self._program_for(net)()
+            pred_depth, disp0, automask, warp_err, rel6 = (t.cpu().numpy() for t in out)
         finally:
             net.train(was_training)
-        pred_depth, disp0, automask, warp_err, rel6 = (t.cpu().numpy() for t in out)
+        t1 = time.perf_counter()
         metrics = compute_depth_errors(
             seq.depths, pred_depth, max_depth=cfg.eval.depth_cap,
             median_scaling=cfg.eval.median_scaling,
@@ -144,6 +187,7 @@ def make_training_eval_hook(cfg: ColvoConfig, model: torch.nn.Module):
         # trajectory quality during training: chain the probe's relative
         # poses and score ATE/RPE against the held-out sequence's GT
         metrics.update(evaluate_pose(chain_relative_poses(rel6), seq.poses))
+        t2 = time.perf_counter()
         if writer is not None:
             writer.log_image(step, "panels/disp", colormap_depth(disp0))
             writer.log_image(step, "panels/automask",
@@ -151,9 +195,29 @@ def make_training_eval_hook(cfg: ColvoConfig, model: torch.nn.Module):
             we = warp_err / max(float(warp_err.max()), 1e-6)
             writer.log_image(step, "panels/warp_error",
                              np.repeat(we[..., None], 3, axis=-1))
+        t3 = time.perf_counter()
+        self.times = {"queue": 1e3 * (t0 - t_in), "forward": 1e3 * (t1 - t0),
+                      "metrics": 1e3 * (t2 - t1), "panels": 1e3 * (t3 - t2)}
         return {f"eval/{kk}": float(vv) for kk, vv in metrics.items()}
 
-    return hook
+
+def make_training_eval_hook(cfg: ColvoConfig, model: torch.nn.Module) -> TrainingEvalHook:
+    """Periodic during-training evaluation + image panels.
+
+    Scores depth (Abs-Rel & co) and pose (ATE, RPE) on a held-out rendered
+    sequence, and writes the panel set (colormapped disparity, automask,
+    LCC-calibrated warp error) through ``writer.log_image``. The hook
+    evaluates ``state.model`` (a restart replaces the model), on the
+    device of ``model``, in eval mode and without gradients. Its forward
+    (``TrainingEvalHook.forward``, the reference's jitted ``_eval_fwd``)
+    is one captured program (``runtime.graphs.Graphed``): on a card the
+    first call captures it into a CUDA graph, later calls replay it, and
+    its outputs go to the host after the replay; the held-out frames, K
+    and the snippet are the hook's own constant tensors, and the convs
+    cast to ``model.dtype`` inside the body. Its warp is the plain
+    ``bilinear_sample``, so it launches no kernel.
+    """
+    return TrainingEvalHook(cfg, model)
 
 
 def train(cfg: ColvoConfig, log_dir: str = "runs/train", max_steps: Optional[int] = None,

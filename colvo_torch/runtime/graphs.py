@@ -23,6 +23,15 @@ tensors are copied into the static inputs, ``fn`` runs eagerly on them
 and its results are copied into the static outputs, so the CPU tests catch
 a caller that keeps an output too long.
 
+The port's programs, each a ``jax.jit`` of the reference:
+``InferenceRunner``'s three functions, ``StreamingVO``'s init and chunk
+steps, the loop's step (``make_train_step``), ``make_scan_train``'s chunk,
+``vo.refine``'s refinement, the device store's batch
+(``data/device_store.py``, the reference's ``_assemble`` and
+``augment_fn``) and the eval hook's forward (``pipelines.py``, its
+``_eval_fwd``). Only the step under a mesh of more than one rank and under
+``train.debug_nans`` runs eagerly on the card (``runtime/loop.py::make_step_fn``).
+
 The kernels' launch counters stay exact: the warm-up's launches count as
 they happen, the capture (which launches nothing) is taken back out, and
 each replay adds the launches it captured (``kernels.add_launch_counts``).

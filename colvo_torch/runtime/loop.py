@@ -10,10 +10,11 @@ ranks (``runtime.mesh``): each rank trains on its rows of the global
 batch, and rank 0 alone writes checkpoints, metrics, traces and the eval
 hook's output. ``train.deterministic`` runs it bitwise reproducibly
 (``deterministic_mode``). Each step is one replay of the captured step
-(``make_step_fn``), but under a mesh of more than one rank and under
-``train.debug_nans``, which run it eagerly. No step of the loop
-waits for the device, except the bounded dispatch-ahead drain, the one
-fetch of the restart check, the eval hook and the end of the run.
+(``make_step_fn``); the device loader's batch and the eval hook's forward
+are captured programs of their own. Only the step under a mesh of more
+than one rank and under ``train.debug_nans`` runs eagerly. No step of the
+loop waits for the device, except the bounded dispatch-ahead drain, the
+one fetch of the restart check, the eval hook and the end of the run.
 """
 
 from __future__ import annotations
@@ -121,7 +122,8 @@ def deterministic_mode(on: bool):
 def make_step_fn(state, cfg: ColvoConfig) -> Callable:
     """The loop's step function ``(state, batch) → metrics`` for ``state``:
     the captured step of ``make_train_step`` (a CUDA graph on the card),
-    except in two cases, each of which runs ``train_step`` eagerly:
+    except in two cases, each of which runs ``train_step`` eagerly (the
+    only programs of the reference that run eagerly on the card):
 
     * a mesh of more than one rank: the loss's ~34 scalar all-reduces go
       through gloo or NCCL a step, and gloo cannot be captured;
@@ -212,7 +214,9 @@ def _train(cfg, dataset, log_dir, max_steps, eval_hook, eval_hook_factory, resum
     # keys the state saved with a checkpoint.
     grain_base = batches.count if grain else 0
     consumed = 0
-    # every rank draws the global batch and keeps its rows
+    # every rank draws the global batch and keeps its rows (on the device
+    # loader, views of its program's static batch: the step reads them on
+    # this stream before the next batch's replay overwrites them)
     rows = (shard_batch(b, mesh) for b in batches) if mesh.size > 1 else batches
     if cfg.data.loader == "device":
         stream = rows  # already on the device

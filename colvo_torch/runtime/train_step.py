@@ -25,7 +25,7 @@ import torch
 
 from colvo_torch import resolve_device
 from colvo_torch.config import ColvoConfig
-from colvo_torch.data.device_store import device_augment, gather
+from colvo_torch.data.device_store import assemble
 from colvo_torch.losses import snippet_loss
 from colvo_torch.models import ColVOModel
 from colvo_torch.runtime.graphs import Graphed
@@ -309,11 +309,8 @@ class ScanTrain:
             idx = torch.randint(0, table.shape[0], (cfg.data.batch_size,), generator=generator,
                                 device=self.device)
             self.indices[i].copy_(idx)
-            clean = gather(frames_u8, table, idx)
-            aug, clean = (device_augment(clean, generator, cfg.data) if cfg.data.augment
-                          else (clean, clean))
-            out.append(_update(state, {"frames": aug, "frames_clean": clean, "k": k}, cfg,
-                               geo_scale_t(cfg, self.step),
+            out.append(_update(state, assemble(frames_u8, table, idx, k, generator, cfg.data),
+                               cfg, geo_scale_t(cfg, self.step),
                                learning_rate_t(cfg, self.step, state.steps_per_epoch),
                                set_to_none=False))
             self.step.add_(1)

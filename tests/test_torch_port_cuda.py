@@ -889,6 +889,76 @@ def test_three_deterministic_captured_steps_equal_three_eager_ones(device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("augment", [True, False])
+def test_captured_batch_program_equals_eager_gather_and_augment(device, augment):
+    """At 64×96, B=2, over an epoch and a half: each batch of the store (a
+    replay of its program, the generator registered) equals the eager
+    gather + ``device_augment`` from the same seed's permutation and
+    generator, bit for bit; the program was captured once and launches no
+    kernel of ours."""
+    from colvo_torch.config import DataConfig
+    from colvo_torch.data import DeviceSnippetStore, device_augment, render_sequence
+    from colvo_torch.data.device_store import gather
+
+    cfg = DataConfig(height=64, width=96, batch_size=2, augment=augment)
+    seq = render_sequence(n_frames=10, height=64, width=96, seed=4)
+    store = DeviceSnippetStore([seq.frames], [seq.k], device=device)
+    it = store.batches(cfg, seed=7)
+    kernels.reset_launch_counts()
+    n = store.n_snippets // 2
+    got = [{k: v.clone() for k, v in next(it).items()} for _ in range(n + n // 2)]
+    assert kernels.launch_counts() == {}
+    assert len(store.program.programs) == 1
+    assert all(p.graph is not None for p in store.program.programs.values())
+    rng = np.random.default_rng(7)
+    gen = torch.Generator(device=device).manual_seed(7)
+    i = 0
+    while i < len(got):
+        order = torch.from_numpy(rng.permutation(store.n_snippets)).to(device)
+        for s in range(0, store.n_snippets - 1, 2):
+            if i == len(got):
+                break
+            clean = gather(store.frames, store.table, order[s:s + 2])
+            aug, clean = device_augment(clean, gen, cfg) if augment else (clean, clean)
+            assert torch.equal(got[i]["frames"], aug) and torch.equal(
+                got[i]["frames_clean"], clean), i
+            i += 1
+
+
+@pytest.mark.cuda
+def test_captured_eval_forward_equals_its_eager_body(device):
+    """The eval hook's program at 64×96 (bf16 convs) against its eager body
+    on the same weights: every output bit for bit at the capture's call and
+    at a replay after the weights changed in place; no kernel of ours
+    launched (its warp is the plain sampler)."""
+    import types
+
+    from colvo_torch.pipelines import make_training_eval_hook
+
+    cfg = ColvoConfig()
+    cfg.data.height, cfg.data.width = 64, 96
+    model = ColVOModel(cfg.model)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.to(device)
+    hook = make_training_eval_hook(cfg, model)
+    state = types.SimpleNamespace(model=model)
+    kernels.reset_launch_counts()
+    for step in range(2):
+        scalars = hook(step, state, None)
+        assert all(np.isfinite(v) for v in scalars.values())
+        got = [t.clone() for t in hook.program()]
+        model.eval()
+        want = hook.forward(model)
+        model.train()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), step
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1.01)
+    assert kernels.launch_counts() == {}
+    assert len(hook.program.programs) == 1
+
+
+@pytest.mark.cuda
 def test_a_capture_that_reads_the_card_on_the_host_raises(device):
     """A step whose body reads a device value on the host (``.item()``)
     cannot be captured: ``make_train_step`` raises rather than running it
