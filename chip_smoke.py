@@ -149,11 +149,24 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
    frames (the reference's 3,000, cut) with keyframe refinement: finite
    ATE and polyp errors, non-empty clouds, the PLY, the refinement's
    launches; VO frames/s.
-11. Prints the kernel table as one JSON line (launches over the slice
+11. Ablation phase: ``colvo_torch.scripts.ablate.run_cell`` for
+   ``dcdp1_lcc1`` and ``expjit_dcdp1_lccG`` at full width, 60 steps on a
+   corpus cut to 2 × 16 frames (8 × 64 uncut): each cell's launches
+   exactly (60 replays and the warm-up) × a step's, finite records with
+   the reference's keys, a resumed cell returning its record with no
+   launch, ``ABLATION.md``'s two rows, the second cell's peak memory
+   within 10 % of the first's; ms/step and each stage's seconds. Then
+   ``figures``, ``scale_decoupling`` and ``gauge_probe`` on those cells
+   (two PNGs; rows for the two cells, the others skipped; no launch) and
+   ``longvideo``'s two arms at 300 frames (3,000 uncut) on their weights:
+   finite drift curves, the renorm A/B, host RSS flat within 300 MB, the
+   device's peak memory, the report and its figure, no launch; frames/s.
+12. Prints the kernel table as one JSON line (launches over the slice
    and knob runs, the deterministic runs, the data-parallel ranks, loop
    run 1, the grain runs, the device-loader run, the chunks' replays and
-   the refine calls, the graphs phase, the demo's steps and the full-colon
-   run's refinement; every kernel must have launched), then the device
+   the refine calls, the graphs phase, the demo's steps, the full-colon
+   run's refinement and the ablation's cells; every kernel must have
+   launched), then the device
    line ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -3531,6 +3544,184 @@ def fullcolon_phase(device, smi: str, weights: str, out: str) -> Counter:
     return Counter(counts)
 
 
+# The ablation's cells (4000 steps on 8 × 64 frames) and the long video's
+# 3,000 frames, cut for time.
+ABLATE_STEPS = 60
+ABLATE_CORPUS = (2, 16)  # sequences × frames: 28 snippets, 2 steps an epoch at B=12
+ABLATE_CELLS = (dict(dcdp=True, lcc=True),
+                dict(dcdp=True, lcc=True, exp_jitter=0.35, lcc_mode="global+affine",
+                     name="expjit_dcdp1_lccG"))
+# the reference's record (scripts/ablate.py): the cell, then evaluate_synthetic's metrics
+ABLATE_KEYS = ("cell", "seed", "dcdp", "lcc", "steps", "train_s", "abs_rel", "sq_rel", "rmse",
+               "rmse_log", "a1", "a2", "a3", "ate", "rpe_trans", "rpe_rot_deg", "rpe_trans_5",
+               "rpe_rot_deg_5", "polyp/e1", "polyp/e2", "polyp/e3", "polyp/e_mean")
+ABLATE_PEAK_RATIO = 1.1  # a later cell's peak memory against the first's
+LONGVIDEO_FRAMES = 300
+# Host RSS over a stream, max - min: it grows once inside the stream, by
+# 102-210 MB at 300 frames and at 3,000 alike on the H100 (not O(N), whose
+# depth maps alone would add ~25 MB as uint8 every 300 frames).
+LONGVIDEO_RSS_MB = 300.0
+
+
+def ablate_phase(device, smi: str, root: str) -> Counter:
+    """``ablate.run_cell`` for ``ABLATE_CELLS`` at full width, ``ABLATE_STEPS``
+    steps on the corpus cut to ``ABLATE_CORPUS``, into ``root``: each cell's
+    launches exactly its steps' and the warm-up's, a finite record with the
+    reference's keys, its peak memory (the second within
+    ``ABLATE_PEAK_RATIO`` of the first: a finished cell gives back its
+    programs); a resumed cell returns its record and launches nothing;
+    ``ABLATION.md`` has the two rows. Logs ms/step and the seconds of
+    rendering, training and evaluation. Returns the launches."""
+    from colvo_torch.scripts import ablate
+
+    t_phase = time.time()
+    stages, cfgs = Counter(), []
+
+    def timed_stage(key, fn):
+        def run(*args, **kwargs):
+            t0 = time.time()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                stages[key] += time.time() - t0
+        return run
+
+    real_train = ablate.train_loop
+
+    def recorded_train(cfg, *args, **kwargs):
+        cfgs.append(cfg)
+        return real_train(cfg, *args, **kwargs)
+
+    total, recs, peaks, before = Counter(), [], [], []
+    with mock.patch.object(ablate, "N_SEQUENCES", ABLATE_CORPUS[0]), \
+            mock.patch.object(ablate, "N_FRAMES", ABLATE_CORPUS[1]), \
+            mock.patch.object(ablate, "corpus", timed_stage("render", ablate.corpus)), \
+            mock.patch.object(ablate, "train_loop", timed_stage("train", recorded_train)), \
+            mock.patch.object(ablate, "evaluate_synthetic",
+                              timed_stage("evaluate", ablate.evaluate_synthetic)):
+        for cell in ABLATE_CELLS:
+            stages.clear()
+            torch.cuda.synchronize(device)
+            before.append(torch.cuda.memory_allocated(device) / 2**30)
+            torch.cuda.reset_peak_memory_stats(device)
+            reset_launch_counts()
+            t0 = time.time()
+            rec = ablate.run_cell(steps=ABLATE_STEPS, out_root=root, device=device.type, **cell)
+            cell_s = time.time() - t0
+            counts = launch_counts()
+            peaks.append(torch.cuda.max_memory_allocated(device) / 2**30)
+            want = step_launches(cfgs[-1], ABLATE_STEPS + STEP_WARMUP)
+            check(counts == want, f"ablation cell {rec['cell']}: launches {counts} == {want}")
+            total.update(counts)
+            check(tuple(rec) == ABLATE_KEYS and all(
+                np.isfinite(v) for k, v in rec.items() if k not in ("cell", "dcdp", "lcc")),
+                f"ablation record {rec}")
+            recs.append(rec)
+            with open(os.path.join(root, rec["cell"], "train", "metrics.jsonl")) as f:
+                wall = [json.loads(line) for line in f if "wall_steps_per_sec" in line]
+            log(f"ablation cell {rec['cell']} ({smi}): {ABLATE_STEPS} steps at "
+                f"{1e3 / wall[-1]['wall_steps_per_sec']:.2f} ms/step (wall_steps_per_sec: the "
+                f"warm-up, capture and checkpoint inside); {cell_s:.1f} s: render "
+                f"{stages['render']:.1f}, train {stages['train']:.1f}, evaluate "
+                f"{stages['evaluate']:.1f}; {before[-1]:.2f} GiB allocated before, peak "
+                f"{peaks[-1]:.2f} GiB; launches {counts}; abs_rel {rec['abs_rel']} ate "
+                f"{rec['ate']} rpe_rot_deg {rec['rpe_rot_deg']} polyp/e_mean "
+                f"{rec['polyp/e_mean']}")
+        reset_launch_counts()
+        again = ablate.run_cell(steps=ABLATE_STEPS, out_root=root, device=device.type,
+                                **ABLATE_CELLS[0])
+        check(again == recs[0] and launch_counts() == {},
+              f"a resumed cell returns its record ({again == recs[0]}) and launches nothing "
+              f"({launch_counts()})")
+    check(peaks[1] <= ABLATE_PEAK_RATIO * peaks[0],
+          f"the second cell's peak {peaks[1]:.3f} GiB within {ABLATE_PEAK_RATIO}x the first's "
+          f"{peaks[0]:.3f}")
+    ablate.aggregate(root, ABLATE_STEPS)
+    with open(os.path.join(root, "ABLATION.md")) as f:
+        rows = [line for line in f if line.startswith("| ") and "seeds (conv" not in line]
+    check(sorted(r[2:].split(" |")[0].split(" ⚠")[0] for r in rows)
+          == sorted(r["cell"] for r in recs), f"ABLATION.md rows {rows}")
+    log(f"ablation phase: {time.time() - t_phase:.1f} s; peaks {peaks[0]:.3f} / {peaks[1]:.3f} "
+        f"GiB; ABLATION.md rows: " + " ".join(r.strip() for r in rows))
+    return total
+
+
+def studies_phase(device, smi: str, root: str, out: str) -> None:
+    """``figures``, ``scale_decoupling`` and ``gauge_probe`` over the
+    ablation phase's cells under ``root`` (``<tmp>/runs/ablate``, so that
+    the probe reads its ``RUNS``): two methods drawn (two PNGs), finite
+    rows for the two cells and the other runs skipped, no kernel
+    launched."""
+    from colvo_torch.scripts import figures, gauge_probe, scale_decoupling
+
+    t_phase = time.time()
+    reset_launch_counts()
+    preds, trajs = figures.main(root, os.path.join(out, "figures"), device.type)
+    check(list(preds) == ["ColVO(ours)", "expjit-trained LCC-global"]
+          and all(np.isfinite(v).all() for v in (*preds.values(), *trajs.values())),
+          f"figures' methods {list(preds)}")
+    for name in ("qualitative_depth_methods.png", "trajectories_methods.png"):
+        check(len(_png_shape(os.path.join(out, "figures", name))) == 3, f"figure {name}")
+    rows = scale_decoupling.main(root, None, device.type)
+    check([r["run"] for r in rows] == ["expjit_dcdp1_lccG", "dcdp1_lcc1"]
+          and all(np.isfinite([r["s_traj"], r["s_depth"], r["decoupling"], r["polyp_e_mean"]]).all()
+                  for r in rows)
+          and os.path.exists(os.path.join(root, "SCALE_DECOUPLING.md")),
+          f"scale_decoupling rows {rows}")
+    with contextlib.chdir(os.path.dirname(os.path.dirname(root))):
+        probe = gauge_probe.main("runs/ablate", 12, device.type)
+    done = [r for r in probe if "skip" not in r]
+    check([r["run"] for r in done] == ["expjit_dcdp1_lccG", "dcdp1_lcc1"]
+          and len(probe) == len(gauge_probe.RUNS)
+          and all(np.isfinite([v for k, v in r.items() if k != "run"]).all() for r in done),
+          f"gauge_probe lines {probe}")
+    check(launch_counts() == {}, f"the studies launch no kernel: {launch_counts()}")
+    log(f"studies ({smi}): figures of {list(preds)}; scale_decoupling {rows}; gauge_probe "
+        f"{done}; {time.time() - t_phase:.1f} s")
+
+
+def longvideo_phase(device, smi: str, root: str, out: str) -> None:
+    """``longvideo.main`` for the clean arm on ``dcdp1_lcc1``'s weights and
+    the expjit arm on ``expjit_dcdp1_lccG``'s, ``LONGVIDEO_FRAMES`` frames
+    each, the render cache in a temporary directory: finite drift curves,
+    host RSS flat within ``LONGVIDEO_RSS_MB``, the device's peak memory
+    recorded, no kernel launched; the report names both arms and the card,
+    its figure is the reference's 990 × 374. Logs frames/s and the renorm
+    A/B."""
+    from colvo_torch.scripts import longvideo
+
+    t_phase = time.time()
+    recs = []
+    with tempfile.TemporaryDirectory() as cache, mock.patch.object(tempfile, "tempdir", cache):
+        for arm, cell in (("clean", "dcdp1_lcc1"), ("expjit", "expjit_dcdp1_lccG")):
+            reset_launch_counts()
+            rec = longvideo.main(LONGVIDEO_FRAMES, os.path.join(root, cell, "weights.npz"), out,
+                                 arm, None, device.type)
+            check(launch_counts() == {}, f"long video {arm}: launches {launch_counts()}")
+            rows = rec["curves"]["renorm50"] + rec["curves"]["renorm0"]
+            check(all(np.isfinite([v for v in r.values()]).all() for r in rows)
+                  and rec["rss_mb_max"] - rec["rss_mb_min"] <= LONGVIDEO_RSS_MB
+                  and rec["device"] == torch.cuda.get_device_name(device)
+                  and (rec["device_peak_mb"] or 0) > 0,
+                  f"long video {arm}: {rec}")
+            deltas = [abs(a[k] - b[k]) for a, b in zip(rec["curves"]["renorm50"],
+                                                       rec["curves"]["renorm0"])
+                      for k in longvideo.RENORM_KEYS[1:]]
+            log(f"long video {arm} ({smi}): {LONGVIDEO_FRAMES} frames at {rec['fps']} frames/s "
+                f"({rec['stream_s']} s; render {rec['render_s']} s outside); renorm50 "
+                f"{rec['curves']['renorm50']}; renorm A/B max |delta| {max(deltas):.3e}; host RSS "
+                f"{rec['rss_mb_min']}-{rec['rss_mb_max']} MB; device {rec['device_mb_before']} MB "
+                f"before, peak {rec['device_peak_mb']} MB over the stream")
+            recs.append(rec)
+    with open(os.path.join(out, "LONGVIDEO.md")) as f:
+        md = f.read()
+    check(md.count(" arm (") == 2 and torch.cuda.get_device_name(device) in md,
+          "LONGVIDEO.md names both arms and the card")
+    shape = _png_shape(os.path.join(out, "longvideo_drift.png"))
+    check(shape == (374, 990, 3), f"the drift figure {shape}")
+    log(f"long-video phase: {time.time() - t_phase:.1f} s")
+
+
 # Adam7's seven passes: (first column, first row, column step, row step)
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
          (0, 1, 1, 2))
@@ -3666,6 +3857,14 @@ def main() -> int:
         counts.update(demo_counts)
         log(f"--- full colon: the port's fullcolon, {FULLCOLON_FRAMES} frames ---")
         counts.update(fullcolon_phase(device, smi, weights, os.path.join(tmp, "fullcolon")))
+        ablate_root = os.path.join(tmp, "runs", "ablate")
+        log(f"--- ablation: the port's ablate, {len(ABLATE_CELLS)} cells of {ABLATE_STEPS} "
+            "steps ---")
+        counts.update(ablate_phase(device, smi, ablate_root))
+        log("--- studies: figures, scale_decoupling, gauge_probe on the cells ---")
+        studies_phase(device, smi, ablate_root, tmp)
+        log(f"--- long video: both arms, {LONGVIDEO_FRAMES} frames ---")
+        longvideo_phase(device, smi, ablate_root, os.path.join(tmp, "longvideo"))
 
     # Nothing of JAX came in, not even through a library the port imports.
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "colvo"))

@@ -6,10 +6,11 @@ A :class:`Figure` is a white canvas of the reference's size (inches × its
 figure is saved, as matplotlib does, so that limits may be set after the
 data. :class:`Axes3D` projects orthographically at matplotlib's ``elev``
 and ``azim`` into a box of aspect 4:4:3; :class:`ImageAxes` shows an image
-resampled to fit (nearest), keeping its aspect. Lines are anti-aliased by
-their coverage of each pixel; points are splatted with their alpha; text
-uses a 6×11 bitmap font, doubled for titles. Output goes through
-``data/png.py``.
+resampled to fit (nearest), keeping its aspect; :class:`Axes2D` draws line
+plots (solid or dashed, with circle or square markers) against linear axes
+with ticks and a legend. Lines are anti-aliased by their coverage of each
+pixel; points are splatted with their alpha; text uses a 6×11 bitmap font,
+doubled for titles. Output goes through ``data/png.py``.
 """
 
 from __future__ import annotations
@@ -196,17 +197,55 @@ class Canvas:
             ring = np.clip(edge_width / 2 + 0.5 - np.abs(dist - radius), 0, 1)[..., None]
             region += ring * (rgb(edge) - region)
 
+    def square(self, center, half: float, color) -> None:
+        """A filled, anti-aliased square of side ``2·half`` about ``center``."""
+        cx, cy = center
+        if not (np.isfinite(cx) and np.isfinite(cy)):
+            return
+        x0, x1 = max(int(cx - half - 1), 0), min(int(cx + half + 2), self.width)
+        y0, y1 = max(int(cy - half - 1), 0), min(int(cy + half + 2), self.height)
+        if x1 <= x0 or y1 <= y0:
+            return
+        gy, gx = np.mgrid[y0:y1, x0:x1]
+        cov = (np.clip(half + 0.5 - np.abs(gx - cx), 0, 1)
+               * np.clip(half + 0.5 - np.abs(gy - cy), 0, 1))[..., None]
+        region = self.img[y0:y1, x0:x1]
+        region += cov * (rgb(color) - region)
+
+    def dashed(self, xy: np.ndarray, color, width: float, on: float, off: float) -> None:
+        """The line through ``xy`` (N, 2) in dashes of ``on`` pixels with
+        gaps of ``off``, the pattern running on across the joints."""
+        xy = np.asarray(xy, np.float64)
+        period, start = on + off, 0.0  # the pattern's phase at each segment's start
+        for a, b in zip(xy[:-1], xy[1:]):
+            n = float(np.hypot(*(b - a)))
+            if not (np.isfinite(a).all() and np.isfinite(b).all()) or n == 0:
+                continue
+            t = -start
+            while t < n:
+                lo, hi = max(t, 0.0), min(t + on, n)
+                if hi > lo:
+                    self.polyline(np.stack([a + (b - a) * lo / n, a + (b - a) * hi / n]),
+                                  color, width)
+                t += period
+            start = (start + n) % period
+
     def text(self, x: float, y: float, s: str, color="k", scale: int = 1,
-             ha: str = "left", va: str = "baseline") -> None:
+             ha: str = "left", va: str = "baseline", vertical: bool = False) -> None:
         """``s`` at (x, y): ``ha`` left, center or right; ``va`` baseline,
-        top, center or bottom."""
+        top, center or bottom. ``vertical`` turns it a quarter
+        anticlockwise about its box's centre (then (x, y) is that centre)."""
         w, h = text_size(s, scale)
-        x = int(round(x - {"left": 0, "center": w / 2, "right": w}[ha]))
-        y = int(round(y - {"baseline": _BASELINE * scale, "top": 0, "center": h / 2,
-                           "bottom": h}[va]))
         mask = np.concatenate([_GLYPHS.get(ch, _GLYPHS["?"]) for ch in s], axis=1) if s else \
             np.zeros((GLYPH_H, 0), bool)
         mask = np.kron(mask, np.ones((scale, scale), bool))
+        if vertical:
+            mask = np.rot90(mask)
+            x, y = int(round(x - h / 2)), int(round(y - w / 2))
+        else:
+            x = int(round(x - {"left": 0, "center": w / 2, "right": w}[ha]))
+            y = int(round(y - {"baseline": _BASELINE * scale, "top": 0, "center": h / 2,
+                               "bottom": h}[va]))
         ys, xs = np.nonzero(mask)
         self.blend(ys + y, xs + x, rgb(color))
 
@@ -439,12 +478,184 @@ class Axes3D(_Axes):
             self._draw_legend(canvas)
 
 
-class Figure:
-    """A white figure of ``width_in`` × ``height_in`` inches at 130 dpi."""
+class Axes2D(_Axes):
+    """A 2-D line plot, recorded and drawn at render time as matplotlib's
+    ``Axes.plot`` draws it: linear axes over the data's range widened by 5 %
+    a side, ticks at multiples of 1, 2, 2.5 or 5 × 10^k under each axis's
+    tick budget, a frame, tick labels, axis labels (the y label turned a
+    quarter), a title and a legend where the lines cover it least.
+    ``dpi`` converts the widths and marker sizes given in points."""
 
-    def __init__(self, width_in: float, height_in: float):
-        self.width = int(round(width_in * DPI))
-        self.height = int(round(height_in * DPI))
+    MARGIN = 0.05  # matplotlib's axes.xmargin and ymargin
+    LW = 1.5  # matplotlib's lines.linewidth, points
+    STEPS = (1.0, 2.0, 2.5, 5.0, 10.0)
+    TICK = 4  # tick length in pixels
+
+    def __init__(self, rect, dpi: int = DPI):
+        super().__init__(rect)
+        self.pt = dpi / 72.0
+        self.lines: List[tuple] = []
+        self.xlabel = self.ylabel = ""
+        self.show_legend = False
+
+    def plot(self, xs, ys, fmt: str = "-", label: Optional[str] = None,
+             ms: float = 6.0) -> None:
+        """A line through (xs, ys) in the next colour of matplotlib's cycle.
+        ``fmt``: ``"-"`` or ``"--"`` (dashed), then an optional ``"o"``
+        (circle) or ``"s"`` (square) marker of ``ms`` points at each point."""
+        style, marker = (fmt[:-1], fmt[-1]) if fmt[-1] in "os" else (fmt, "")
+        if style not in ("-", "--"):
+            raise ValueError(f"line style {fmt!r} is not drawn")
+        color = CYCLE[len(self.lines) % len(CYCLE)]
+        self.lines.append((np.asarray(xs, np.float64), np.asarray(ys, np.float64), style,
+                           marker, color, label, ms))
+
+    def set_xlabel(self, label: str) -> None:
+        self.xlabel = label
+
+    def set_ylabel(self, label: str) -> None:
+        self.ylabel = label
+
+    def legend(self) -> None:
+        self.show_legend = True
+
+    # -- layout
+    def limits(self) -> Tuple[float, float, float, float]:
+        """(x0, x1, y0, y1): the data's range with the margins."""
+        out = []
+        for i in (0, 1):
+            v = np.concatenate([ln[i] for ln in self.lines]) if self.lines else np.zeros(0)
+            v = v[np.isfinite(v)]
+            lo, hi = (float(v.min()), float(v.max())) if len(v) else (0.0, 1.0)
+            if hi == lo:  # a flat range: ±5 % of the value (±0.05 about 0)
+                pad = abs(lo) * self.MARGIN or self.MARGIN
+                lo, hi = lo - pad, hi + pad
+            pad = (hi - lo) * self.MARGIN
+            out += [lo - pad, hi + pad]
+        return tuple(out)
+
+    def ticks(self, lo: float, hi: float, n_max: int) -> Tuple[np.ndarray, List[str]]:
+        """Ticks in [lo, hi] at the smallest step of ``STEPS`` × 10^k that
+        gives at most ``n_max`` intervals, and their labels."""
+        base = 10.0 ** math.floor(math.log10((hi - lo) / max(n_max, 1)))
+        step = next(base * m for m in self.STEPS if (hi - lo) / (base * m) <= n_max)
+        ticks = np.arange(math.ceil(lo / step - 1e-9), math.floor(hi / step + 1e-9) + 1) * step
+        ticks[np.abs(ticks) < step * 1e-6] = 0.0  # no "-0.00"
+        decimals = max(0, -math.floor(math.log10(step) + 1e-9))
+        if not np.allclose(np.round(ticks, decimals), ticks, rtol=0, atol=step * 1e-6):
+            decimals += 1  # 2.5 × 10^k
+        return ticks, [f"{t:.{decimals}f}" for t in ticks]
+
+    def plot_rect(self) -> Tuple[float, float, float, float]:
+        """(left, top, width, height) in pixels of the area the data spans."""
+        x0, y0, w, h = self.rect
+        _, _, ylo, yhi = self.limits()
+        _, ylabels = self.ticks(ylo, yhi, max(2, int(h // 60)))
+        left = x0 + max(text_size(s)[0] for s in ylabels) + self.TICK + 6 + (
+            GLYPH_H + 10 if self.ylabel else 4)
+        top = y0 + (GLYPH_H * self.title_scale + 10 if self.title else 8)
+        bottom = y0 + h - GLYPH_H - self.TICK - 6 - (GLYPH_H + 8 if self.xlabel else 2)
+        right = x0 + w - 12
+        return left, top, right - left, bottom - top
+
+    def to_pixel(self, xs, ys) -> np.ndarray:
+        """Data points → (N, 2) pixel coordinates in the figure."""
+        x0, x1, y0, y1 = self.limits()
+        left, top, pw, ph = self.plot_rect()
+        xs, ys = np.asarray(xs, np.float64), np.asarray(ys, np.float64)
+        return np.stack([left + (xs - x0) / (x1 - x0) * pw,
+                         top + ph - (ys - y0) / (y1 - y0) * ph], axis=-1)
+
+    # -- rendering
+    def _draw_marker(self, canvas: Canvas, xy, marker: str, ms: float, color) -> None:
+        r = ms * self.pt / 2
+        if marker == "o":
+            canvas.disc(xy, r, color)
+        elif marker == "s":
+            canvas.square(xy, r, color)
+
+    def _draw_line(self, canvas: Canvas, xy, style: str, color) -> None:
+        width = self.LW * self.pt
+        if style == "--":  # matplotlib's dashes, (3.7, 1.6) line widths
+            canvas.dashed(xy, color, width, 3.7 * width, 1.6 * width)
+        else:
+            canvas.polyline(xy, color, width)
+
+    def _draw_legend(self, canvas: Canvas) -> None:
+        entries = [ln for ln in self.lines if ln[5]]
+        if not entries:
+            return
+        left, top, pw, ph = self.plot_rect()
+        bw = max(text_size(ln[5])[0] for ln in entries) + 44
+        bh = len(entries) * (GLYPH_H + 8) + 6
+        # matplotlib's "best": of its nine places, in its order, the first
+        # whose box covers the fewest points of the lines (sampled along them)
+        xl, xc, xr = left + 6, left + (pw - bw) / 2, left + pw - bw - 6
+        yt, yc, yb = top + 6, top + (ph - bh) / 2, top + ph - bh - 6
+        places = [(xr, yt), (xl, yt), (xl, yb), (xr, yb), (xr, yc), (xl, yc), (xr, yc),
+                  (xc, yb), (xc, yt), (xc, yc)]
+        t = np.linspace(0, 1, 16, endpoint=False)[:, None]
+        pts = np.concatenate([np.concatenate([a + t * (b - a) for a, b in zip(xy[:-1], xy[1:])]
+                                             + [xy[-1:]])
+                              for xy in (self.to_pixel(ln[0], ln[1]) for ln in self.lines)])
+
+        def covered(place):
+            bx, by = place
+            return int(np.sum((pts[:, 0] >= bx) & (pts[:, 0] <= bx + bw)
+                              & (pts[:, 1] >= by) & (pts[:, 1] <= by + bh)))
+        bx, by = min(places, key=covered)
+        bx, by = int(bx), int(by)
+        canvas.img[by:by + bh, bx:bx + bw] = 1.0
+        canvas.polyline(np.array([[bx, by], [bx + bw, by], [bx + bw, by + bh], [bx, by + bh],
+                                  [bx, by]], np.float64), NAMED["lightgray"], 1.0)
+        for n, (_, _, style, marker, color, label, ms) in enumerate(entries):
+            yc = by + 7 + n * (GLYPH_H + 8) + GLYPH_H / 2
+            self._draw_line(canvas, np.array([[bx + 6, yc], [bx + 34, yc]]), style, color)
+            self._draw_marker(canvas, (bx + 20, yc), marker, ms, color)
+            canvas.text(bx + 40, yc, label, "k", 1, "left", "center")
+
+    def render(self, canvas: Canvas) -> None:
+        x0, x1, y0, y1 = self.limits()
+        left, top, pw, ph = self.plot_rect()
+        for xs, ys, style, marker, color, _, ms in self.lines:
+            xy = self.to_pixel(xs, ys)
+            self._draw_line(canvas, xy, style, color)
+            for p in xy:
+                self._draw_marker(canvas, p, marker, ms, color)
+        # the frame and the ticks over the lines, the labels outside
+        frame = np.array([[left, top], [left + pw, top], [left + pw, top + ph],
+                          [left, top + ph], [left, top]])
+        canvas.polyline(frame, "k", 1.0)
+        xticks, xlabels = self.ticks(x0, x1, max(2, int(self.rect[2] // 80)))
+        for t, s in zip(xticks, xlabels):
+            px = left + (t - x0) / (x1 - x0) * pw
+            canvas.polyline(np.array([[px, top + ph], [px, top + ph + self.TICK]]), "k", 1.0)
+            canvas.text(px, top + ph + self.TICK + 3, s, "k", 1, "center", "top")
+        yticks, ylabels = self.ticks(y0, y1, max(2, int(self.rect[3] // 60)))
+        for t, s in zip(yticks, ylabels):
+            py = top + ph - (t - y0) / (y1 - y0) * ph
+            canvas.polyline(np.array([[left - self.TICK, py], [left, py]]), "k", 1.0)
+            canvas.text(left - self.TICK - 3, py, s, "k", 1, "right", "center")
+        if self.xlabel:
+            canvas.text(left + pw / 2, top + ph + self.TICK + GLYPH_H + 10, self.xlabel, "k", 1,
+                        "center", "top")
+        if self.ylabel:
+            canvas.text(self.rect[0] + 4 + GLYPH_H / 2, top + ph / 2, self.ylabel, "k", 1,
+                        vertical=True)
+        if self.title:
+            canvas.text(left + pw / 2, self.rect[1] + 4, self.title, "k", self.title_scale,
+                        "center", "top")
+        if self.show_legend:
+            self._draw_legend(canvas)
+
+
+class Figure:
+    """A white figure of ``width_in`` × ``height_in`` inches at ``dpi``
+    (130 by default, the reference's savefig dpi)."""
+
+    def __init__(self, width_in: float, height_in: float, dpi: int = DPI):
+        self.width = int(round(width_in * dpi))
+        self.height = int(round(height_in * dpi))
         self.axes: List[_Axes] = []
         self.suptitle = ""
 

@@ -40,6 +40,7 @@ import shutil
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -71,19 +72,28 @@ def _rss_mb() -> float:
         return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e6
 
 
-def render_frames(gt_poses: np.ndarray, k: np.ndarray, h: int, w: int) -> np.ndarray:
+def render_frames(gt_poses: np.ndarray, k: np.ndarray, h: int, w: int,
+                  exp_jitter: Optional[float] = None) -> np.ndarray:
     """(N, H, W, 3) uint8 frames along ``gt_poses``, through the cache file
-    in the temporary directory."""
+    in the temporary directory: ``longvideo_<n>_<h>x<w>.npz``, or with
+    ``exp_jitter`` given (the long-video arms) ``..._j<exp_jitter>.npz`` and
+    each frame scaled by an independent gain U(1-j, 1+j) from the generator
+    ``2026 + 77``, then clipped (the training corpus's protocol)."""
     n = len(gt_poses)
-    cache = os.path.join(tempfile.gettempdir(), f"longvideo_{n}_{h}x{w}.npz")
+    tag = "" if exp_jitter is None else f"_j{exp_jitter}"
+    cache = os.path.join(tempfile.gettempdir(), f"longvideo_{n}_{h}x{w}{tag}.npz")
     if os.path.exists(cache):
         print(f"loaded cached render {cache}", flush=True)
         with np.load(cache) as data:
             return data["frames"]
-    print(f"rendering {n} frames {h}x{w} ...", flush=True)
+    print(f"rendering {n} frames {h}x{w}" + (f" jitter={exp_jitter}" if tag else "") + " ...",
+          flush=True)
+    gain_rng = np.random.default_rng(2026 + 77)
     frames_u8 = np.zeros((n, h, w, 3), dtype=np.uint8)
     for i in range(n):
         f, _ = render_frame(gt_poses[i], k, h, w, radius=0.03)
+        if exp_jitter:
+            f = np.clip(f * (1.0 + gain_rng.uniform(-exp_jitter, exp_jitter)), 0.0, 1.0)
         frames_u8[i] = np.clip(f * 255.0, 0, 255).astype(np.uint8)
     np.savez(cache, frames=frames_u8)
     return frames_u8

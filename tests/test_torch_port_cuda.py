@@ -959,6 +959,38 @@ def test_captured_eval_forward_equals_its_eager_body(device):
 
 
 @pytest.mark.cuda
+def test_ablation_cell_launches_its_steps_and_its_resume_none(device, tmp_path, monkeypatch):
+    """``ablate.run_cell`` at 64×96, B=2, 3 steps on a corpus of 2 × 6
+    frames: the captured step's launches (8 S/grad/C3, one S/grad/C1 for
+    the four geo scales, one T/C1) × (3 replays + the warm-up), none in
+    the export and evaluation; resumed, the cell returns its record and
+    launches nothing."""
+    import sys
+    from unittest import mock
+
+    from colvo_torch.runtime import graphs
+    from colvo_torch.scripts import ablate
+
+    def small():
+        cfg = ColvoConfig()
+        cfg.data.height, cfg.data.width, cfg.data.batch_size = 64, 96, 2
+        return cfg
+
+    # blocks TensorBoard's import (it loads TensorFlow); no other module is dropped after
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    with mock.patch.object(ablate, "ColvoConfig", small), \
+            mock.patch.object(ablate, "N_SEQUENCES", 2), mock.patch.object(ablate, "N_FRAMES", 6):
+        kernels.reset_launch_counts()
+        rec = ablate.run_cell(True, True, 3, str(tmp_path), device="cuda")
+        n = 3 + graphs.WARMUP
+        assert kernels.launch_counts() == {"S/grad/C3": 8 * n, "S/grad/C1": n, "T/C1": n}
+        assert np.isfinite(rec["abs_rel"]) and np.isfinite(rec["polyp/e_mean"])
+        kernels.reset_launch_counts()
+        assert ablate.run_cell(True, True, 3, str(tmp_path), device="cuda") == rec
+        assert kernels.launch_counts() == {}
+
+
+@pytest.mark.cuda
 def test_a_capture_that_reads_the_card_on_the_host_raises(device):
     """A step whose body reads a device value on the host (``.item()``)
     cannot be captured: ``make_train_step`` raises rather than running it

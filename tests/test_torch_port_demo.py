@@ -29,6 +29,7 @@ from colvo_torch.runtime import export_npz, load_npz
 from colvo_torch.runtime import train as train_loop
 from colvo_torch.scripts import demo_synthetic, fullcolon
 from colvo_torch.vo import load_ply
+from test_torch_port_ablate import no_tensorboard
 
 torch.set_num_threads(2)
 
@@ -48,9 +49,6 @@ def small(cls=ColvoConfig):
     return make
 
 
-# TensorBoard's import loads TensorFlow (and JAX with it) for ~20 s; the
-# writer takes its absence as the reference's does.
-NO_TENSORBOARD = {"torch.utils.tensorboard": None}
 
 
 def test_demo_main_runs_end_to_end_and_equals_its_pipeline(tmp_path):
@@ -61,7 +59,7 @@ def test_demo_main_runs_end_to_end_and_equals_its_pipeline(tmp_path):
     with mock.patch.object(demo_synthetic, "ColvoConfig", small()), \
             mock.patch.object(demo_synthetic, "N_SEQUENCES", N_SEQUENCES), \
             mock.patch.object(demo_synthetic, "N_FRAMES", N_FRAMES), \
-            mock.patch.dict(sys.modules, NO_TENSORBOARD):
+            no_tensorboard():
         got = demo_synthetic.main(STEPS, str(out), "cpu", eval_every_epochs=1)
 
     rows = [json.loads(line) for line in open(out / "train" / "metrics.jsonl")]
@@ -87,7 +85,7 @@ def test_demo_main_runs_end_to_end_and_equals_its_pipeline(tmp_path):
     seqs = [render_sequence(n_frames=N_FRAMES, height=H, width=W, seed=100 + 7 * i)
             for i in range(N_SEQUENCES)]
     ds = SnippetDataset([s.frames for s in seqs], [s.k for s in seqs], cfg.data.frame_offsets)
-    with mock.patch.dict(sys.modules, NO_TENSORBOARD):
+    with no_tensorboard():
         _, state = train_loop(cfg, ds, log_dir=str(tmp_path / "train"), max_steps=STEPS,
                               eval_hook_factory=make_training_eval_hook, device="cpu")
     weights = export_npz(state.model.state_dict(), str(tmp_path / "weights.npz"))

@@ -82,19 +82,26 @@ def test_the_grain_loader_loads_neither_grain_nor_jax():
     assert [m for m in loaded if m.split(".")[0] in ("grain", "jax", "jaxlib")] == []
 
 
+SCRIPTS = ("demo_synthetic", "fullcolon", "ablate", "gauge_validate", "gauge2_requeue",
+           "basin_levers", "figures", "scale_decoupling", "gauge_probe", "longvideo")
+
+
 def test_the_scripts_load_neither_jax_nor_bench():
     """The port's workflows (``colvo_torch/scripts``) keep their own copy of
     what they need from the repository's ``scripts/`` and ``bench.py``:
-    importing them loads neither, nor JAX, and no source of the port or
-    ``chip_smoke.py`` imports either."""
-    names = ("colvo_torch.scripts.demo_synthetic", "colvo_torch.scripts.fullcolon")
+    importing them loads neither, nor JAX, nor a plotting or image library
+    (the long-video figure is drawn by ``raster.Axes2D``), and no source of
+    the port or ``chip_smoke.py`` imports either."""
+    names = tuple(f"colvo_torch.scripts.{n}" for n in SCRIPTS)
     code = (f"import json, sys; import {', '.join(names)}; "
+            "from colvo_torch.evaluation.raster import Axes2D; "
             "print(json.dumps(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          check=True, timeout=300)
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert set(names) <= set(loaded)
     assert [m for m in loaded if m.split(".")[0] in FORBIDDEN + ("bench", "scripts")] == []
+    assert [m for m in loaded if m.split(".")[0] in NOT_LOADED_BY_AN_IMPORT] == []
     for path in sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
         bad = [m for m in _imports(path) if m.split(".")[0] in ("bench", "scripts")]
         assert bad == [], f"{path.relative_to(ROOT)} imports {bad}"
