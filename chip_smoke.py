@@ -155,9 +155,20 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
    exactly (60 replays and the warm-up) × a step's, finite records with
    the reference's keys, a resumed cell returning its record with no
    launch, ``ABLATION.md``'s two rows, the second cell's peak memory
-   within 10 % of the first's; ms/step and each stage's seconds. Then
+   within 10 % of the first's; ms/step and each stage's seconds. Then the
+   restart cell (``gauge_validate``'s ``dcdp1_lcc1_restart`` at seed
+   1234, the check at step 3 and ``train.restart_max`` 1): one
+   ``restart/attempt`` row with the new seed, launches exactly (the steps
+   of both attempts and two warm-ups) × a step's, exported weights moved
+   away from the new seed's init, its peak memory within 10 % of the first
+   cell's. Then
    ``figures``, ``scale_decoupling`` and ``gauge_probe`` on those cells
-   (two PNGs; rows for the two cells, the others skipped; no launch) and
+   (two PNGs; rows for the two cells, the others skipped; no launch);
+   ``drift_audit`` (98 frames: three batches of 32 pairs and one padded,
+   one pose program), ``expjit_analysis`` (48 frames, the two cells'
+   rows and four maps, the other two skipped, each cell's peak memory)
+   and ``expjit_mechanism`` (33 frames: H1-H4 finite, exactly four
+   launches of S value-only at C=3 and none from the other two); and
    ``longvideo``'s two arms at 300 frames (3,000 uncut) on their weights:
    finite drift curves, the renorm A/B, host RSS flat within 300 MB, the
    device's peak memory, the report and its figure, no launch; frames/s.
@@ -165,8 +176,8 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
    and knob runs, the deterministic runs, the data-parallel ranks, loop
    run 1, the grain runs, the device-loader run, the chunks' replays and
    the refine calls, the graphs phase, the demo's steps, the full-colon
-   run's refinement and the ablation's cells; every kernel must have
-   launched), then the device
+   run's refinement, the ablation's cells and ``expjit_mechanism``'s
+   warps; every kernel must have launched), then the device
    line ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -176,6 +187,7 @@ It also fails without a CUDA card, or where ``colvo_torch`` is absent.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import re
@@ -3556,6 +3568,17 @@ ABLATE_KEYS = ("cell", "seed", "dcdp", "lcc", "steps", "train_s", "abs_rel", "sq
                "rmse_log", "a1", "a2", "a3", "ate", "rpe_trans", "rpe_rot_deg", "rpe_trans_5",
                "rpe_rot_deg_5", "polyp/e1", "polyp/e2", "polyp/e3", "polyp/e_mean")
 ABLATE_PEAK_RATIO = 1.1  # a later cell's peak memory against the first's
+# The restart cell's check, of ABLATE_STEPS (1500 of 4000 uncut), and its
+# restart_max: 1 in place of 2. On the H100 (restart_probe) the first
+# attempt's loss/geometric at step 3 came out 0.0695-0.0696 in each of 7
+# runs, far over the cell's threshold (0.015), so it restarts; the second
+# attempt's varied from 0.041 to 0.083 between runs (Adam's first updates
+# turn the float atomics' rounding into full-size steps) and passed the
+# first's in one run; at steps 1, 2, 5 and 20 it passed it in every run,
+# at step 10 it came within 6 %. No threshold can then rule out a second
+# restart; with restart_max 1 the second attempt is the last, which runs
+# to its end.
+RESTART_CHECK_STEP = 3
 LONGVIDEO_FRAMES = 300
 # Host RSS over a stream, max - min: it grows once inside the stream, by
 # 102-210 MB at 300 frames and at 3,000 alike on the H100 (not O(N), whose
@@ -3633,17 +3656,115 @@ def ablate_phase(device, smi: str, root: str) -> Counter:
         check(again == recs[0] and launch_counts() == {},
               f"a resumed cell returns its record ({again == recs[0]}) and launches nothing "
               f"({launch_counts()})")
-    check(peaks[1] <= ABLATE_PEAK_RATIO * peaks[0],
-          f"the second cell's peak {peaks[1]:.3f} GiB within {ABLATE_PEAK_RATIO}x the first's "
-          f"{peaks[0]:.3f}")
+        check(peaks[1] <= ABLATE_PEAK_RATIO * peaks[0],
+              f"the second cell's peak {peaks[1]:.3f} GiB within {ABLATE_PEAK_RATIO}x the "
+              f"first's {peaks[0]:.3f}")
+        rec, counts, peak = restart_cell(device, smi, root, cfgs[0], peaks[0])
+        total.update(counts)
+        recs.append(rec)
+        peaks.append(peak)
     ablate.aggregate(root, ABLATE_STEPS)
     with open(os.path.join(root, "ABLATION.md")) as f:
         rows = [line for line in f if line.startswith("| ") and "seeds (conv" not in line]
     check(sorted(r[2:].split(" |")[0].split(" ⚠")[0] for r in rows)
           == sorted(r["cell"] for r in recs), f"ABLATION.md rows {rows}")
-    log(f"ablation phase: {time.time() - t_phase:.1f} s; peaks {peaks[0]:.3f} / {peaks[1]:.3f} "
-        f"GiB; ABLATION.md rows: " + " ".join(r.strip() for r in rows))
+    log(f"ablation phase: {time.time() - t_phase:.1f} s; peaks " + " / ".join(
+        f"{p:.3f}" for p in peaks) + " GiB; ABLATION.md rows: " + " ".join(r.strip() for r in rows))
     return total
+
+
+def restart_spec() -> dict:
+    """``gauge_validate``'s restart cell (``dcdp1_lcc1_restart``, seed 1234)."""
+    from colvo_torch.scripts import gauge_validate
+
+    return next(c for c in gauge_validate.gauge_cells(requeue=True)
+                if c.get("name") == "dcdp1_lcc1_restart")
+
+
+def restart_probe(device, base: ColvoConfig, check_step: int) -> list:
+    """The restart cell's ``train.restart_metric`` at ``check_step`` of its
+    first two attempts: a run of its config (``base``, the first ablation
+    cell's, with its seed and overrides) whose threshold every attempt
+    exceeds (two restarts, then a last attempt of ``check_step`` steps).
+    Not called by ``main``: the measurement behind ``RESTART_CHECK_STEP``
+    (call it inside ``ablate_phase``'s cut corpus, e.g. by patching
+    ``restart_cell``)."""
+    from colvo_torch.scripts import ablate
+
+    cell = restart_spec()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = copy.deepcopy(base)
+        cfg.train.seed = cell["seed"]
+        for dotted, v in cell["overrides"].items():
+            sect, attr = dotted.split(".")
+            setattr(getattr(cfg, sect), attr, v)
+        cfg.train.restart_check_step, cfg.train.restart_threshold = check_step, 1e-12
+        cfg.train.ckpt_dir = os.path.join(tmp, "ckpt")
+        ablate.train_loop(cfg, ablate.corpus(cfg, 0.0), log_dir=tmp, max_steps=check_step,
+                          device=device)
+        ablate.release(device)
+        with open(os.path.join(tmp, "metrics.jsonl")) as f:
+            return [json.loads(line)["restart/metric_value"] for line in f
+                    if "restart/attempt" in line]
+
+
+def restart_cell(device, smi: str, root: str, base: ColvoConfig, first_peak: float) -> tuple:
+    """The restart cell through ``ablate.run_cell`` into ``root``, with two
+    of its overrides changed: the check at ``RESTART_CHECK_STEP`` and
+    ``train.restart_max`` 1 (see ``RESTART_CHECK_STEP``). ``base`` is the
+    first cell's training config (the same loss path). Checks one restart
+    to the new seed at the check step, launches exactly both attempts'
+    steps and warm-ups, weights moved away from the new seed's init, the
+    peak within ``ABLATE_PEAK_RATIO`` of ``first_peak``. Returns the
+    record, its launches and its peak GiB. Run inside ``ablate_phase``'s
+    cut corpus."""
+    from colvo_torch.models import ColVOModel
+    from colvo_torch.runtime import load_npz
+    from colvo_torch.scripts import ablate
+
+    cell = restart_spec()
+    seed = cell["seed"]
+    overrides = dict(cell["overrides"], **{"train.restart_check_step": RESTART_CHECK_STEP,
+                                           "train.restart_max": 1})
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    t0 = time.time()
+    rec = ablate.run_cell(steps=ABLATE_STEPS, out_root=root, device=device.type,
+                          **dict(cell, overrides=overrides))
+    cell_s = time.time() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    cell_dir = os.path.join(root, f"{cell['name']}_s{seed}")
+    with open(os.path.join(cell_dir, "train", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    restarts = [r for r in rows if "restart/attempt" in r]
+    check(len(restarts) == 1 and restarts[0]["restart/new_seed"] == seed + 1000
+          and restarts[0]["step"] == RESTART_CHECK_STEP,
+          f"restart cell: one restart at step {RESTART_CHECK_STEP} to seed {seed + 1000}: "
+          f"{restarts}")
+    want = step_launches(base, RESTART_CHECK_STEP + ABLATE_STEPS + 2 * STEP_WARMUP)
+    check(counts == want, f"restart cell: launches {counts} == {want} (both attempts' steps "
+          "and warm-ups)")
+    check(tuple(rec) == ABLATE_KEYS and all(
+        np.isfinite(v) for k, v in rec.items() if k not in ("cell", "dcdp", "lcc")),
+        f"restart cell record {rec}")
+    weights = load_npz(os.path.join(cell_dir, "weights.npz"), base.model)
+    init = ColVOModel(base.model)
+    init.reset_parameters(torch.Generator().manual_seed(seed + 1000))
+    same = [k for k, v in init.state_dict().items() if torch.equal(v, weights[k].to(v.dtype))]
+    check(same == [], f"restart cell: tensors still at the new seed's init: {same}")
+    check(peak <= ABLATE_PEAK_RATIO * first_peak,
+          f"restart cell: peak {peak:.3f} GiB within {ABLATE_PEAK_RATIO}x the first cell's "
+          f"{first_peak:.3f}")
+    wall = [r for r in rows if "wall_steps_per_sec" in r]
+    log(f"restart cell {rec['cell']} seed {seed} ({smi}): restarted once at step "
+        f"{restarts[0]['step']} ({base.train.restart_metric} "
+        f"{restarts[0]['restart/metric_value']:.6g} > {overrides['train.restart_threshold']}), then "
+        f"{ABLATE_STEPS} steps at {1e3 / wall[-1]['wall_steps_per_sec']:.2f} ms/step; "
+        f"{cell_s:.1f} s; peak {peak:.3f} GiB; launches {counts}; abs_rel {rec['abs_rel']} "
+        f"rpe_rot_deg {rec['rpe_rot_deg']}")
+    return rec, Counter(counts), peak
 
 
 def studies_phase(device, smi: str, root: str, out: str) -> None:
@@ -3678,6 +3799,108 @@ def studies_phase(device, smi: str, root: str, out: str) -> None:
     check(launch_counts() == {}, f"the studies launch no kernel: {launch_counts()}")
     log(f"studies ({smi}): figures of {list(preds)}; scale_decoupling {rows}; gauge_probe "
         f"{done}; {time.time() - t_phase:.1f} s")
+
+
+DRIFT_FRAMES = 98  # 97 pairs: three batches of 32 and one padded (600 frames uncut)
+EXPJIT_MECHANISM_LAUNCHES = {"S/value/C3": 4}  # 2 arms × 2 sources, one warp of 31 frames each
+
+
+def analysis_with_peaks(device, root: str, out_dir: str) -> tuple:
+    """``expjit_analysis.main`` with each cell's peak device memory (GiB,
+    its runner and evaluation, read after the cell gives its programs
+    back). Returns the rows and the peaks."""
+    from colvo_torch.scripts import expjit_analysis
+
+    peaks, real_release = [], expjit_analysis.release
+
+    def release(dev):
+        real_release(dev)
+        peaks.append(torch.cuda.max_memory_allocated(device) / 2**30)
+        torch.cuda.reset_peak_memory_stats(device)
+
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    with mock.patch.object(expjit_analysis, "release", release):
+        rows = expjit_analysis.main(root, out_dir, device.type)
+    return rows, peaks
+
+
+def expjit_drift_phase(device, smi: str, root: str, out: str) -> Counter:
+    """The README's last three studies over the ablation phase's cells under
+    ``root``: ``drift_audit`` on ``dcdp1_lcc1`` at ``DRIFT_FRAMES`` frames
+    (finite statistics, bias fractions in [0, 1], one pose program for the
+    padded tail); ``expjit_analysis`` at 48 frames (the two cells' rows
+    finite, four maps, the other two cells skipped, the second cell's peak
+    within ``ABLATE_PEAK_RATIO`` of the first's); ``expjit_mechanism`` on
+    ``expjit_dcdp1_lccG``'s weights at 33 frames (H1-H4 finite, the clean
+    arm's H2 None). Only the mechanism launches, exactly
+    ``EXPJIT_MECHANISM_LAUNCHES``. Logs each script's seconds; returns the
+    launches."""
+    from colvo_torch.runtime import infer
+    from colvo_torch.scripts import drift_audit, expjit_analysis, expjit_mechanism
+
+    t_phase = time.time()
+    secs = {}
+    runners, real_make = [], drift_audit.make_runner
+
+    def kept(*args, **kwargs):
+        runners.append(real_make(*args, **kwargs))
+        return runners[-1]
+
+    reset_launch_counts()
+    t0 = time.time()
+    with mock.patch.object(drift_audit, "make_runner", kept):
+        drift = drift_audit.main(DRIFT_FRAMES, os.path.join(root, "dcdp1_lcc1", "weights.npz"),
+                                 os.path.join(out, "DRIFT.md"), device.type)
+    secs["drift_audit"] = time.time() - t0
+    programs = len(runners[0].program(infer._pose_body).programs)
+    del runners[:]
+    check(launch_counts() == {}, f"drift_audit launches nothing: {launch_counts()}")
+    arms = (drift["forward"], drift["symmetrized"])
+    check(drift["n_frames"] == DRIFT_FRAMES and programs == 1
+          and all(np.isfinite([a["mean_norm_deg"], a["norm_mean_deg"], a["bias_fraction"],
+                               *a["mean_axis"]]).all() and 0.0 <= a["bias_fraction"] <= 1.0
+                  for a in arms) and np.isfinite(drift["fwd_plus_rev_rot_deg"]),
+          f"drift_audit at {DRIFT_FRAMES} frames ({programs} pose programs): {drift}")
+    check(os.path.exists(os.path.join(out, "DRIFT.md")), "DRIFT.md written")
+
+    t0 = time.time()
+    rows, peaks = analysis_with_peaks(device, root, os.path.join(out, "expjit"))
+    secs["expjit_analysis"] = time.time() - t0
+    check(launch_counts() == {}, f"expjit_analysis launches nothing: {launch_counts()}")
+    maps = sorted(os.listdir(os.path.join(out, "expjit", "maps")))
+    check([r["cell"] for r in rows] == ["dcdp1_lcc1", "expjit_dcdp1_lccG"]
+          and all(np.isfinite([r[arm][k] for arm in ("clean", "expjit")
+                               for k in expjit_analysis.KEYS]).all() for r in rows)
+          and maps == sorted(f"{r['cell']}_{arm}.png" for r in rows
+                             for arm in ("clean", "expjit"))
+          and all(len(_png_shape(os.path.join(out, "expjit", "maps", m))) == 3 for m in maps)
+          and os.path.exists(os.path.join(out, "expjit", "EXPJIT_DEPTH.md")),
+          f"expjit_analysis rows {rows}, maps {maps}")
+    check(len(peaks) == 2 and peaks[1] <= ABLATE_PEAK_RATIO * peaks[0],
+          f"expjit_analysis: the second cell's peak within {ABLATE_PEAK_RATIO}x the first's: "
+          f"{peaks} GiB")
+
+    t0 = time.time()
+    mech = expjit_mechanism.main(os.path.join(root, "expjit_dcdp1_lccG", "weights.npz"),
+                                 os.path.join(out, "expjit", "EXPJIT_MECHANISM.md"), device.type)
+    secs["expjit_mechanism"] = time.time() - t0
+    counts = launch_counts()
+    check(counts == EXPJIT_MECHANISM_LAUNCHES,
+          f"expjit_mechanism launches {counts} == {EXPJIT_MECHANISM_LAUNCHES}")
+    check(list(mech) == ["clean", "jittered"] and mech["clean"]["sel_gain_frac_mean"] is None
+          and all(np.isfinite([v for k, v in a.items()
+                               if not (arm == "clean" and k == "sel_gain_frac_mean")]).all()
+                  for arm, a in mech.items()),
+          f"expjit_mechanism {mech}")
+    log(f"expjit and drift ({smi}): drift_audit at {DRIFT_FRAMES} frames bias_fraction "
+        f"{drift['forward']['bias_fraction']:.4f} forward / "
+        f"{drift['symmetrized']['bias_fraction']:.4f} symmetrized, "
+        f"{drift['forward']['norm_mean_deg']:.4f} / {drift['symmetrized']['norm_mean_deg']:.4f} "
+        f"deg a frame; expjit_analysis {rows}, peaks {peaks} GiB; expjit_mechanism {mech}; "
+        f"launches {counts}; seconds " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    log(f"expjit and drift phase: {time.time() - t_phase:.1f} s")
+    return Counter(counts)
 
 
 def longvideo_phase(device, smi: str, root: str, out: str) -> None:
@@ -3863,6 +4086,9 @@ def main() -> int:
         counts.update(ablate_phase(device, smi, ablate_root))
         log("--- studies: figures, scale_decoupling, gauge_probe on the cells ---")
         studies_phase(device, smi, ablate_root, tmp)
+        log("--- expjit and drift: drift_audit, expjit_analysis, expjit_mechanism on the cells ---")
+        counts.update(expjit_drift_phase(device, smi, ablate_root,
+                                         os.path.join(tmp, "expjit_drift")))
         log(f"--- long video: both arms, {LONGVIDEO_FRAMES} frames ---")
         longvideo_phase(device, smi, ablate_root, os.path.join(tmp, "longvideo"))
 

@@ -315,7 +315,8 @@ def test_aggregate_writes_the_reference_tables(tmp_path):
 @pytest.mark.parametrize("module,argv", [
     ("ablate", ["3"]), ("gauge_validate", ["3"]), ("gauge2_requeue", ["3"]),
     ("basin_levers", ["3"]), ("figures", []), ("scale_decoupling", []), ("gauge_probe", []),
-    ("longvideo", ["24"]),
+    ("longvideo", ["24"]), ("drift_audit", ["40"]), ("expjit_analysis", []),
+    ("expjit_mechanism", []),
 ])
 def test_scripts_run_on_the_card_by_default(module, argv, tmp_path):
     """``python -m colvo_torch.scripts.<module>`` runs on ``cuda`` unless
@@ -325,8 +326,10 @@ def test_scripts_run_on_the_card_by_default(module, argv, tmp_path):
     out = tmp_path / "out"
     args = argv + ([str(out)] if module in ("ablate", "gauge_validate", "gauge2_requeue",
                                             "basin_levers") else
-                   [str(tmp_path / "w.npz"), str(out)] if module == "longvideo" else
-                   [str(tmp_path), str(out)] if module == "figures" else [str(tmp_path)])
+                   [str(tmp_path / "w.npz"), str(out)]
+                   if module in ("longvideo", "drift_audit", "expjit_mechanism") else
+                   [str(tmp_path), str(out)] if module in ("figures", "expjit_analysis") else
+                   [str(tmp_path)])
     name = f"colvo_torch.scripts.{module}"
     imported = sys.modules.pop(name, None)  # run afresh as __main__, as ``python -m`` does
     try:

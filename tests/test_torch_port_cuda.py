@@ -959,6 +959,32 @@ def test_captured_eval_forward_equals_its_eager_body(device):
 
 
 @pytest.mark.cuda
+def test_captures_leave_no_memory_behind(device):
+    """Every capture warms up on its device's one side stream: ten
+    programs of a cuBLAS body captured and dropped leave the card's
+    allocated memory where the first left it (with a stream of their own,
+    the libraries' per-stream state stayed allocated after each)."""
+    import gc
+
+    from colvo_torch.runtime import graphs
+
+    w = torch.randn(256, 256, device=device)
+    x = torch.randn(64, 256, device=device)
+
+    def capture_once():
+        prog = graphs.Graphed(lambda a: (a @ w).relu() @ w, device=device)
+        prog(x)
+        del prog
+        gc.collect()
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated(device)
+
+    first = capture_once()
+    assert [capture_once() for _ in range(10)] == [first] * 10
+
+
+@pytest.mark.cuda
 def test_ablation_cell_launches_its_steps_and_its_resume_none(device, tmp_path, monkeypatch):
     """``ablate.run_cell`` at 64×96, B=2, 3 steps on a corpus of 2 × 6
     frames: the captured step's launches (8 S/grad/C3, one S/grad/C1 for

@@ -83,7 +83,8 @@ def test_the_grain_loader_loads_neither_grain_nor_jax():
 
 
 SCRIPTS = ("demo_synthetic", "fullcolon", "ablate", "gauge_validate", "gauge2_requeue",
-           "basin_levers", "figures", "scale_decoupling", "gauge_probe", "longvideo")
+           "basin_levers", "figures", "scale_decoupling", "gauge_probe", "longvideo",
+           "drift_audit", "expjit_analysis", "expjit_mechanism")
 
 
 def test_the_scripts_load_neither_jax_nor_bench():

@@ -28,8 +28,8 @@ torch.set_num_threads(2)
 B, H, W = 2, 64, 96
 
 
-def _t(a, grad=False):
-    return torch.tensor(np.asarray(a), dtype=torch.float32, requires_grad=grad)
+def _t(a, grad=False, dtype=torch.float32):
+    return torch.tensor(np.asarray(a), dtype=dtype, requires_grad=grad)
 
 
 def _rel(a, b):
@@ -129,15 +129,15 @@ def test_smoothness_automask_minreproj_match(images):
                                np.asarray(jterms.min_reprojection(errs)))
 
 
-def _loss_inputs(seed=4, t_scale=1.0):
-    seq = render_sequence(n_frames=4, height=H, width=W)
-    frames = np.stack([seq.frames[[1, 0, 2]], seq.frames[[2, 1, 3]]]).astype(np.float32)
+def _loss_inputs(seed=4, t_scale=1.0, exposure_jitter=0.0, dtype=np.float32):
+    seq = render_sequence(n_frames=4, height=H, width=W, exposure_jitter=exposure_jitter)
+    frames = np.stack([seq.frames[[1, 0, 2]], seq.frames[[2, 1, 3]]]).astype(dtype)
     rng = np.random.default_rng(seed)
-    disps = [{s: rng.uniform(0.05, 0.6, (B, H >> s, W >> s, 1)).astype(np.float32)
+    disps = [{s: rng.uniform(0.05, 0.6, (B, H >> s, W >> s, 1)).astype(dtype)
               for s in range(4)} for _ in range(3)]
     poses = np.concatenate([rng.normal(0, 0.01, (B, 2, 3)),
-                            t_scale * rng.normal(0, 0.01, (B, 2, 3))], -1).astype(np.float32)
-    return disps, poses, frames, seq.k
+                            t_scale * rng.normal(0, 0.01, (B, 2, 3))], -1).astype(dtype)
+    return disps, poses, frames, seq.k.astype(dtype)
 
 
 VARIANTS = {
@@ -160,25 +160,27 @@ VARIANTS = {
 KNOB_VARIANTS = ("batched_photo", "fused_kernel", "fused_kernel_global_lcc")
 
 
-def _run_both(variant, with_grad):
-    spec = VARIANTS[variant]
+def _run_both(variant, with_grad, exposure_jitter=0.0, dtype=np.float32):
+    spec = VARIANTS[variant] if isinstance(variant, str) else variant
     jcfg, tcfg = JaxConfig(), ColvoConfig()
     for cfg in (jcfg, tcfg):
         for k, v in spec.get("loss", {}).items():
             setattr(cfg.loss, k, v)
     geo_scale = spec.get("geo_scale", 1.0)
-    disps, poses, frames, k = _loss_inputs(t_scale=spec.get("t_scale", 1.0))
-    k_inv = np.linalg.inv(k).astype(np.float32)
+    disps, poses, frames, k = _loss_inputs(t_scale=spec.get("t_scale", 1.0),
+                                           exposure_jitter=exposure_jitter, dtype=dtype)
+    k_inv = np.linalg.inv(k).astype(dtype)
+    tdt = torch.float64 if dtype == np.float64 else torch.float32
 
     def jf(disps, poses):
         loss, aux = jax_snippet_loss(disps, poses, jnp.asarray(frames), k, k_inv,
                                      jcfg.loss, jcfg.model, geo_scale=geo_scale)
         return loss, aux
 
-    tdisps = [{s: _t(v, with_grad) for s, v in d.items()} for d in disps]
-    tposes = _t(poses, with_grad)
-    tl, taux = snippet_loss(tdisps, tposes, _t(frames), _t(k), _t(k_inv), tcfg.loss,
-                            tcfg.model, geo_scale=geo_scale)
+    tdisps = [{s: _t(v, with_grad, tdt) for s, v in d.items()} for d in disps]
+    tposes = _t(poses, with_grad, tdt)
+    tl, taux = snippet_loss(tdisps, tposes, _t(frames, dtype=tdt), _t(k, dtype=tdt),
+                            _t(k_inv, dtype=tdt), tcfg.loss, tcfg.model, geo_scale=geo_scale)
     if with_grad:
         (jl, jaux), (gd, gp) = jax.jit(jax.value_and_grad(jf, argnums=(0, 1), has_aux=True))(
             disps, poses)
@@ -195,8 +197,8 @@ def _check_aux(jaux, taux):
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-7, err_msg=key)
 
 
-def _check_with_gradients(variant):
-    (jl, jaux, gd, gp), (tl, taux, tdisps, tposes) = _run_both(variant, True)
+def _check_with_gradients(variant, **inputs):
+    (jl, jaux, gd, gp), (tl, taux, tdisps, tposes) = _run_both(variant, True, **inputs)
     np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-4)
     _check_aux(jaux, taux)
     for f in range(3):
@@ -219,6 +221,29 @@ def test_snippet_loss_photometric_knobs_match_with_gradients(variant):
     the fused error (plain forward and analytic backward on the CPU), and
     the fused knob's composed path under global LCC."""
     _check_with_gradients(variant)
+
+
+# snippet_loss on frames with ±35 % per-frame exposure gain: (loss knobs, dtype)
+JITTER_CASES = {
+    "lcc_off": ({"lcc": False}, np.float32),
+    # In float32 the automask's near-ties (the packages' errors differ by
+    # ~1e-5) reach 2.9e-2 of one scale's gradient under global+affine LCC;
+    # in float64 both packages decide alike. The final reductions stay f32.
+    "global_affine": ({"lcc_mode": "global+affine"}, np.float64),
+}
+
+
+@pytest.mark.parametrize("case", JITTER_CASES)
+def test_snippet_loss_under_exposure_jitter_matches_with_gradients(case):
+    """The loss on exposure-jittered frames (0.35), without LCC and under
+    global+affine LCC, at the default test's tolerances; the float64 case
+    runs the reference with 64-bit types enabled."""
+    knobs, dtype = JITTER_CASES[case]
+    if dtype == np.float64:
+        with jax.enable_x64(True):
+            _check_with_gradients({"loss": knobs}, exposure_jitter=0.35, dtype=dtype)
+    else:
+        _check_with_gradients({"loss": knobs}, exposure_jitter=0.35, dtype=dtype)
 
 
 @pytest.mark.parametrize("variant", [v for v in VARIANTS if v != "default"])

@@ -29,14 +29,12 @@ def _configs():
     return jcfg, tcfg
 
 
-@pytest.fixture(scope="module")
-def weights():
+def _random_weights(model_cfg):
     """Random weights with every parameter away from its init value (so a
     mis-mapped bias or norm scale shows), as flat Flax params."""
-    _, tcfg = _configs()
     rng = np.random.default_rng(0)
     sd = {}
-    for k, v in ColVOModel(tcfg.model).state_dict().items():
+    for k, v in ColVOModel(model_cfg).state_dict().items():
         if v.ndim == 4:
             a = rng.normal(0, 1 / math.sqrt(v[0].numel()), v.shape)
         elif "norm" in k and k.endswith("weight"):
@@ -48,6 +46,11 @@ def weights():
 
 
 @pytest.fixture(scope="module")
+def weights():
+    return _random_weights(_configs()[1].model)
+
+
+@pytest.fixture(scope="module")
 def frames():
     return np.random.default_rng(1).random((B, 3, H, W, 3), dtype=np.float32)
 
@@ -55,14 +58,26 @@ def frames():
 def test_snippet_forward_matches(weights, frames):
     """Disparities of every frame and scale, the depth bottleneck and the
     DCDP-fused poses agree to 1e-4."""
+    _check_snippet_forward(weights, frames, *_configs())
+
+
+def test_snippet_forward_without_dcdp_fusion_matches(frames):
+    """``model.dcdp_fusion=False`` under GroupNorm (the pose net reads the
+    frames alone): the same quantities agree to 1e-4."""
     jcfg, tcfg = _configs()
+    jcfg.model.dcdp_fusion = tcfg.model.dcdp_fusion = False
+    assert jcfg.model.norm == tcfg.model.norm == "group"
+    _check_snippet_forward(_random_weights(tcfg.model), frames, jcfg, tcfg)
+
+
+def _check_snippet_forward(weights, frames, jcfg, tcfg):
     jm = JaxModel(jcfg.model)
     params = flax.traverse_util.unflatten_dict(weights, sep="/")
     jd, jp = jax.jit(jm.apply)(params, jnp.asarray(frames))
     _, jb = jax.jit(lambda p, x: jm.apply(p, x, method=jm.depth))(params, jnp.asarray(frames[:, 0]))
 
     model = ColVOModel(tcfg.model)
-    model.load_state_dict(params_from_flax(weights))
+    model.load_state_dict(params_from_flax(weights, tcfg.model))
     with torch.no_grad():
         td, tp = model(torch.tensor(frames))
         _, tb = model.depth(torch.tensor(frames[:, 0]).permute(0, 3, 1, 2))
