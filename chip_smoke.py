@@ -213,7 +213,7 @@ from colvo_torch.kernels import build, launch_counts, reset_launch_counts  # noq
 from colvo_torch.kernels import fused_loss, sampler, scatter  # noqa: E402
 from colvo_torch.losses.photometric import lcc_calibrate  # noqa: E402
 from colvo_torch.runtime import InferenceRunner, init_state, loss_fn, to_device, train_step  # noqa: E402
-from colvo_torch.runtime import graphs  # noqa: E402
+from colvo_torch.runtime import graphs, spans  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
 # outside the tensor cores.
@@ -1931,13 +1931,8 @@ def device_loop_run(device, smi: str, dataset, numpy_loop_ms: float,
     from colvo_torch.runtime import loop as loop_mod
 
     cfg = ColvoConfig()
-    runs, calls, uploads, kinds, hooks = [], [], [], [], []
+    runs, calls, uploads, kinds = [], [], [], []
     real_train, real_store = pipelines.train_loop, loop_mod.DeviceSnippetStore
-    real_hook = pipelines.make_training_eval_hook
-
-    def recorded_hook(cfg_, model):
-        hooks.append(real_hook(cfg_, model))
-        return hooks[-1]
 
     def recording(cfg_, dataset_, **kwargs):
         out = real_train(cfg_, dataset_, **kwargs)
@@ -1966,13 +1961,12 @@ def device_loop_run(device, smi: str, dataset, numpy_loop_ms: float,
             mock.patch.object(pipelines, "build_dataset", lambda cfg_: dataset), \
             mock.patch.object(pipelines, "train_loop", recording), \
             wrap_step_fns(timed), \
-            mock.patch.object(loop_mod, "DeviceSnippetStore", timed_store), \
-            mock.patch.object(pipelines, "make_training_eval_hook", recorded_hook):
+            mock.patch.object(loop_mod, "DeviceSnippetStore", timed_store):
         log_dir, ckpt_dir = os.path.join(tmp, "log"), os.path.join(tmp, "ckpt")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        t0 = time.time()
+        t0, phase_ns = time.time(), time.perf_counter_ns()
         check(cli.main(["train", "--max-steps", str(LOOP_STEPS), "--data.loader=device",
                         "--train.profile_steps={}:{}".format(*LOOP_PROFILE)] + LOOP_ARGS
                        + ["--log-dir", log_dir, f"--train.ckpt_dir={ckpt_dir}",
@@ -2021,8 +2015,22 @@ def device_loop_run(device, smi: str, dataset, numpy_loop_ms: float,
             *LOOP_PROFILE, 100 * busy / window, peak))
     log("device loader: the host over the profiled window: " + host)
     log(f"device loader: the eval hook at step 7 (its first call: the forward's warm-up, "
-        f"capture and replay) took {hook_split(hooks[0].times)}")
+        f"capture and replay) took {hook_split(eval_calls(phase_ns)[0])}")
     return counts
+
+
+def eval_calls(since_ns: int) -> list:
+    """The eval hook's calls begun since ``since_ns`` (``perf_counter_ns``), in
+    order: each its parts' ms, from its spans (``eval.queue``, ``eval.forward``,
+    ``eval.metrics``, ``eval.panels``) keyed ``queue`` ... ``panels``."""
+    calls = []
+    for s in spans.snapshot().spans:
+        if s.start_ns < since_ns or not s.name.startswith("eval."):
+            continue
+        if s.name == "eval.queue":
+            calls.append({})
+        calls[-1][s.name[len("eval."):]] = s.ms
+    return calls
 
 
 def hook_split(times: dict) -> str:
@@ -3371,8 +3379,9 @@ def eval_program_rows(device, smi: str, cfg: ColvoConfig, weights: dict, timer) 
     with tempfile.TemporaryDirectory() as tmp:
         writer = MetricsWriter(tmp, also_stdout=False)
         for step in range(GRAPH_HOOK_CALLS):
+            t_ns = time.perf_counter_ns()
             scalars = hook(step, state, writer)
-            splits.append(dict(hook.times))
+            splits.append(eval_calls(t_ns)[0])
             programs.append(hook.program)
             check(all(np.isfinite(v) for v in scalars.values()), f"eval scalars {scalars}")
         writer.close()
@@ -3438,8 +3447,9 @@ def demo_phase(device, smi: str, out: str) -> tuple:
         hook = real_hook(cfg_, model)
 
         def call(step, state, writer):
+            t_ns = time.perf_counter_ns()
             scalars = hook(step, state, writer)
-            calls.append((step, dict(hook.times), hook.program))
+            calls.append((step, eval_calls(t_ns)[0], hook.program))
             return scalars
         return call
 
@@ -3494,7 +3504,7 @@ def demo_phase(device, smi: str, out: str) -> tuple:
     wall = [r for r in rows if "wall_steps_per_sec" in r][0]["wall_steps_per_sec"]
     gaps = np.diff(starts) * 1e3
     log(f"demo ({smi}): {DEMO_STEPS} steps on the device loader at full width, "
-        f"{1e3 / wall:.2f} ms/step (wall_steps_per_sec: the first call's warm-up and capture, "
+        f"{1e3 / wall:.2f} ms/step (wall_steps_per_sec: the steps after the first, "
         f"the hook's three calls and the final checkpoint included); a step started every "
         f"{np.median(gaps[1:]):.2f} ms (median of steps 3-{DEMO_STEPS}); total loss "
         f"{first:.6g} (mean of the first {DEMO_LOSS_WINDOW}) -> {last:.6g} (last "
@@ -3644,7 +3654,7 @@ def ablate_phase(device, smi: str, root: str) -> Counter:
                 wall = [json.loads(line) for line in f if "wall_steps_per_sec" in line]
             log(f"ablation cell {rec['cell']} ({smi}): {ABLATE_STEPS} steps at "
                 f"{1e3 / wall[-1]['wall_steps_per_sec']:.2f} ms/step (wall_steps_per_sec: the "
-                f"warm-up, capture and checkpoint inside); {cell_s:.1f} s: render "
+                f"steps after the first, the checkpoint inside); {cell_s:.1f} s: render "
                 f"{stages['render']:.1f}, train {stages['train']:.1f}, evaluate "
                 f"{stages['evaluate']:.1f}; {before[-1]:.2f} GiB allocated before, peak "
                 f"{peaks[-1]:.2f} GiB; launches {counts}; abs_rel {rec['abs_rel']} ate "

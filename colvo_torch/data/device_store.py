@@ -174,7 +174,7 @@ class DeviceSnippetStore:
         generator = torch.Generator(device=self.device).manual_seed(seed)
         program = self.program = Graphed(
             lambda idx: assemble(self.frames, self.table, idx, self.k, generator, cfg),
-            device=self.device, generators=(generator,))
+            device=self.device, generators=(generator,), name="batch")
         bsz = cfg.batch_size
         epoch = 0
         while epochs is None or epoch < epochs:

@@ -5,10 +5,16 @@ augmentation) ahead of the step. On a CUDA device it stages every array in
 a pinned host buffer and copies it ``non_blocking`` on a side stream, then
 records an event; the consumer makes its stream wait on that event before
 it uses the batch, so the copy overlaps the running step.
+
+The producer's time is spans (``runtime.spans``; attr ``batch``, the batch
+index): ``prefetch.build`` (the host batch), ``prefetch.stage`` (the pinned
+copy and the queued upload; on the CPU the tensors) and
+``prefetch.put_wait`` (the queue full).
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from typing import Any, Dict, Iterator, List, Mapping, Optional
@@ -73,6 +79,8 @@ def prefetch_to_device(
     in the producer is raised in the consumer. Closing the generator stops
     the producer.
     """
+    from colvo_torch.runtime.spans import span  # the runtime package imports this one
+
     device = resolve_device(device)
     # Slots: ``size`` queued, one being built, one in the consumer's hands.
     stager = _CudaStager(device, size + 2) if device.type == "cuda" else None
@@ -90,14 +98,21 @@ def prefetch_to_device(
 
     def producer():
         try:
-            for batch in iterator:
-                if stager is not None:
-                    item = stager.upload(batch)
-                else:
-                    item = ({k: torch.as_tensor(np.asarray(v), dtype=torch.float32)
-                             for k, v in batch.items()}, None)
-                if not put(item):
-                    return
+            it = iter(iterator)
+            for i in itertools.count():
+                with span("prefetch.build", batch=i):
+                    batch = next(it, _END)
+                if batch is _END:
+                    break
+                with span("prefetch.stage", batch=i):
+                    if stager is not None:
+                        item = stager.upload(batch)
+                    else:
+                        item = ({k: torch.as_tensor(np.asarray(v), dtype=torch.float32)
+                                 for k, v in batch.items()}, None)
+                with span("prefetch.put_wait", batch=i):
+                    if not put(item):
+                        return
         except Exception as e:  # handed to the consumer, which raises it
             put(_Failed(e))
             return

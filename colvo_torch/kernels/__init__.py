@@ -32,7 +32,7 @@ from typing import Dict, List, Sequence
 
 import torch
 
-from colvo_torch.kernels import fused_loss, sampler, scatter
+from colvo_torch.kernels import build, fused_loss, sampler, scatter
 
 
 class _SampleCoordsGrad(torch.autograd.Function):
@@ -185,17 +185,18 @@ def bilinear_sample_full(img: torch.Tensor, coords: torch.Tensor) -> torch.Tenso
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last reset: ``S/grad/C3``,
     ``S/grad/C3/g4``, ``S/value/C1``, ``T/C1``, ``F/fwd/C3``, ``F/bwd/C3``,
-    ... (only CUDA launches count; the plain versions do not)."""
-    counts = {f"S/{k}": v for k, v in sampler.launches.items()}
-    counts.update({f"T/{k}": v for k, v in scatter.launches.items()})
-    counts.update({f"F/{k}": v for k, v in fused_loss.launches.items()})
-    return counts
+    ... (only CUDA launches count; the plain versions do not). They are
+    the counters ``launch.<key>`` of ``runtime.spans``, which count
+    whether it records or not (``spans.tally``)."""
+    from colvo_torch.runtime import spans  # the runtime package imports this one
+
+    return {k[len(build.LAUNCH):]: v for k, v in spans.counters(build.LAUNCH).items()}
 
 
 def reset_launch_counts() -> None:
-    sampler.launches.clear()
-    scatter.launches.clear()
-    fused_loss.launches.clear()
+    from colvo_torch.runtime import spans
+
+    spans.reset_counters(build.LAUNCH)
 
 
 def add_launch_counts(counts: Dict[str, int], times: int = 1) -> None:
@@ -203,10 +204,10 @@ def add_launch_counts(counts: Dict[str, int], times: int = 1) -> None:
     the launches of a CUDA graph replayed ``times`` times. The wrappers
     count a launch where Python calls them, so a captured launch is
     counted at capture, which launches nothing, and not at a replay."""
-    counters = {"S": sampler.launches, "T": scatter.launches, "F": fused_loss.launches}
+    from colvo_torch.runtime import spans
+
     for key, n in counts.items():
-        kernel, _, variant = key.partition("/")
-        counters[kernel][variant] += n * times
+        spans.tally(build.LAUNCH + key, n * times)
 
 
 __all__ = [

@@ -31,6 +31,17 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
+# The launch counters' prefix among the counters of ``runtime.spans``.
+LAUNCH = "launch."
+
+
+def count_launch(key: str) -> None:
+    """One launch of a CUDA kernel, keyed as ``kernels.launch_counts`` gives
+    it (``S/grad/C3``), into the launch counters."""
+    from colvo_torch.runtime import spans  # the runtime package imports the kernels
+
+    spans.tally(LAUNCH + key)
+
 
 def _nvcc() -> str:
     for cand in (

@@ -4,7 +4,8 @@ cotangent (``csrc/fused_loss.cu``).
 ``err`` and ``err_bwd`` are the kernels' wrappers: a CUDA tensor launches
 the kernel (forward P7, backward P8; the source names the TPU kernels they
 replace) and any error raises; a CPU tensor takes the plain versions
-beside them. ``launches`` counts kernel launches.
+beside them. Each launch counts as ``F/fwd/C<c>`` or ``F/bwd/C<c>``
+(``kernels.launch_counts``).
 
 The function: w = bilinear sample of ``src`` at (x, y); with
 ``lcc_window`` > 0, ŵ = a·w + b, the windowed affine LCC of
@@ -20,16 +21,12 @@ need no copy); x, y (N, h, w) f32 contiguous; e, g, gx, gy (N, h, w).
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
 from typing import Tuple
 
 import torch
 
 from colvo_torch.kernels import build
 from colvo_torch.kernels.sampler import planes_contiguous, sample_plain
-
-# Launches of the CUDA kernels, keyed "fwd/C<c>" or "bwd/C<c>".
-launches: Counter = Counter()
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
@@ -148,7 +145,7 @@ def err(src: torch.Tensor, tgt: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     _check(src, tgt, x, y)
     out = torch.empty(x.shape, dtype=torch.float32, device=src.device)
     _call("colvo_fused_err_fwd", src, tgt, x, y, out, lcc_window=lcc_window, alpha=alpha)
-    launches[f"fwd/C{src.shape[1]}"] += 1
+    build.count_launch(f"F/fwd/C{src.shape[1]}")
     return out
 
 
@@ -164,5 +161,5 @@ def err_bwd(src: torch.Tensor, tgt: torch.Tensor, x: torch.Tensor, y: torch.Tens
     gy = torch.empty_like(gx)
     _call("colvo_fused_err_bwd", src, tgt, x, y, g, gx, gy, lcc_window=lcc_window,
           alpha=alpha)
-    launches[f"bwd/C{src.shape[1]}"] += 1
+    build.count_launch(f"F/bwd/C{src.shape[1]}")
     return gx, gy

@@ -7,7 +7,7 @@ it replaces) and any error raises; a CPU tensor takes ``sample_plain`` /
 ``sample_multi`` samples several plane sets (the geo scales of a step) in
 one launch of the multi-plane-set kernel, which also takes every C=1 call
 of ``sample``; C>1 and grouped calls launch ``bilinear_sample_kernel``.
-``launches`` counts kernel launches by variant.
+Each launch counts as ``S/<variant>`` (``kernels.launch_counts``).
 
 Layout: src (N, C, H, W) f32 whose inner three dims are contiguous (the
 batch stride is free, so a frame slice of a snippet stack needs no copy);
@@ -19,7 +19,6 @@ x, y (N·group, h, w) f32; outputs (N·group, C, h, w). With ``group`` > 1
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -28,10 +27,6 @@ from colvo_torch.geometry.ops import bilinear_taps
 from colvo_torch.kernels import build
 
 Outputs = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]
-
-# Launches of the CUDA kernel, keyed "grad/C<c>" or "value/C<c>", with
-# "/g<group>" appended for a grouped launch.
-launches: Counter = Counter()
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -141,7 +136,7 @@ def _sample_multi_cuda(srcs: Sequence[torch.Tensor], xs: Sequence[torch.Tensor],
             err = _lib().colvo_bilinear_sample_multi(params, stream)
         if err != 0:
             raise RuntimeError(f"bilinear_sample_multi kernel launch failed: cudaError {err}")
-        launches[f"{'grad' if with_grad else 'value'}/C{c}"] += 1
+        build.count_launch(f"S/{'grad' if with_grad else 'value'}/C{c}")
         results += outs
     return results
 
@@ -203,8 +198,9 @@ def _sample_cuda(src: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
         )
     if err != 0:
         raise RuntimeError(f"bilinear_sample kernel launch failed: cudaError {err}")
-    key = f"{'grad' if with_grad else 'value'}/C{c}"
-    launches[key if group == 1 else f"{key}/g{group}"] += 1
+    # variants "grad/C<c>" or "value/C<c>", with "/g<group>" for a grouped launch
+    key = f"S/{'grad' if with_grad else 'value'}/C{c}"
+    build.count_launch(key if group == 1 else f"{key}/g{group}")
     return out, dx, dy
 
 

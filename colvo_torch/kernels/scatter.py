@@ -18,8 +18,8 @@ the deterministic variant's bits in PyTorch (the tests and ``chip_smoke.py``
 hold the kernel to it). A CPU tensor takes ``scatter_multi_plain``, a loop
 of ``scatter_plain``, the autograd transpose of the sampler's gather
 written with ``index_add_`` (deterministic on the CPU), in both modes.
-``scatter`` is its one-plane-set call. ``launches`` counts kernel
-launches.
+``scatter`` is its one-plane-set call. Each launch counts as
+``T/<variant>`` (``kernels.launch_counts``).
 
 Layout: x, y (N, h, w) f32; g (N, C, h, w) f32 → d_src (N, C, H, W) f32.
 """
@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from collections import Counter
 from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
@@ -36,9 +35,8 @@ import torch
 from colvo_torch.geometry.ops import bilinear_taps
 from colvo_torch.kernels import build
 
-# Launches of the CUDA kernel, keyed "C<c>" (float atomics), "C<c>/det"
-# (the cluster kernel) or "C<c>/det/global" (the device-memory path).
-launches: Counter = Counter()
+# Launch variants: "C<c>" (float atomics), "C<c>/det" (the cluster
+# kernel) or "C<c>/det/global" (the device-memory path).
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -286,15 +284,15 @@ def _scatter_multi_cuda(xs: Sequence[torch.Tensor], ys: Sequence[torch.Tensor],
                 if err != 0:
                     raise RuntimeError(f"bilinear_scatter kernel launch failed: cudaError {err}")
                 if plan.paths & 1:
-                    launches[f"C{c}/det"] += 1
+                    build.count_launch(f"T/C{c}/det")
                 if plan.paths & 2:
-                    launches[f"C{c}/det/global"] += 1
+                    build.count_launch(f"T/C{c}/det/global")
             else:
                 err = _lib().colvo_bilinear_scatter_multi(params, buf.data_ptr(), buf.numel(),
                                                           stream)
                 if err != 0:
                     raise RuntimeError(f"bilinear_scatter kernel launch failed: cudaError {err}")
-                launches[f"C{c}"] += 1
+                build.count_launch(f"T/C{c}")
         results += outs
     return results
 

@@ -10,7 +10,6 @@ from __future__ import annotations
 
 import json
 import os
-import time
 import weakref
 from typing import Dict, List, Optional, Sequence
 
@@ -32,6 +31,7 @@ from colvo_torch.models import ColVOModel
 from colvo_torch.runtime import InferenceRunner, load_npz
 from colvo_torch.runtime.graphs import Graphed
 from colvo_torch.runtime.loop import train as train_loop
+from colvo_torch.runtime.spans import span
 from colvo_torch.vo import (
     PolypDetection,
     VOResult,
@@ -122,12 +122,13 @@ class TrainingEvalHook:
     Attributes:
         program: the captured forward of the model it last evaluated
             (``runtime.graphs.Graphed``; None before the first call).
-        times: the last call's host-clock ms of its parts: ``queue``
-            (on a card, waiting for the work queued before the hook, such
-            as the training steps the loop dispatched ahead), ``forward``
-            (the program's call and the copy of its outputs to the host),
-            ``metrics`` (depth errors, the pose chain, ATE/RPE) and
-            ``panels`` (the three ``writer.log_image`` calls).
+
+    A call's parts are spans (``runtime.spans``; attr ``step``):
+    ``eval.queue`` (on a card, waiting for the work queued before the
+    hook, such as the training steps the loop dispatched ahead),
+    ``eval.forward`` (the program's call and the copy of its outputs to the
+    host), ``eval.metrics`` (depth errors, the pose chain, ATE/RPE) and
+    ``eval.panels`` (the three ``writer.log_image`` calls).
     """
 
     def __init__(self, cfg: ColvoConfig, model: torch.nn.Module):
@@ -145,7 +146,6 @@ class TrainingEvalHook:
         self.snippet = frames[[mid] + [mid + o for o in offsets]][None]  # (1, 1+S, H, W, 3)
         self.program: Optional[Graphed] = None
         self._net: Optional[weakref.ref] = None
-        self.times: Dict[str, float] = {}
 
     def forward(self, net: torch.nn.Module):
         """The eager body of the reference's jitted ``_eval_fwd`` on ``net``
@@ -162,42 +162,39 @@ class TrainingEvalHook:
             ref = self._net = weakref.ref(net)
             cfg, imgs, snippet, k, k_inv = self.cfg, self.imgs, self.snippet, self.k, self.k_inv
             self.program = Graphed(lambda: _eval_forward(cfg, imgs, snippet, k, k_inv, ref()),
-                                   device=self.device)
+                                   device=self.device, name="eval_forward")
         return self.program
 
     def __call__(self, step, state, writer):
         cfg, seq = self.cfg, self.seq
         net = state.model
         was_training = net.training
-        t_in = time.perf_counter()
-        if self.device.type == "cuda":  # the copy to the host below waits for it anyway
-            torch.cuda.current_stream(self.device).synchronize()
-        t0 = time.perf_counter()
+        with span("eval.queue", step=step):
+            if self.device.type == "cuda":  # the copy to the host below waits for it anyway
+                torch.cuda.current_stream(self.device).synchronize()
         net.eval()  # also at the capture, which the first call makes
         try:
-            out = self._program_for(net)()
-            pred_depth, disp0, automask, warp_err, rel6 = (t.cpu().numpy() for t in out)
+            with span("eval.forward", step=step):
+                out = self._program_for(net)()
+                pred_depth, disp0, automask, warp_err, rel6 = (t.cpu().numpy() for t in out)
         finally:
             net.train(was_training)
-        t1 = time.perf_counter()
-        metrics = compute_depth_errors(
-            seq.depths, pred_depth, max_depth=cfg.eval.depth_cap,
-            median_scaling=cfg.eval.median_scaling,
-        )
-        # trajectory quality during training: chain the probe's relative
-        # poses and score ATE/RPE against the held-out sequence's GT
-        metrics.update(evaluate_pose(chain_relative_poses(rel6), seq.poses))
-        t2 = time.perf_counter()
-        if writer is not None:
-            writer.log_image(step, "panels/disp", colormap_depth(disp0))
-            writer.log_image(step, "panels/automask",
-                             np.repeat(automask[..., None], 3, axis=-1))
-            we = warp_err / max(float(warp_err.max()), 1e-6)
-            writer.log_image(step, "panels/warp_error",
-                             np.repeat(we[..., None], 3, axis=-1))
-        t3 = time.perf_counter()
-        self.times = {"queue": 1e3 * (t0 - t_in), "forward": 1e3 * (t1 - t0),
-                      "metrics": 1e3 * (t2 - t1), "panels": 1e3 * (t3 - t2)}
+        with span("eval.metrics", step=step):
+            metrics = compute_depth_errors(
+                seq.depths, pred_depth, max_depth=cfg.eval.depth_cap,
+                median_scaling=cfg.eval.median_scaling,
+            )
+            # trajectory quality during training: chain the probe's relative
+            # poses and score ATE/RPE against the held-out sequence's GT
+            metrics.update(evaluate_pose(chain_relative_poses(rel6), seq.poses))
+        with span("eval.panels", step=step):
+            if writer is not None:
+                writer.log_image(step, "panels/disp", colormap_depth(disp0))
+                writer.log_image(step, "panels/automask",
+                                 np.repeat(automask[..., None], 3, axis=-1))
+                we = warp_err / max(float(warp_err.max()), 1e-6)
+                writer.log_image(step, "panels/warp_error",
+                                 np.repeat(we[..., None], 3, axis=-1))
         return {f"eval/{kk}": float(vv) for kk, vv in metrics.items()}
 
 

@@ -35,6 +35,12 @@ steps, the loop's step (``make_train_step``), ``make_scan_train``'s chunk,
 The kernels' launch counters stay exact: the warm-up's launches count as
 they happen, the capture (which launches nothing) is taken back out, and
 each replay adds the launches it captured (``kernels.add_launch_counts``).
+
+Each call records its stages as spans (``runtime.spans``), each with the
+attr ``program`` (the program's name): ``graph.copy_in`` (the copies into
+the static inputs; attr ``bytes``), ``graph.capture`` (the warm-up and the
+capture, on the card at a signature's first call) and ``graph.replay`` (the
+graph's replay; on the CPU the eager body).
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequ
 import torch
 
 from colvo_torch.kernels import add_launch_counts, launch_counts, reset_launch_counts
+from colvo_torch.runtime.spans import span
 
 # Eager calls of a body on a side stream before its capture: one brings
 # its lazily made state into being, and the capture reads nothing else.
@@ -95,6 +102,7 @@ class Program:
 
     inputs: List[torch.Tensor]
     in_skeleton: tuple
+    in_bytes: int = 0
     outputs: List[torch.Tensor] = field(default_factory=list)
     out_skeleton: tuple = ()
     graph: Optional[torch.cuda.CUDAGraph] = None
@@ -120,6 +128,8 @@ class Graphed:
         generators: generators ``fn`` draws from: their states are put
             back after the warm-up and they are registered with the graph,
             so that each replay draws anew.
+        name: the program's name in its spans and counters; by default
+            the name of ``fn`` (of the function a ``partial`` wraps).
 
     Attributes:
         programs: signature → :class:`Program`.
@@ -127,9 +137,10 @@ class Graphed:
 
     def __init__(self, fn: Callable, device: Optional[torch.device] = None,
                  state: Optional[Callable[[], Iterable[torch.Tensor]]] = None,
-                 generators: Sequence[torch.Generator] = ()):
+                 generators: Sequence[torch.Generator] = (), name: Optional[str] = None):
         self.fn, self.device, self.state = fn, device, state
         self.generators = tuple(generators)
+        self.name = name or getattr(getattr(fn, "func", fn), "__name__", "program")
         self.programs: Dict[tuple, Program] = {}
 
     def __call__(self, *args, **kwargs) -> Any:
@@ -139,15 +150,19 @@ class Graphed:
         prog = self.programs.get(key)
         if prog is None:
             inputs = [torch.empty(t.shape, dtype=t.dtype, device=device) for t in tensors]
-            prog = Program(inputs, key)
-        for s, t in zip(prog.inputs, tensors):
-            s.copy_(t)
+            prog = Program(inputs, key, sum(t.nbytes for t in inputs))
+        with span("graph.copy_in", program=self.name, bytes=prog.in_bytes):
+            for s, t in zip(prog.inputs, tensors):
+                s.copy_(t)
         if device.type != "cuda":
-            self._run_eager(prog)
+            with span("graph.replay", program=self.name):
+                self._run_eager(prog)
         else:
             if prog.graph is None:
-                self._capture(prog, device)
-            prog.graph.replay()
+                with span("graph.capture", program=self.name):
+                    self._capture(prog, device)
+            with span("graph.replay", program=self.name):
+                prog.graph.replay()
             add_launch_counts(prog.launches)
         self.programs[key] = prog
         return prog.result()

@@ -3,7 +3,12 @@ coupled depth+pose over trained weights, moved to the device once.
 
 Each function is one program (``runtime.graphs``), as the reference jits
 ``_depth``, ``_pose`` and ``_coupled``: on CUDA a CUDA graph captured once
-a batch shape and replayed at every later call."""
+a batch shape and replayed at every later call.
+
+Each call is the span ``infer.call`` (``runtime.spans``; attr ``call``, the
+runner's call index) over ``infer.frames`` (the arrays as tensors), the
+program's ``graph.*`` spans and ``infer.fetch`` (the copies of its outputs
+to the host, which wait for the device; attr ``bytes``)."""
 
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from colvo_torch.config import ColvoConfig
 from colvo_torch.geometry import disp_to_depth
 from colvo_torch.models import ColVOModel
 from colvo_torch.runtime.graphs import Graphed
+from colvo_torch.runtime.spans import span
 
 
 def _nchw(imgs: torch.Tensor) -> torch.Tensor:
@@ -59,6 +65,11 @@ def _host(x: torch.Tensor) -> np.ndarray:
     return x.to("cpu", copy=True).numpy()
 
 
+def _fetch(outs: Tuple[torch.Tensor, ...]) -> Tuple[np.ndarray, ...]:
+    with span("infer.fetch", bytes=sum(o.nbytes for o in outs)):
+        return tuple(_host(o) for o in outs)
+
+
 class InferenceRunner:
     """Batched forward functions over a port ``state_dict``.
 
@@ -74,6 +85,7 @@ class InferenceRunner:
         self.model.load_state_dict(state_dict)
         self.model.to(self.device).eval()
         self._programs: Dict[Callable, Graphed] = {}
+        self._calls = 0
 
     def program(self, body: Callable) -> Graphed:
         """``body(runner, ...)`` over this runner's weights as a program
@@ -84,23 +96,28 @@ class InferenceRunner:
             prog = self._programs[body] = Graphed(partial(body, self), device=self.device)
         return prog
 
-    @staticmethod
-    def _frames(imgs: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(imgs), dtype=torch.float32)
+    def _call(self, body: Callable, *imgs: np.ndarray) -> Tuple[np.ndarray, ...]:
+        """``body``'s program on the frame batches ``imgs``; its outputs on
+        the host, as a tuple."""
+        call = self._calls
+        self._calls += 1
+        with span("infer.call", call=call):
+            with span("infer.frames"):
+                frames = [torch.as_tensor(np.asarray(i), dtype=torch.float32) for i in imgs]
+            out = self.program(body)(*frames)
+            return _fetch(out if isinstance(out, tuple) else (out,))
 
     @torch.inference_mode()
     def infer_depth(self, imgs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """(B, H, W, 3) → (depth (B, H, W), disp (B, H, W))."""
-        depth, disp = self.program(_depth_body)(self._frames(imgs))
-        return _host(depth), _host(disp)
+        return self._call(_depth_body, imgs)
 
     @torch.inference_mode()
     def infer_pose(self, img_a: np.ndarray, img_b: np.ndarray) -> np.ndarray:
         """Two frame batches → (B, 6) pose params (axisangle, translation)."""
-        return _host(self.program(_pose_body)(self._frames(img_a), self._frames(img_b)))
+        return self._call(_pose_body, img_a, img_b)[0]
 
     @torch.inference_mode()
     def infer_coupled(self, img_a: np.ndarray, img_b: np.ndarray):
         """Fused depth+pose for streaming VO: (depth_a, depth_b, aa, tr)."""
-        out = self.program(_coupled_body)(self._frames(img_a), self._frames(img_b))
-        return tuple(_host(o) for o in out)
+        return self._call(_coupled_body, img_a, img_b)

@@ -15,6 +15,16 @@ are captured programs of their own. Only the step under a mesh of more
 than one rank and under ``train.debug_nans`` runs eagerly. No step of the
 loop waits for the device, except the bounded dispatch-ahead drain, the
 one fetch of the restart check, the eval hook and the end of the run.
+
+Each step's host time is spans (``runtime.spans``; attr ``step``, the
+step's index, which a restart sets back to 0): ``loop.batch`` (the next
+batch: on the device loader its program's replay, on the host loaders the
+wait for the producer), ``loop.step`` (the step function), ``loop.log``
+(the logged scalars' fetch queued), ``loop.drain`` (the dispatch-ahead
+drain), ``loop.ckpt``, ``loop.eval`` and ``loop.restart_fetch``.
+``wall_steps_per_sec`` and ``wall_fps``, logged at the end, are the steps
+after the first over the time from the first step's end (the capture's;
+on the card the host waits for its replay there, once) to the end.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from colvo_torch.data.prefetch import prefetch_to_device
 from colvo_torch.runtime.checkpoint import CheckpointManager
 from colvo_torch.runtime.mesh import cross_process_barrier, make_mesh, replicate_tree, shard_batch
 from colvo_torch.runtime.metrics import AsyncMetricsLogger, DeviceScalars, MetricsWriter
+from colvo_torch.runtime.spans import span
 from colvo_torch.runtime.train_step import init_state, make_train_step, train_step
 
 # Host→device prefetch depth of the host-side loaders. The grain
@@ -235,11 +246,12 @@ def _train(cfg, dataset, log_dir, max_steps, eval_hook, eval_hook_factory, resum
         0 before the final checkpoint and at loop exit, so that a NaN in
         the last dispatch-ahead windows cannot escape the dispatch-side stop
         and checkpoint poisoned weights."""
-        while len(inflight) > down_to:
-            s_old, fetched = inflight.popleft()
-            loss = fetched.values().get("loss/total")
-            if loss is not None and not np.isfinite(loss):
-                raise RuntimeError(f"aborting: non-finite loss at step {s_old}")
+        with span("loop.drain"):
+            while len(inflight) > down_to:
+                s_old, fetched = inflight.popleft()
+                loss = fetched.values().get("loss/total")
+                if loss is not None and not np.isfinite(loss):
+                    raise RuntimeError(f"aborting: non-finite loss at step {s_old}")
 
     # Basin detect-and-restart: one blocking fetch of train.restart_metric
     # at train.restart_check_step; over the threshold, reinit with a
@@ -249,10 +261,13 @@ def _train(cfg, dataset, log_dir, max_steps, eval_hook, eval_hook_factory, resum
     restarts_used = 0
     restart_checked = False
 
-    wall_t0 = time.time()
+    # The rate's clock starts when the first step (which captures) returns.
+    wall_t0 = wall_step0 = None
     try:
-        for batch in stream:
-            if step >= total_steps:
+        while True:
+            with span("loop.batch", step=step):
+                batch = next(stream, None)
+            if batch is None or step >= total_steps:
                 break
             if lead and profile_window and step == profile_window[0]:
                 activities = [torch.profiler.ProfilerActivity.CPU]
@@ -260,9 +275,15 @@ def _train(cfg, dataset, log_dir, max_steps, eval_hook, eval_hook_factory, resum
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
                 prof = torch.profiler.profile(activities=activities)
                 prof.start()
-            metrics = step_fn(state, batch)
+            i = step  # this step's index, the request id of its spans
+            with span("loop.step", step=i):
+                metrics = step_fn(state, batch)
             step += 1
             consumed += 1
+            if wall_t0 is None:
+                if device.type == "cuda":  # its replay is still queued
+                    torch.cuda.synchronize(device)
+                wall_t0, wall_step0 = time.perf_counter(), step
 
             if prof is not None and step == profile_window[1]:
                 if device.type == "cuda":
@@ -279,15 +300,17 @@ def _train(cfg, dataset, log_dir, max_steps, eval_hook, eval_hook_factory, resum
                     f"aborting: {logger.bad_steps} consecutive non-finite losses"
                 )
             if step % cfg.train.log_every == 0 or step == total_steps:
-                # One device→host copy serves the logger and the drain;
-                # steps_per_sec/fps are stamped by the logger thread.
-                fetched = DeviceScalars(metrics)
-                logger.log(step, fetched)
-                # Bounded dispatch-ahead: retire the loss from N windows back,
-                # so a crawling or diverged device cannot queue an unbounded
-                # run of steps, and a NaN stops the loop on the dispatch side.
-                inflight.append((step, fetched))
-                drain_inflight(max(int(cfg.train.dispatch_ahead_windows), 1))
+                with span("loop.log", step=i):
+                    # One device→host copy serves the logger and the drain;
+                    # steps_per_sec/fps are stamped by the logger thread.
+                    fetched = DeviceScalars(metrics)
+                    logger.log(step, fetched)
+                    # Bounded dispatch-ahead: retire the loss from N windows
+                    # back, so a crawling or diverged device cannot queue an
+                    # unbounded run of steps, and a NaN stops the loop on the
+                    # dispatch side.
+                    inflight.append((step, fetched))
+                    drain_inflight(max(int(cfg.train.dispatch_ahead_windows), 1))
 
             if (cfg.train.restart_threshold > 0 and not restart_checked
                     and restarts_used < cfg.train.restart_max
@@ -299,7 +322,8 @@ def _train(cfg, dataset, log_dir, max_steps, eval_hook, eval_hook_factory, resum
                         f"train.restart_metric {name!r} not in step metrics "
                         f"{sorted(metrics)}"
                     )
-                val = float(metrics[name])  # one blocking fetch
+                with span("loop.restart_fetch", step=i):
+                    val = float(metrics[name])  # one blocking fetch
                 if val > cfg.train.restart_threshold:
                     restarts_used += 1
                     new_seed = cfg.train.seed + 1000 * restarts_used
@@ -322,43 +346,44 @@ def _train(cfg, dataset, log_dir, max_steps, eval_hook, eval_hook_factory, resum
                     if lead:
                         ckpt.reset()  # on the checkpoint worker, after earlier saves
                     step = 0
-                    start_step = 0
                     restart_checked = False
-                    wall_t0 = time.time()
+                    wall_t0 = None
                     continue
 
             if step % cfg.train.ckpt_every_steps == 0 or step == total_steps:
-                if step == total_steps:
-                    # Final checkpoint: retire every queued loss first, so a
-                    # late NaN aborts before poisoned weights are saved.
-                    drain_inflight(0)
-                # Snapshot on the compute stream, written by the manager's
-                # worker: the next step's in-place update cannot race it.
-                # The grain state is that after exactly this step's batches,
-                # though the prefetcher has pulled further.
-                if lead:
-                    ckpt.save(step, state, loader_state=(
-                        batches.state_at(grain_base + consumed) if grain else None))
+                with span("loop.ckpt", step=i):
+                    if step == total_steps:
+                        # Final checkpoint: retire every queued loss first, so
+                        # a late NaN aborts before poisoned weights are saved.
+                        drain_inflight(0)
+                    # Snapshot on the compute stream, written by the manager's
+                    # worker: the next step's in-place update cannot race it.
+                    # The grain state is that after exactly this step's
+                    # batches, though the prefetcher has pulled further.
+                    if lead:
+                        ckpt.save(step, state, loader_state=(
+                            batches.state_at(grain_base + consumed) if grain else None))
 
             if eval_hook is not None and step % eval_every == 0:
-                # Hook contract: (step, state, writer) → optional scalars,
-                # logged as eval/* rows beside the training rows; panels go
-                # straight to writer.log_image.
-                scalars = eval_hook(step, state, logger.writer)
-                if scalars:
-                    logger.log(step, scalars)
+                with span("loop.eval", step=i):
+                    # Hook contract: (step, state, writer) → optional scalars,
+                    # logged as eval/* rows beside the training rows; panels
+                    # go straight to writer.log_image.
+                    scalars = eval_hook(step, state, logger.writer)
+                    if scalars:
+                        logger.log(step, scalars)
 
         drain_inflight(0)  # early break / non-aligned final step
         ckpt.wait()
-        # End of run: the one deliberate device sync. Wall time over
-        # executed steps is the unambiguous rate.
+        # End of run: the one deliberate device sync. Wall time over the
+        # steps after the first is the unambiguous rate.
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        wall = time.time() - wall_t0
-        if step > start_step and wall > 0:
+        if wall_t0 is not None and step > wall_step0:
+            wall = time.perf_counter() - wall_t0
             logger.log(step, {
-                "wall_steps_per_sec": (step - start_step) / wall,
-                "wall_fps": (step - start_step) * cfg.data.batch_size / wall,
+                "wall_steps_per_sec": (step - wall_step0) / wall,
+                "wall_fps": (step - wall_step0) * cfg.data.batch_size / wall,
             })
     finally:
         if prof is not None:

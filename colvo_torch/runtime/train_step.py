@@ -221,7 +221,7 @@ class TrainStep:
         self.device = next(state.model.parameters()).device
         self.step = torch.zeros((), dtype=torch.int64, device=self.device)
         self.program = Graphed(self._body, device=self.device,
-                               state=lambda: _mutable(self.state, self.step))
+                               state=lambda: _mutable(self.state, self.step), name="train_step")
 
     def _body(self, batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         cfg, state = self.cfg, self.state
@@ -327,7 +327,7 @@ class ScanTrain:
             self._inputs = inputs
             self.program = Graphed(lambda: self._steps(*inputs), device=self.device,
                                    state=lambda: _mutable(self.state, self.step),
-                                   generators=(generator,))
+                                   generators=(generator,), name="scan_train")
         elif any(a is not b for a, b in zip(inputs, self._inputs)):
             raise ValueError("a captured chunk reads the frames, table, k and generator "
                              "it was captured with")

@@ -3,7 +3,8 @@
 Runs coupled depth + pose over a frame stream and chains the relative
 poses into a trajectory on the host in float64, through the native library
 (``colvo_torch/native``), with a periodic renormalisation of the rotation
-against drift over thousands of frames.
+against drift over thousands of frames. The streaming path's chaining is
+the span ``vo.chain`` (``runtime.spans``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 
 from colvo_torch import native
 from colvo_torch.runtime.infer import InferenceRunner
+from colvo_torch.runtime.spans import span
 
 
 @dataclass
@@ -130,7 +132,8 @@ def run_vo(
         ).run(frames, keyframe_every=keyframe_every)
         if not depths_kf:
             return VOResult(poses=np.eye(4)[None].astype(np.float64))
-        poses = chain_relative_poses(rel6, renorm_every=renorm_every)
+        with span("vo.chain"):
+            poses = chain_relative_poses(rel6, renorm_every=renorm_every)
         ids = [i for i in range(poses.shape[0]) if i % keyframe_every == 0]
         assert len(ids) == len(depths_kf), (len(ids), len(depths_kf))
         return VOResult(poses=poses, depths=depths_kf, keyframe_ids=ids)

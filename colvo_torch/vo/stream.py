@@ -24,6 +24,16 @@ A colonoscopy video streams through in chunks of ``chunk_size`` frames:
   on the device and the host.
 
 Pose chaining stays on the host in float64 (``vo/driver.py``).
+
+A stream is the span ``vo.run`` (``runtime.spans``). Each chunk in it is
+``vo.chunk`` (attr ``chunk``, its index), which holds on the calling
+thread ``vo.drain`` (blocked on the decoded results of the oldest chunk,
+whose index it carries), on the card ``vo.slot_wait`` (the wait for the
+chunk's pinned slot), ``vo.stage`` (the frames stacked into it; on the CPU
+into a new array), on the card ``vo.h2d`` (the copy queued), the chunk
+program's ``graph.*`` spans and ``vo.d2h`` (the wire's copy queued; on the
+CPU its clone). On a fetch thread a chunk is ``vo.fetch_wait`` (on the
+card, the wait for the wire's copy) and ``vo.decode``.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ import torch
 
 from colvo_torch.geometry import disp_to_depth
 from colvo_torch.runtime.infer import InferenceRunner
+from colvo_torch.runtime.spans import span
 
 WIRE_DTYPES: Dict[str, torch.dtype] = {
     "float32": torch.float32, "float16": torch.float16, "uint8": torch.uint8}
@@ -299,23 +310,36 @@ class StreamingVO:
         else:  # planar (H·3/2, W) in; depths at the RGB size
             hw = (first.shape[0] * 2 // 3, first.shape[1])
 
-        d0, carry_img, carry_bneck = self.init_step(
-            torch.from_numpy(first[None]).to(self.device))
-        pipe = _CudaPipe(self.device, self.max_in_flight) if self.device.type == "cuda" else None
+        with span("vo.run"):
+            d0, carry_img, carry_bneck = self.init_step(
+                torch.from_numpy(first[None]).to(self.device))
+            depths, poses = self._stream(it, hw, carry_img, carry_bneck, keep_depths, ke)
+            all_depths = [d0[0].to("cpu", copy=True).numpy()] + depths if keep_depths else []
+        rel = np.concatenate(poses) if poses else np.zeros((0, 6), np.float32)
+        return all_depths, rel
 
+    def _stream(self, it: Iterator[np.ndarray], hw: Tuple[int, int], carry_img: torch.Tensor,
+                carry_bneck: torch.Tensor, keep_depths: bool, ke: int
+                ) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+        """The frames after the first, chunk by chunk → (the kept depth
+        maps, the (n, 6) poses of each chunk)."""
+        pipe = _CudaPipe(self.device, self.max_in_flight) if self.device.type == "cuda" else None
         depths: List[np.ndarray] = []
         poses: List[np.ndarray] = []
         next_idx = 1  # frame index of the first frame of the next drained chunk
 
-        def fetch(buf, event, n):
+        def fetch(buf, event, n, k):
             if event is not None:
                 # Do not decode a pinned buffer before its copy has landed.
-                event.synchronize()
-            return (*self.decode_wire(buf.numpy(), hw), n)
+                with span("vo.fetch_wait", chunk=k):
+                    event.synchronize()
+            with span("vo.decode", chunk=k):
+                return (*self.decode_wire(buf.numpy(), hw), n)
 
-        def drain(fut):
+        def drain(k, fut):
             nonlocal next_idx
-            dn, pn, n = fut.result()
+            with span("vo.drain", chunk=k):
+                dn, pn, n = fut.result()
             if keep_depths:
                 depths.extend(dn[i] for i in range(n) if (next_idx + i) % ke == 0)
             next_idx += n
@@ -324,25 +348,32 @@ class StreamingVO:
         pending: deque = deque()
         with ThreadPoolExecutor(max_workers=self.fetch_workers) as pool:
             for k, (chunk, n_valid) in enumerate(self._chunks(it)):
-                # Bounded in-flight work, and the slot of chunk k (that of
-                # chunk k - max_in_flight) free; drained in order, so the
-                # results stay in order whatever order the fetches end in.
-                while len(pending) >= self.max_in_flight:
-                    drain(pending.popleft())
-                dev = pipe.upload(k, chunk) if pipe else torch.from_numpy(np.stack(chunk))
-                wire, carry_img, carry_bneck = self.chunk_step(carry_img, carry_bneck, dev)
-                # The wire is the program's static output, which the next
-                # chunk overwrites: on the card its copy to the host is
-                # queued before that replay; on the CPU a fetch thread
-                # decodes it meanwhile, so it takes a copy.
-                buf, event = pipe.download(k, wire) if pipe else (wire.clone(), None)
-                pending.append(pool.submit(fetch, buf, event, n_valid))
+                with span("vo.chunk", chunk=k):
+                    # Bounded in-flight work, and the slot of chunk k (that
+                    # of chunk k - max_in_flight) free; drained in order, so
+                    # the results stay in order whatever order the fetches
+                    # end in.
+                    while len(pending) >= self.max_in_flight:
+                        drain(*pending.popleft())
+                    if pipe:
+                        dev = pipe.upload(k, chunk)
+                    else:
+                        with span("vo.stage", chunk=k):
+                            dev = torch.from_numpy(np.stack(chunk))
+                    wire, carry_img, carry_bneck = self.chunk_step(carry_img, carry_bneck, dev)
+                    # The wire is the program's static output, which the
+                    # next chunk overwrites: on the card its copy to the
+                    # host is queued before that replay; on the CPU a fetch
+                    # thread decodes it meanwhile, so it takes a copy.
+                    if pipe:
+                        buf, event = pipe.download(k, wire)
+                    else:
+                        with span("vo.d2h", chunk=k):
+                            buf, event = wire.clone(), None
+                    pending.append((k, pool.submit(fetch, buf, event, n_valid, k)))
             while pending:
-                drain(pending.popleft())
-
-        all_depths = [d0[0].to("cpu", copy=True).numpy()] + depths if keep_depths else []
-        rel = np.concatenate(poses) if poses else np.zeros((0, 6), np.float32)
-        return all_depths, rel
+                drain(*pending.popleft())
+        return depths, poses
 
 
 class _CudaPipe:
@@ -367,16 +398,19 @@ class _CudaPipe:
             staging = self.h2d[s] = staging.pin_memory()
         # Reused pinned buffers: do not overwrite this buffer while its last
         # host→device copy may still be queued.
-        self.h2d_done[s].synchronize()
-        np.stack(chunk, out=staging.numpy())
-        with torch.cuda.stream(self.copy):
-            dev = staging.to(self.device, non_blocking=True)
-            self.h2d_done[s].record()
-        self.compute.wait_stream(self.copy)
-        # ``dev`` was allocated on the copy stream and is read on the
-        # compute stream (copied there into the chunk program's static
-        # input): keep the allocator from reusing it early.
-        dev.record_stream(self.compute)
+        with span("vo.slot_wait", chunk=k):
+            self.h2d_done[s].synchronize()
+        with span("vo.stage", chunk=k):
+            np.stack(chunk, out=staging.numpy())
+        with span("vo.h2d", chunk=k):
+            with torch.cuda.stream(self.copy):
+                dev = staging.to(self.device, non_blocking=True)
+                self.h2d_done[s].record()
+            self.compute.wait_stream(self.copy)
+            # ``dev`` was allocated on the copy stream and is read on the
+            # compute stream (copied there into the chunk program's static
+            # input): keep the allocator from reusing it early.
+            dev.record_stream(self.compute)
         return dev
 
     def download(self, k: int, wire: torch.Tensor) -> Tuple[torch.Tensor, torch.cuda.Event]:
@@ -385,7 +419,8 @@ class _CudaPipe:
         s = k % self.slots
         if self.d2h[s] is None:
             self.d2h[s] = torch.empty(wire.shape, dtype=wire.dtype, pin_memory=True)
-        self.d2h[s].copy_(wire, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(self.compute)
+        with span("vo.d2h", chunk=k):
+            self.d2h[s].copy_(wire, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self.compute)
         return self.d2h[s], event

@@ -9,6 +9,7 @@ replaced model."""
 
 import gc
 import math
+import time
 import types
 import weakref
 from unittest import mock
@@ -30,6 +31,7 @@ from colvo_torch.data.device_store import DeviceSnippetStore, device_augment, ga
 from colvo_torch.models import ColVOModel
 from colvo_torch.pipelines import TrainingEvalHook, make_training_eval_hook
 from colvo_torch.runtime import flax_params
+from colvo_torch.runtime import spans
 from colvo_torch.runtime.graphs import Graphed
 
 torch.set_num_threads(2)
@@ -185,13 +187,21 @@ def test_captured_eval_hook_matches_the_reference_across_calls():
     state = types.SimpleNamespace(model=model)
     first = hook(0, state, None)
     program = hook.program
+    since = time.perf_counter_ns()
     second = hook(1, state, None)
     _assert_close(first, want)
     assert second == first and hook.program is program and isinstance(program, Graphed)
     assert len(program.programs) == 1
     assert len(seen) == 4 and set(seen) == {(False, False)} and model.training  # 2 a forward
-    assert sorted(hook.times) == ["forward", "metrics", "panels", "queue"]
-    assert all(t >= 0 for t in hook.times.values())
+    parts = [s for s in spans.snapshot().spans if s.name.startswith("eval.")
+             and s.start_ns >= since and s.attrs.get("step") == 1]
+    assert [s.name for s in parts] == ["eval.queue", "eval.forward", "eval.metrics",
+                                       "eval.panels"]
+    assert all(a.end_ns <= b.start_ns for a, b in zip(parts, parts[1:]))
+    assert all(s.end_ns >= s.start_ns and s.parent is None for s in parts)
+    assert [(s.name, s.attrs["program"]) for s in spans.snapshot().spans
+            if s.parent == parts[1].id] == [("graph.copy_in", "eval_forward"),
+                                            ("graph.replay", "eval_forward")]
     out = program()
     model.eval()
     for a, b in zip(out, hook.forward(model)):

@@ -15,6 +15,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from colvo.kernels.scatter import bilinear_sample_fullgrad
+from colvo_torch import kernels
 from colvo_torch.kernels import scatter
 
 torch.set_num_threads(2)
@@ -113,7 +114,7 @@ def test_cpu_path_stays_the_float_plain_version_under_deterministic_mode():
     (deterministic there, and what the CPU parity tests hold against
     ``colvo``), and launches nothing."""
     x, y, g = _inputs(2, 1, 16, 24, 18, 26, 8, "smooth")
-    scatter.launches.clear()
+    kernels.reset_launch_counts()
     prev = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
     try:
@@ -121,4 +122,4 @@ def test_cpu_path_stays_the_float_plain_version_under_deterministic_mode():
     finally:
         torch.use_deterministic_algorithms(prev)
     assert torch.equal(got, scatter.scatter_plain(x, y, g, 18, 26))
-    assert not scatter.launches
+    assert kernels.launch_counts() == {}
