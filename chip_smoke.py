@@ -17,7 +17,13 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
    15; times kernel, plain version and the nearest single
    PyTorch call on the device (CUDA-graph replays between CUDA events),
    the kernel's eager call through its wrapper, and F with the L2 flushed
-   before each call. Every kernel's registers and spills come from the
+   before each call. Kernel P (the loss's projection of a depth grid to
+   its two sources, forward and backward) against autograd through the
+   plain ``ops.project(ops.backproject(...))`` in float64 at the training
+   cell's four grids (B=12), its backward twice bit for bit, timed at the
+   full-resolution grid (replayed, warm and cold, and eager) beside the
+   plain path's forward and forward + backward, and a default step's P
+   against the plain path's. Every kernel's registers and spills come from the
    build's ``ptxas`` report; a spill fails the run.
 4. Slice phase, three times: ``ColvoConfig`` at full width (ResNet-18,
    B=12, 256×320, 3 frames, 4 scales, bf16 convs) by default, with
@@ -209,8 +215,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from colvo_torch.config import ColvoConfig  # noqa: E402
 from colvo_torch.geometry.ops import bilinear_taps  # noqa: E402
 from colvo_torch.data import batch_iterator, synthetic_dataset  # noqa: E402
-from colvo_torch.kernels import build, launch_counts, reset_launch_counts  # noqa: E402
-from colvo_torch.kernels import fused_loss, sampler, scatter  # noqa: E402
+from colvo_torch.kernels import build, launch_counts, project_depth, reset_launch_counts  # noqa: E402
+from colvo_torch.kernels import fused_loss, project, sampler, scatter  # noqa: E402
 from colvo_torch.losses.photometric import lcc_calibrate  # noqa: E402
 from colvo_torch.runtime import InferenceRunner, init_state, loss_fn, to_device, train_step  # noqa: E402
 from colvo_torch.runtime import graphs, spans  # noqa: E402
@@ -253,6 +259,13 @@ TRAIN_STEPS = 6
 # value (23) and the L1 and channel sums (4); the backward adds per channel
 # the coordinate derivatives (4), the SSIM terms G1-G3 and F1-F3 (30), the
 # three 3×3 transposed sums (12), dŵ, dw and the two channel sums (12).
+# Kernel P at the training cell's grids: B, sources, and f32 operations a
+# pixel: the ray once (6), per source the point, R p + t, K c and the
+# divides (36); the backward recomputes them and adds per source the
+# cotangents of u, c and p, d_depth and the 12 pose sums (73).
+PROJ_N, PROJ_SOURCES = 12, 2
+P_RAY_OPS, P_FWD_OPS, P_BWD_OPS = 6, 36, 36 + 73
+TOL_PROJ_FWD_REL, TOL_PROJ_BWD_REL = 1e-5, 1e-4
 F_TAP_OPS = 12
 F_FWD_OPS = 6 + 2 + 8 * (LCC_WINDOW - 1) + 17 + 3 + 20 + 23 + 4
 F_BWD_OPS = F_FWD_OPS + 4 + 30 + 12 + 12
@@ -414,6 +427,7 @@ def kernel_phase(device, photo=PHOTO, geo_n=GEO_N, geo_scales=GEO_SCALES, group=
     rows.update(geo_rows(device, gen, geo_n, geo_scales, timer, eager))
     rows.update(grouped_rows(device, gen, photo, group, timer, eager))
     rows.update(fused_rows(device, gen, photo, timer, eager, cold))
+    rows.update(project_rows(device, gen, geo_scales, timer, eager, cold))
     torch.backends.cudnn.allow_tf32 = True
     return rows
 
@@ -652,6 +666,110 @@ def fused_rows(device, gen, photo, timer, eager, cold):
     return rows
 
 
+def project_inputs(gen, h: int, w: int, device) -> tuple:
+    """Kernel P's inputs on an h×w grid: depth (B, h, w) from uniform
+    disparities, a pinhole K per row and its inverse, small poses as
+    (S, B, 4, 4) transforms, and cotangents of x, y and z."""
+    from colvo_torch.data.synthetic import default_intrinsics
+    from colvo_torch.geometry import disp_to_depth, transformation_from_parameters
+
+    depth = disp_to_depth(0.02 + 0.96 * torch.rand((PROJ_N, h, w), generator=gen))[1]
+    k = torch.tensor(default_intrinsics(h, w)).repeat(PROJ_N, 1, 1)
+    k[:, 0, 2] += 4 * torch.rand(PROJ_N, generator=gen) - 2
+    poses = 0.02 * torch.randn((PROJ_N, PROJ_SOURCES, 6), generator=gen)
+    t = transformation_from_parameters(poses[..., :3], poses[..., 3:]).transpose(0, 1)
+    g = torch.randn((3, PROJ_SOURCES * PROJ_N, h, w), generator=gen)
+    return (tuple(a.to(device) for a in (depth, k, torch.linalg.inv(k).contiguous(), t)),
+            tuple(a.to(device) for a in g.unbind(0)))
+
+
+def _grid_rel_err(got, want) -> float:
+    """max |got − want| / (|want| + the largest |want| of its grid), for
+    got and want (A, N, B) over N grids."""
+    got, want = got.double(), want.double()
+    scale = want.abs() + want.abs().amax(dim=(0, 2), keepdim=True)
+    return ((got - want).abs() / scale).max().item()
+
+
+def project_parity(mats, gs) -> tuple:
+    """P's x, y, z and d_depth, d_T against autograd through the plain path
+    in float64 on the same inputs: the largest errors relative to the value
+    and the largest of its grid."""
+    depth, k, k_inv, t = mats
+    out = project.forward(*mats)
+    d_depth, d_t = project.backward(*mats, *gs)
+    d64, t64 = depth.double().requires_grad_(), t.double().requires_grad_()
+    want = project.project_plain(d64, k.double(), k_inv.double(), t64)
+    torch.autograd.backward(want, [g.double() for g in gs])
+    n, s = depth.shape[0], t.shape[0]
+    err_f = max(_grid_rel_err(o.reshape(s, n, -1), w.detach().reshape(s, n, -1))
+                for o, w in zip(out, want))
+    err_b = max(_grid_rel_err(d_depth.reshape(1, n, -1), d64.grad.reshape(1, n, -1)),
+                _grid_rel_err(d_t.reshape(s, n, -1), t64.grad.reshape(s, n, -1)))
+    check(all(bool(torch.isfinite(a).all()) for a in (*out, d_depth, d_t)), "P finite")
+    check(bool((d_t[:, :, 3] == 0).all()), "P: d_T's bottom rows are zero")
+    return err_f, err_b
+
+
+def project_rows(device, gen, geo_scales, timer, eager, cold):
+    """P/fwd, P/bwd: kernel P against the plain path at the training cell's
+    four grids (B=12, two sources), its backward twice bit for bit; timed
+    at the full-resolution grid, and a default step's P (the photometric
+    projection of each scale at full resolution, the geo one at its own
+    grid) against the plain path's forward and backward."""
+    grids = {hw: project_inputs(gen, *hw, device) for hw in geo_scales}
+    for hw, (mats, gs) in grids.items():
+        err_f, err_b = project_parity(mats, gs)
+        log(f"P {PROJ_N}x{hw[0]}x{hw[1]}, {PROJ_SOURCES} sources: |x, y, z| {err_f:.3g}, "
+            f"|d_depth, d_T| {err_b:.3g} (of the value and its grid's largest, vs float64)")
+        check(err_f <= TOL_PROJ_FWD_REL and err_b <= TOL_PROJ_BWD_REL, f"P vs plain at {hw}")
+    mats, gs = grids[geo_scales[0]]
+    first, second = project.backward(*mats, *gs), project.backward(*mats, *gs)
+    check(all(same_bits(a, b) for a, b in zip(first, second)), "P backward: the same bits twice")
+    depth, k, k_inv, t = mats
+    d_req, t_req = depth.clone().requires_grad_(), t.clone().requires_grad_()
+
+    def step_of(fn):
+        return lambda: torch.autograd.grad(fn(d_req, k, k_inv, t_req), (d_req, t_req), gs)
+
+    px = depth.numel()
+    fwd_bytes = 4 * px * (1 + 3 * PROJ_SOURCES)
+    bwd_bytes = 4 * px * (2 + 3 * PROJ_SOURCES)
+    fwd = lambda: project.forward(*mats)  # noqa: E731
+    bwd = lambda: project.backward(*mats, *gs)  # noqa: E731
+    rows = {
+        "P/fwd": dict(
+            max_abs_err=None, ms=timer(fwd), cold_ms=cold(fwd),
+            eager_ms=eager(lambda: project_depth(*mats)),
+            plain_ms=timer(lambda: project.project_plain(*mats)), library_ms=None,
+            bound=bound(fwd_bytes, px * (P_RAY_OPS + P_FWD_OPS * PROJ_SOURCES)),
+        ),
+        "P/bwd": dict(
+            max_abs_err=None, ms=timer(bwd), cold_ms=cold(bwd),
+            eager_ms=eager(bwd),
+            plain_ms=timer(step_of(project.project_plain)), library_ms=None,
+            bound=bound(bwd_bytes, px * (P_RAY_OPS + P_BWD_OPS * PROJ_SOURCES)),
+        ),
+    }
+    # a default step: the photometric grid of every scale at full resolution,
+    # the geo grid of each scale at its own size
+    step_ms = {"P": 0.0, "plain": 0.0}
+    for hw in (*[geo_scales[0]] * len(geo_scales), *geo_scales):
+        (dm, km, kim, tm), gm = grids[hw]
+        dq, tq = dm.clone().requires_grad_(), tm.clone().requires_grad_()
+        for key, fn in (("P", project_depth), ("plain", project.project_plain)):
+            step_ms[key] += timer(lambda fn=fn: torch.autograd.grad(fn(dq, km, kim, tq), (dq, tq),
+                                                                   gm))
+    log(f"P at {PROJ_N}x{geo_scales[0][0]}x{geo_scales[0][1]}: forward {rows['P/fwd']['ms']:.4f} "
+        f"ms (cold {rows['P/fwd']['cold_ms']:.4f}, eager {rows['P/fwd']['eager_ms']:.4f}; plain "
+        f"{rows['P/fwd']['plain_ms']:.4f}), backward {rows['P/bwd']['ms']:.4f} ms (cold "
+        f"{rows['P/bwd']['cold_ms']:.4f}; the plain forward + backward "
+        f"{rows['P/bwd']['plain_ms']:.4f}); bounds {rows['P/fwd']['bound'][0]:.4f} and "
+        f"{rows['P/bwd']['bound'][0]:.4f} ms; a default step's projections forward + backward: "
+        f"P {step_ms['P']:.4f} ms, plain {step_ms['plain']:.4f} ms")
+    return rows
+
+
 def kernel_ptxas() -> None:
     """Logs every kernel's registers and stack frame from the builds'
     ``ptxas -v`` reports, and fails if any kernel spills. A stack frame
@@ -662,7 +780,7 @@ def kernel_ptxas() -> None:
         entries = re.findall(r"Compiling entry function '(\w+)'.*?(\d+) bytes stack frame, "
                              r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
                              r"Used (\d+) registers", report, re.S)
-        check(len(entries) >= {"sampler": 4, "scatter": 1}.get(source, 2),
+        check(len(entries) >= {"sampler": 4, "scatter": 1, "project": 3}.get(source, 2),
               f"ptxas report of {source}.cu lists its kernels:\n{report}")
         regs = {}
         for name, stack, stores, loads, n_regs in entries:
@@ -702,14 +820,23 @@ def expected_launches(cfg: ColvoConfig, n_steps: int) -> dict:
     held-out loss makes the value-only launches of one step. The remat
     knobs, ``compute_dtype``, ``scatter_audit``, the per-frame forward and
     the Adam moment's dtype launch nothing of their own (the warp stays
-    outside ``photo_remat``'s recomputation)."""
+    outside ``photo_remat``'s recomputation). Kernel P projects each grid
+    to all its sources in one launch each way (``P/fwd``, ``P/bwd``; the
+    held-out loss its forwards): the photometric grid of each scale, the
+    geo grid of each scale unless the geo term reuses the photometric one
+    (``geo_full_res``; ``photo_native`` without ``geo_res_cap``), and under
+    ``geo_grad="sym"`` the reverse warps' grid of each scale."""
     n_scales, n_sources = cfg.model.n_scales, len(cfg.data.frame_offsets)
     pairs = n_scales * n_sources
-    counts = {}
+    grids = n_scales
+    if cfg.loss.geometric_weight > 0:
+        reuse = cfg.loss.geo_full_res or (cfg.loss.photo_native and cfg.loss.geo_res_cap == 0)
+        grids += n_scales * ((not reuse) + (cfg.loss.geo_grad == "sym"))
+    counts = {"P/fwd": grids * (n_steps + 1), "P/bwd": grids * n_steps}
     if cfg.loss.geometric_weight > 0:
         sym = cfg.loss.geo_grad == "sym"
         geo_launches = -(-n_scales * (2 if sym else 1) // sampler.MAX_DESCS)
-        counts = {"S/grad/C1": geo_launches * n_steps, "S/value/C1": geo_launches}
+        counts.update({"S/grad/C1": geo_launches * n_steps, "S/value/C1": geo_launches})
         if not (sym or cfg.loss.geo_stopgrad):
             counts["T/C1/det" if cfg.train.deterministic else "T/C1"] = n_steps
     if cfg.loss.fused_kernel:
@@ -744,7 +871,8 @@ def slice_phase(cfg: ColvoConfig, device, batches, n_steps: int = TRAIN_STEPS,
             mock.patch.object(scatter, "scatter", scatter.scatter_plain), \
             mock.patch.object(scatter, "scatter_multi", scatter.scatter_multi_plain), \
             mock.patch.object(fused_loss, "err", fused_loss.err_plain), \
-            mock.patch.object(fused_loss, "err_bwd", fused_loss.err_bwd_plain):
+            mock.patch.object(fused_loss, "err_bwd", fused_loss.err_bwd_plain), \
+            mock.patch.object(project, "forward", project.project_plain):
         _, ref_aux = loss_fn(state.model, batches[0], cfg)
     ref_aux = {k: v.item() for k, v in ref_aux.items()}
 
@@ -4005,6 +4133,10 @@ KERNELS = (
      "colvo/kernels/fused_loss.py:275", "F/fwd/C3"),
     ("P8", "fused_err[bwd,C=3,L=15]", "colvo_torch/kernels/csrc/fused_loss.cu",
      "colvo/kernels/fused_loss.py:312", "F/bwd/C3"),
+    ("P/fwd", "project_depth[fwd,S=2,12x256x320]", "colvo_torch/kernels/csrc/project.cu",
+     "none: XLA's in the JAX package", "P/fwd"),
+    ("P/bwd", "project_depth[bwd,S=2,12x256x320]", "colvo_torch/kernels/csrc/project.cu",
+     "none: XLA's in the JAX package", "P/bwd"),
 )
 
 # The configurations the slice phase trains: the default path, and the two

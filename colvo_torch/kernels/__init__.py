@@ -13,6 +13,12 @@ error of the training loss, as in ``colvo/kernels/__init__.py``:
   d/dx, d/dy, backward the same channel sums plus the source cotangents
   by one launch of kernel T. ``bilinear_sample_full`` is its one-scale
   call.
+* ``project_depth`` — the training loss's backprojection, SE(3) and
+  pinhole projection of one depth grid to all its source frames: forward
+  kernel P, backward P's pass over the pixels (the depth cotangent, the
+  transforms' per-CTA partials) and the partials' sum in a fixed order;
+  no gradient to K or K⁻¹, and no float atomics, so its gradients are the
+  same bits on every run.
 * ``warp_photometric`` — the per-pixel warp + LCC + SSIM + L1 error of
   one source frame (``loss.fused_kernel``): kernel F's forward, and its
   backward for the coordinate cotangent, where LCC is affine or off; the
@@ -28,11 +34,11 @@ are what the loss calls; the NHWC forms keep the JAX layout.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
-from colvo_torch.kernels import build, fused_loss, sampler, scatter
+from colvo_torch.kernels import build, fused_loss, project, sampler, scatter
 
 
 class _SampleCoordsGrad(torch.autograd.Function):
@@ -96,6 +102,22 @@ class _SampleFullGradMulti(torch.autograd.Function):
         gxs = [(g * dx).sum(1) for g, dx in zip(gs, dxs)]
         gys = [(g * dy).sum(1) for g, dy in zip(gs, dys)]
         return (*d_srcs, *gxs, *gys)
+
+
+class _ProjectDepth(torch.autograd.Function):
+    """Forward P; backward P's pixel pass and fixed-order sum. Only the
+    inputs are saved: the backward recomputes the points."""
+
+    @staticmethod
+    def forward(ctx, depth, k, k_inv, t_mats):
+        ctx.save_for_backward(depth, k, k_inv, t_mats)
+        return project.forward(depth, k, k_inv, t_mats)
+
+    @staticmethod
+    def backward(ctx, gx, gy, gz):
+        d_depth, d_t = project.backward(*ctx.saved_tensors, gx.contiguous(), gy.contiguous(),
+                                        gz.contiguous())
+        return d_depth, None, None, d_t
 
 
 def _needs_grad(*ts: torch.Tensor) -> bool:
@@ -164,6 +186,26 @@ def bilinear_sample_full_planes(src: torch.Tensor, x: torch.Tensor,
     return bilinear_sample_full_multi([src], [x], [y])[0]
 
 
+def project_depth(depth: torch.Tensor, k: torch.Tensor, k_inv: torch.Tensor,
+                  t_mats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Project depth (N, h, w) through K⁻¹, each of ``t_mats`` (S, N, 4, 4)
+    and K ((3, 3) or (N, 3, 3)) → source-pixel x, y and projected z, each
+    (S·N, h, w) with plane ``s·N + n`` for grid n and source s:
+    ``geometry.ops.project(backproject(depth, k_inv), k, t_mats[s])``.
+    Gradients flow to the depth and the transforms; K and K⁻¹ are data,
+    and either requiring a gradient raises."""
+    if _needs_grad(k, k_inv):
+        raise ValueError("project_depth takes K and K^-1 as data: neither may require a gradient")
+    if depth.device.type == "cpu":
+        return project.project_plain(depth, k, k_inv, t_mats)
+    depth, k, k_inv = depth.contiguous(), k.contiguous(), k_inv.contiguous()
+    if t_mats.stride(-1) != 1 or t_mats.stride(-2) != 4:
+        t_mats = t_mats.contiguous()
+    if _needs_grad(depth, t_mats):
+        return _ProjectDepth.apply(depth, k, k_inv, t_mats)
+    return project.forward(depth, k, k_inv, t_mats)
+
+
 def bilinear_sample_fast(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """img (B, H, W, C), coords (B, h, w, 2) → (B, h, w, C); gradients
     flow to ``coords`` only."""
@@ -185,7 +227,7 @@ def bilinear_sample_full(img: torch.Tensor, coords: torch.Tensor) -> torch.Tenso
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last reset: ``S/grad/C3``,
     ``S/grad/C3/g4``, ``S/value/C1``, ``T/C1``, ``F/fwd/C3``, ``F/bwd/C3``,
-    ... (only CUDA launches count; the plain versions do not). They are
+    ``P/fwd``, ``P/bwd``, ... (only CUDA launches count; the plain versions do not). They are
     the counters ``launch.<key>`` of ``runtime.spans``, which count
     whether it records or not (``spans.tally``)."""
     from colvo_torch.runtime import spans  # the runtime package imports this one
@@ -218,6 +260,7 @@ __all__ = [
     "bilinear_sample_full_multi",
     "bilinear_sample_grouped_planes",
     "warp_photometric",
+    "project_depth",
     "launch_counts",
     "reset_launch_counts",
     "add_launch_counts",

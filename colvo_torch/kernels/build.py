@@ -20,9 +20,11 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("sampler", "scatter", "fused_loss")
+SOURCES = ("sampler", "scatter", "fused_loss", "project")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,6 +43,14 @@ def count_launch(key: str) -> None:
     from colvo_torch.runtime import spans  # the runtime package imports the kernels
 
     spans.tally(LAUNCH + key)
+
+
+def empty(numel: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A new (numel,) tensor, left unfilled also under deterministic
+    algorithms (which fill ``torch.empty``'s memory): for buffers a kernel
+    writes or zeroes whole, where a fill would be a wasted pass over it."""
+    storage = torch.UntypedStorage(numel * dtype.itemsize, device=device)
+    return torch.empty(0, dtype=dtype, device=device).set_(storage, 0, (numel,), (1,))
 
 
 def _nvcc() -> str:

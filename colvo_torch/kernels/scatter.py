@@ -125,15 +125,6 @@ def det_occupancy(smem_bytes: int) -> int:
     return n.value
 
 
-def _empty(numel: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """A new (numel,) tensor, left unfilled also under deterministic
-    algorithms (which fill ``torch.empty``'s memory): the entry points
-    write or zero every cell of what they get, so a fill would be a wasted
-    pass over it."""
-    storage = torch.UntypedStorage(numel * dtype.itemsize, device=device)
-    return torch.empty(0, dtype=dtype, device=device).set_(storage, 0, (numel,), (1,))
-
-
 def scatter_plain(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
                   h_src: int, w_src: int) -> torch.Tensor:
     """Plain version: d src[r, c] = Σ_p g_p·w_p over the four bilinear taps,
@@ -277,7 +268,7 @@ def _scatter_multi_cuda(xs: Sequence[torch.Tensor], ys: Sequence[torch.Tensor],
                 plan = _det_plan_of(device.index, tuple(
                     (d.n, d.c, d.h_src, d.w_src, d.h_out, d.w_out)
                     for d in params.d[:params.n_desc]))
-                ws = _empty(plan.ws_longs, torch.int64, device) if plan.ws_longs else None
+                ws = build.empty(plan.ws_longs, torch.int64, device) if plan.ws_longs else None
                 err = _lib().colvo_bilinear_scatter_multi_det(
                     params, buf.numel(), ws.data_ptr() if ws is not None else None,
                     plan.ws_longs, stream)
@@ -305,7 +296,7 @@ def multi_params(xs: Sequence[torch.Tensor], ys: Sequence[torch.Tensor],
     gradients (left for the C entry point to fill) and its views."""
     c = gs[0].shape[1]
     sizes = [g.shape[0] * c * h * w for g, (h, w) in zip(gs, src_hws)]
-    buf = _empty(sum(sizes), torch.float32, gs[0].device)
+    buf = build.empty(sum(sizes), torch.float32, gs[0].device)
     params = ScatterParams(n_desc=len(gs))
     results: List[torch.Tensor] = []
     off = 0

@@ -1,8 +1,9 @@
 """Multi-scale total training loss (port of ``colvo/losses/total.py``).
 
 The default DCDP+LCC objective over a snippet: for each scale and source
-frame, disp→depth, backprojection, SE(3), projection and the bilinear warp
-(kernel S), LCC calibration and SSIM+L1 at full resolution (Monodepth2
+frame, disp→depth, backprojection, SE(3) and projection (kernel P, one
+call a grid for all its sources), the bilinear warp (kernel S), LCC
+calibration and SSIM+L1 at full resolution (Monodepth2
 protocol), then min-reprojection + automask, edge-aware smoothness, the
 native-scale geometric-consistency term with gradients through both the
 projected z and the sampled source depth (kernels S and T), and the
@@ -43,17 +44,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from colvo_torch.config import LossConfig, ModelConfig
-from colvo_torch.geometry import (
-    backproject,
-    disp_to_depth,
-    project,
-    transformation_from_parameters,
-)
+from colvo_torch.geometry import disp_to_depth, transformation_from_parameters
 from colvo_torch.geometry.ops import _valid_mask
 from colvo_torch.kernels import (
     bilinear_sample_full_multi,
     bilinear_sample_grouped_planes,
     bilinear_sample_planes,
+    project_depth,
     warp_photometric,
 )
 from colvo_torch.losses.photometric import lcc_calibrate, photometric_error
@@ -101,6 +98,11 @@ def _check_config(cfg: LossConfig) -> None:
 def _scale_k(k: torch.Tensor, sx: float, sy: float) -> torch.Tensor:
     """Rescale (…, 3, 3) intrinsics for a resized grid."""
     return torch.stack([k[..., 0, :] * sx, k[..., 1, :] * sy, k[..., 2, :]], dim=-2)
+
+
+def _inside(x: torch.Tensor, y: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """``_valid_mask`` of the coordinate planes x, y."""
+    return _valid_mask(torch.stack((x, y), dim=-1), height, width)
 
 
 def _halve(x: torch.Tensor) -> torch.Tensor:
@@ -203,28 +205,32 @@ def snippet_loss(
 
     # Projection pass: at full resolution (the photometric grid) by
     # default; on each scale's own grid with a rescaled K under
-    # photo_native, where the geo term may reuse it.
-    pix_all: List[List[torch.Tensor]] = []
-    z_all: List[List[torch.Tensor]] = []
+    # photo_native, where the geo term may reuse it. Each grid to every
+    # source in one call (kernel P on the card): x, y and z as (S·B, h, w)
+    # planes, plane s·B + b, the layout the samplers read.
+    batch = frames.shape[0]
+    t_src = t_mats.transpose(0, 1)  # (S, B, 4, 4)
+
+    def _of(planes: torch.Tensor, s: int) -> torch.Tensor:
+        return planes[s * batch:(s + 1) * batch]
+
+    proj_all: List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = []
     depth_all: List[torch.Tensor] = []
     for scale in range(n_scales):
         if loss_cfg.photo_native:
             disp_n = disps[0][scale]
             h_s, w_s = disp_n.shape[1], disp_n.shape[2]
             k_s = _scale_k(k, w_s / width, h_s / height)
+            k_inv_s = torch.linalg.inv_ex(k_s).inverse
             _, depth = disp_to_depth(disp_n[..., 0], model_cfg.min_depth, model_cfg.max_depth)
-            cam_points = backproject(depth, torch.linalg.inv_ex(k_s).inverse)
         else:
             disp_full = _upsample_to(disps[0][scale], height)
-            k_s = k
+            k_s, k_inv_s = k, k_inv
             _, depth = disp_to_depth(disp_full[..., 0], model_cfg.min_depth, model_cfg.max_depth)
-            cam_points = backproject(depth, k_inv)
         if scale == 0:
             full_depth = depth
         depth_all.append(depth)
-        projected = [project(cam_points, k_s, t_mats[:, s]) for s in range(n_sources)]
-        pix_all.append([p for p, _ in projected])
-        z_all.append([z for _, z in projected])
+        proj_all.append(project_depth(depth, k_s, k_inv_s, t_src))
 
     def _stats_err(warped, tgt_f, vmask):
         if lcc_mode != "off":
@@ -242,72 +248,66 @@ def snippet_loss(
                               preserve_rng_state=False)
         return _stats_err(warped, tgt_f, vmask)
 
-    def photometric_of(scale: int, s: int, pix: torch.Tensor) -> torch.Tensor:
+    def photometric_of(scale: int, s: int, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         src_p, tgt_p = _at(src_planes, scale)[s], _at(tgt_planes, scale)
         if loss_cfg.fused_kernel:
-            return warp_photometric(src_p, tgt_p, pix[..., 0], pix[..., 1],
+            return warp_photometric(src_p, tgt_p, x, y,
                                     lcc_mode, loss_cfg.lcc_window, loss_cfg.ssim_alpha)
-        warped = _c(bilinear_sample_planes(src_p, pix[..., 0], pix[..., 1]).permute(0, 2, 3, 1))
+        warped = _c(bilinear_sample_planes(src_p, x, y).permute(0, 2, 3, 1))
         # Global LCC moments must not pool border-clamped samples.
-        vmask = (_valid_mask(pix, pix.shape[1], pix.shape[2])
-                 if lcc_mode.startswith("global") else None)
+        vmask = _inside(x, y, x.shape[1], x.shape[2]) if lcc_mode.startswith("global") else None
         return stats_err(warped, _c(_at(tgt_pyr, scale)), vmask)
 
     # batched_photo: all n_scales × n_sources full-resolution warps in one
     # grouped launch of S and one stats pipeline over the stack.
     err_lookup: Dict[Tuple[int, int], torch.Tensor] = {}
     if loss_cfg.batched_photo:
-        batch = frames.shape[0]
         # plane j = s·B + b; coords scale-minor, so plane i samples source i // n_scales
         src_one = torch.cat(src_planes[0])
-        pix_flat = torch.stack(
-            [torch.cat([pix_all[sc][s] for s in range(n_sources)]) for sc in range(n_scales)],
-            dim=1,
-        ).reshape(-1, height, width, 2)
-        warped = bilinear_sample_grouped_planes(src_one, pix_flat[..., 0], pix_flat[..., 1],
-                                                n_scales)
+        x_flat, y_flat = (torch.stack([proj_all[sc][i] for sc in range(n_scales)], dim=1)
+                          .reshape(-1, height, width) for i in (0, 1))
+        warped = bilinear_sample_grouped_planes(src_one, x_flat, y_flat, n_scales)
         warped = _c(warped.permute(0, 2, 3, 1).reshape(n_sources, batch, n_scales, height,
                                                         width, 3))
         tgt_b = _c(tgt_clean)[None, :, None]  # broadcast over sources and scales
         vmask = None
         if lcc_mode.startswith("global"):
-            vmask = _valid_mask(pix_flat, height, width).reshape(
+            vmask = _inside(x_flat, y_flat, height, width).reshape(
                 n_sources, batch, n_scales, height, width)
         err_g = stats_err(warped, tgt_b, vmask)
         for sc in range(n_scales):
             for s in range(n_sources):
                 err_lookup[(sc, s)] = err_g[s, :, sc]
 
-    def _geo_grid(scale: int, s: int):
-        """The geo grid of one (scale, source): (pix_g, z_g, src_depth_g,
-        depth_g, h_g, w_g)."""
-        pix, z = pix_all[scale][s], z_all[scale][s]
+    def _geo_grid(scale: int):
+        """The geo grid of one scale, for every source: (x_g, y_g, z_g,
+        src_depth_g) as (S·B, h_g, w_g) planes, then depth_g, h_g, w_g."""
+        def depth_of(disp):
+            return disp_to_depth(disp[..., 0], model_cfg.min_depth, model_cfg.max_depth)[1]
+
         if loss_cfg.geo_full_res:
             # full-resolution protocol: the photometric projection, the
             # source depth upsampled to the input grid
-            _, src_depth_g = disp_to_depth(_upsample_to(disps[s + 1][scale], height)[..., 0],
-                                           model_cfg.min_depth, model_cfg.max_depth)
-            return pix, z, src_depth_g, None, height, width
+            src_depth_g = torch.cat([depth_of(_upsample_to(disps[s + 1][scale], height))
+                                     for s in range(n_sources)])
+            return (*proj_all[scale], src_depth_g, None, height, width)
         if loss_cfg.photo_native and loss_cfg.geo_res_cap == 0:
             # photo_native projected on this very grid: reuse it
-            _, src_depth_g = disp_to_depth(disps[s + 1][scale][..., 0], model_cfg.min_depth,
-                                           model_cfg.max_depth)
-            return pix, z, src_depth_g, depth_all[scale], pix.shape[1], pix.shape[2]
+            src_depth_g = torch.cat([depth_of(disps[s + 1][scale]) for s in range(n_sources)])
+            depth_g = depth_all[scale]
+            return (*proj_all[scale], src_depth_g, depth_g, *depth_g.shape[1:])
         g_disp_t = disps[0][scale]
-        g_disp_s = disps[s + 1][scale]
+        g_disp_s = [disps[s + 1][scale] for s in range(n_sources)]
         if loss_cfg.geo_res_cap > 0:
             while g_disp_t.shape[1] > loss_cfg.geo_res_cap:
                 g_disp_t = _halve(g_disp_t)
-                g_disp_s = _halve(g_disp_s)
+                g_disp_s = [_halve(d) for d in g_disp_s]
         h_g, w_g = g_disp_t.shape[1], g_disp_t.shape[2]
         k_g = _scale_k(k, w_g / width, h_g / height)
-        _, depth_g = disp_to_depth(g_disp_t[..., 0], model_cfg.min_depth, model_cfg.max_depth)
-        _, src_depth_g = disp_to_depth(
-            g_disp_s[..., 0], model_cfg.min_depth, model_cfg.max_depth
-        )
-        pix_g, z_g = project(backproject(depth_g, torch.linalg.inv_ex(k_g).inverse), k_g,
-                             t_mats[:, s])
-        return pix_g, z_g, src_depth_g, depth_g, h_g, w_g
+        depth_g = depth_of(g_disp_t)
+        src_depth_g = torch.cat([depth_of(d) for d in g_disp_s])
+        x_g, y_g, z_g = project_depth(depth_g, k_g, torch.linalg.inv_ex(k_g).inverse, t_src)
+        return x_g, y_g, z_g, src_depth_g, depth_g, h_g, w_g
 
     # Geo pass: every depth warp of the step in one sampler launch (and,
     # where a sampled source keeps its gradient, one scatter launch in the
@@ -316,39 +316,42 @@ def snippet_loss(
     # reverse warps) are separate plane sets of the same launch. Sources
     # are detached where the reference stops their gradient, so T does not
     # run for them. Exact: both kernels act on each plane on its own.
-    geo_grids: List[List[tuple]] = []
+    geo_grids: List[tuple] = []
     geo_sampled: List[Tuple[torch.Tensor, ...]] = []
     geo_reverse: List[List[torch.Tensor]] = []  # [scale][source] g_loss_r under "sym"
     sym = loss_cfg.geo_grad == "sym"
     if loss_cfg.geometric_weight > 0:
-        geo_grids = [[_geo_grid(scale, s) for s in range(n_sources)] for scale in range(n_scales)]
-        srcs, coords = [], []
-        for grids in geo_grids:
-            src = torch.cat([g[2] for g in grids])[:, None]
+        geo_grids = [_geo_grid(scale) for scale in range(n_scales)]
+        srcs, xs, ys = [], [], []
+        for x_g, y_g, _, src_depth_g, _, _, _ in geo_grids:
+            src = src_depth_g[:, None]
             srcs.append(src.detach() if sym or loss_cfg.geo_stopgrad else src)
-            coords.append(torch.cat([g[0] for g in grids]))
+            xs.append(x_g)
+            ys.append(y_g)
         reverse = []
         if sym:
-            # the reverse warp: the source's points through the inverse
-            # pose, sampling the (detached) target depth
-            for grids in geo_grids:
-                rev = []
-                for s, (_, _, src_depth_g, depth_g, h_g, w_g) in enumerate(grids):
-                    k_g = _scale_k(k, w_g / width, h_g / height)
-                    pts_r = backproject(src_depth_g, torch.linalg.inv_ex(k_g).inverse)
-                    rev.append(project(pts_r, k_g, torch.linalg.inv_ex(t_mats[:, s]).inverse))
+            # the reverse warp: the sources' points through the inverse
+            # poses (each source's depth a grid of its own: S·B grids of
+            # one transform each), sampling the (detached) target depth
+            t_inv = torch.linalg.inv_ex(t_src).inverse.reshape(1, -1, 4, 4)
+            for _, _, _, src_depth_g, depth_g, h_g, w_g in geo_grids:
+                k_g = _scale_k(k, w_g / width, h_g / height)
+                if k_g.ndim == 3:
+                    k_g = k_g.repeat(n_sources, 1, 1)
+                rev = project_depth(src_depth_g, k_g, torch.linalg.inv_ex(k_g).inverse, t_inv)
                 reverse.append(rev)
-                srcs.append(torch.cat([g[3] for g in grids]).detach()[:, None])
-                coords.append(torch.cat([p for p, _ in rev]))
-        samp = bilinear_sample_full_multi(srcs, [c[..., 0] for c in coords],
-                                          [c[..., 1] for c in coords])
+                srcs.append(depth_g.detach().repeat(n_sources, 1, 1)[:, None])
+                xs.append(rev[0])
+                ys.append(rev[1])
+        samp = bilinear_sample_full_multi(srcs, xs, ys)
         geo_sampled = [torch.chunk(sm[:, 0], n_sources) for sm in samp]
-        for scale, rev in enumerate(reverse):
+        for scale, (x_r, y_r, z_r) in enumerate(reverse):
             sampled_r = geo_sampled[n_scales + scale]
             geo_reverse.append([
-                geometry_consistency(z_r, sampled_r[s], _valid_mask(pix_r, *pix_r.shape[1:3]),
-                                     behind=z_r <= 0, mesh=red)[0]
-                for s, (pix_r, z_r) in enumerate(rev)])
+                geometry_consistency(_of(z_r, s), sampled_r[s],
+                                     _inside(_of(x_r, s), _of(y_r, s), *x_r.shape[1:]),
+                                     behind=_of(z_r, s) <= 0, mesh=red)[0]
+                for s in range(n_sources)])
 
     aux: Dict[str, torch.Tensor] = {}
     if (loss_cfg.scatter_audit and loss_cfg.geometric_weight > 0 and not sym
@@ -366,16 +369,18 @@ def snippet_loss(
         warped_errors = []
         geo_losses = []
         for s in range(n_sources):
-            pix, z = pix_all[scale][s], z_all[scale][s]
-            ph, pw = pix.shape[1], pix.shape[2]
-            valid = _valid_mask(pix, ph, pw) * (z > 0)
+            x, y, z = (_of(t, s) for t in proj_all[scale])
+            ph, pw = x.shape[1], x.shape[2]
+            inside = _inside(x, y, ph, pw)
+            valid = inside * (z > 0)
             err = err_lookup[(scale, s)] if loss_cfg.batched_photo else photometric_of(
-                scale, s, pix)
+                scale, s, x, y)
             if loss_cfg.geometric_weight > 0:
-                pix_g, z_g, _, _, h_g, w_g = geo_grids[scale][s]
-                gvalid = _valid_mask(pix_g, h_g, w_g)
+                x_g, y_g, z_g, _, _, h_g, w_g = geo_grids[scale]
+                z_g = _of(z_g, s)
+                gvalid = _inside(_of(x_g, s), _of(y_g, s), h_g, w_g)
                 if loss_cfg.geo_full_res:
-                    gvalid = gvalid * _valid_mask(pix, height, width)
+                    gvalid = gvalid * inside
                 g_loss, g_weight = geometry_consistency(
                     z_g, geo_sampled[scale][s], gvalid, behind=z_g <= 0, mesh=red
                 )

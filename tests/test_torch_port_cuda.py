@@ -576,7 +576,8 @@ def _chunk_setup(device, n_steps=3):
 def test_replayed_chunk_equals_eager_steps_on_the_same_draws(device):
     """The first call captures and replays: its indices are those an eager
     run draws from the same generator state, its launches are one geo S
-    and one T a step plus the photometric S, and its metrics equal 3 eager
+    and one T a step plus the photometric S and two P each way a scale
+    (the photometric and the geo grid), and its metrics equal 3 eager
     train_steps on the same batches and augmentation draws from the same
     weights (TF32 off): step 1's terms to 1e-5 relative and grad_norm to
     1e-4 (T adds with atomics, in another order each run); the loss terms
@@ -597,7 +598,8 @@ def test_replayed_chunk_equals_eager_steps_on_the_same_draws(device):
         rng = gen.get_state()
         state, metrics = chunk(state, store.frames, store.table, store.k, gen)
         assert chunk.graph is not None and state.step == 3 and int(chunk.step) == 3
-        assert chunk.captured_launches == {"S/grad/C3": 6, "S/grad/C1": 3, "T/C1": 3}
+        assert chunk.captured_launches == {"S/grad/C3": 6, "S/grad/C1": 3, "T/C1": 3,
+                                           "P/fwd": 12, "P/bwd": 12}
         replay = torch.Generator(device=device)
         replay.set_state(rng)
         eager = []
@@ -741,7 +743,8 @@ def test_chunk_captures_under_remat_and_the_bf16_moment(device, knob):
     state, m2 = chunk(state, store.frames, store.table, store.k, gen)
     assert chunk.graph is not None and state.step == 4
     assert torch.isfinite(m1["loss/total"]).all() and torch.isfinite(m2["loss/total"]).all()
-    assert chunk.captured_launches == {"S/grad/C3": 4, "S/grad/C1": 2, "T/C1": 2}
+    assert chunk.captured_launches == {"S/grad/C3": 4, "S/grad/C1": 2, "T/C1": 2,
+                                       "P/fwd": 8, "P/bwd": 8}
     if knob == "train.adam_mu_dtype":
         moments = [state.optimizer.state[p]["exp_avg"] for p in state.model.parameters()]
         assert all(m.dtype == torch.bfloat16 for m in moments)
@@ -988,7 +991,8 @@ def test_captures_leave_no_memory_behind(device):
 def test_ablation_cell_launches_its_steps_and_its_resume_none(device, tmp_path, monkeypatch):
     """``ablate.run_cell`` at 64×96, B=2, 3 steps on a corpus of 2 × 6
     frames: the captured step's launches (8 S/grad/C3, one S/grad/C1 for
-    the four geo scales, one T/C1) × (3 replays + the warm-up), none in
+    the four geo scales, one T/C1, 8 P/fwd and 8 P/bwd: the photometric
+    and the geo grid of each scale) × (3 replays + the warm-up), none in
     the export and evaluation; resumed, the cell returns its record and
     launches nothing."""
     import sys
@@ -1009,11 +1013,185 @@ def test_ablation_cell_launches_its_steps_and_its_resume_none(device, tmp_path, 
         kernels.reset_launch_counts()
         rec = ablate.run_cell(True, True, 3, str(tmp_path), device="cuda")
         n = 3 + graphs.WARMUP
-        assert kernels.launch_counts() == {"S/grad/C3": 8 * n, "S/grad/C1": n, "T/C1": n}
+        assert kernels.launch_counts() == {"S/grad/C3": 8 * n, "S/grad/C1": n, "T/C1": n,
+                                           "P/fwd": 8 * n, "P/bwd": 8 * n}
         assert np.isfinite(rec["abs_rel"]) and np.isfinite(rec["polyp/e_mean"])
         kernels.reset_launch_counts()
         assert ablate.run_cell(True, True, 3, str(tmp_path), device="cuda") == rec
         assert kernels.launch_counts() == {}
+
+
+# The training cell's grids (B = 12, two sources): the photometric grid and
+# the geo grids of the four scales.
+CELL_B, CELL_GRIDS = 12, ((256, 320), (128, 160), (64, 80), (32, 40))
+
+
+def _project_inputs(device, b, h, w, seed, n_sources=2):
+    """depth (B, h, w) from uniform disparities (``disp_to_depth``), a
+    per-row K for an h×w grid and its inverse, small poses as the loss makes
+    them, transposed to (S, B, 4, 4), and cotangents of x, y, z."""
+    from colvo_torch.data.synthetic import default_intrinsics
+    from colvo_torch.geometry import disp_to_depth, transformation_from_parameters
+
+    rng = np.random.default_rng(seed)
+    disp = torch.tensor(rng.uniform(0.02, 0.98, (b, h, w)).astype(np.float32))
+    depth = disp_to_depth(disp)[1]
+    k = torch.tensor(default_intrinsics(h, w)).repeat(b, 1, 1)
+    k[:, 0, 2] += torch.tensor(rng.uniform(-2, 2, b).astype(np.float32))
+    poses = torch.tensor(rng.normal(0, 0.02, (b, n_sources, 6)).astype(np.float32))
+    t = transformation_from_parameters(poses[..., :3], poses[..., 3:]).transpose(0, 1)
+    g = torch.tensor(rng.normal(size=(3, n_sources * b, h, w)).astype(np.float32))
+    return [a.to(device) for a in (depth, k, torch.linalg.inv(k), t, *g.unbind(0))]
+
+
+def _grid_close(got, want, rel):
+    """got, want (A, N, B) for N grids: |got − want| ≤ rel·(|want| + the
+    largest |want| of its grid)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs() - rel * (want.abs() + want.abs().amax(dim=(0, 2), keepdim=True))
+    assert torch.isfinite(got).all()
+    assert (err <= 0).all(), f"{int((err > 0).sum())} cells off, by up to {err.max().item():.3g}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", CELL_GRIDS, ids=[f"{h}x{w}" for h, w in CELL_GRIDS])
+def test_project_kernel_matches_the_plain_path_at_the_cells_shapes(device, hw):
+    """P at the training cell's grids (B = 12, two sources, K by row):
+    x, y, z within 1e-5 and d_depth, d_T within 1e-4 of autograd through
+    ``ops.project(ops.backproject(...))`` in float64 on the card, each
+    relative to the value and to the largest of its grid; one launch each
+    way."""
+    from colvo_torch.kernels import project
+
+    depth, k, k_inv, t, gx, gy, gz = _project_inputs(device, CELL_B, *hw, 11)
+    kernels.reset_launch_counts()
+    d, tt = depth.clone().requires_grad_(), t.clone().requires_grad_()
+    got = kernels.project_depth(d, k, k_inv, tt)
+    (sum((o * g).sum() for o, g in zip(got, (gx, gy, gz)))).backward()
+    assert kernels.launch_counts() == {"P/fwd": 1, "P/bwd": 1}
+    d64, t64 = depth.double().requires_grad_(), t.double().requires_grad_()
+    want = project.project_plain(d64, k.double(), k_inv.double(), t64)
+    (sum((o * g.double()).sum() for o, g in zip(want, (gx, gy, gz)))).backward()
+    for o, w in zip(got, want):
+        _grid_close(o.detach().reshape(2, CELL_B, -1), w.detach().reshape(2, CELL_B, -1), 1e-5)
+    _grid_close(d.grad.reshape(1, CELL_B, -1), d64.grad.reshape(1, CELL_B, -1), 1e-4)
+    _grid_close(tt.grad.reshape(2, CELL_B, -1), t64.grad.reshape(2, CELL_B, -1), 1e-4)
+    assert torch.equal(tt.grad[:, :, 3], torch.zeros_like(tt.grad[:, :, 3]))
+
+
+@pytest.mark.cuda
+def test_project_backward_gives_the_same_bits_twice(device):
+    """Two backward passes of P at the full-resolution grid on the same
+    inputs give d_depth and d_T bit for bit (no float atomics)."""
+    depth, k, k_inv, t, gx, gy, gz = _project_inputs(device, CELL_B, *CELL_GRIDS[0], 12)
+    grads = []
+    for _ in range(2):
+        d, tt = depth.clone().requires_grad_(), t.clone().requires_grad_()
+        x, y, z = kernels.project_depth(d, k, k_inv, tt)
+        ((x * gx).sum() + (y * gy).sum() + (z * gz).sum()).backward()
+        grads.append((d.grad, tt.grad))
+    for a, b in zip(*grads):
+        assert _same_bits(a, b)
+
+
+# loss knobs of the snippet-loss test and P's launches each way a step
+# (grids: the photometric one of each scale; a geo grid of its own unless
+# the geo term reuses it; under "sym" the reverse warps' grid besides)
+LOSS_KNOBS = {
+    "default": ({}, 8),
+    "geo_grad=sym": ({"geo_grad": "sym"}, 12),
+    "photo_native": ({"photo_native": True}, 4),
+    "geo_full_res": ({"geo_full_res": True}, 4),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knob", list(LOSS_KNOBS))
+def test_snippet_loss_with_p_matches_the_cpu_plain_path(device, knob):
+    """``snippet_loss`` at 64×96, B = 2, four scales, two sources, on one
+    set of disparities and poses from a float32 model: on the card (P, S
+    and T) the loss terms within 1e-4 relative and the gradients of the
+    disparities and poses within 1e-3 of their norm of the CPU's plain
+    path (S's and T's sums, and near-tie min-reprojection choices, differ
+    in their last bits), with P launched as the knob's grids give it."""
+    from colvo_torch.data import SnippetDataset, batch_iterator, render_sequence
+    from colvo_torch.losses import snippet_loss
+    from colvo_torch.runtime import init_state, to_device
+
+    knobs, launches = LOSS_KNOBS[knob]
+    cfg = ColvoConfig()
+    cfg.model.dtype = "float32"
+    cfg.data.height, cfg.data.width, cfg.data.batch_size = 64, 96, 2
+    for key, v in knobs.items():
+        setattr(cfg.loss, key, v)
+    seq = render_sequence(n_frames=8, height=64, width=96, seed=4)
+    batch = to_device(next(batch_iterator(
+        SnippetDataset([seq.frames], [seq.k], cfg.data.frame_offsets), cfg.data, seed=0)),
+        torch.device("cpu"))
+    state = init_state(cfg, seed=0, device=torch.device("cpu"))
+    with torch.no_grad():
+        disps, poses = state.model(batch["frames"])
+    results = {}
+    for dev in (device, torch.device("cpu")):
+        ds = [{s: v.detach().to(dev).requires_grad_() for s, v in f.items()} for f in disps]
+        ps = poses.detach().to(dev).requires_grad_()
+        k = batch["k"].to(dev)
+        kernels.reset_launch_counts()
+        loss, aux = snippet_loss(ds, ps, batch["frames"].to(dev), k, torch.linalg.inv(k),
+                                 cfg.loss, cfg.model, frames_clean=batch["frames_clean"].to(dev))
+        loss.backward()
+        if dev.type == "cuda":
+            counts = kernels.launch_counts()
+            assert counts["P/fwd"] == counts["P/bwd"] == launches, counts
+        terms = {key: v.item() for key, v in aux.items() if v.dim() == 0}
+        grads = [torch.cat([v.grad.flatten() for f in ds for v in f.values()]), ps.grad.flatten()]
+        results[dev.type] = terms, [g.cpu() for g in grads]
+    (got_t, got_g), (want_t, want_g) = results["cuda"], results["cpu"]
+    for key, v in want_t.items():
+        assert abs(got_t[key] - v) <= 1e-4 * max(abs(v), 1e-6), (key, got_t[key], v)
+    for got, want in zip(got_g, want_g):
+        assert (got - want).norm() <= 1e-3 * want.norm(), ((got - want).norm(), want.norm())
+
+
+# Operators that lower to a cuBLAS GEMM, as the profiler names them.
+GEMM_OPS = ("aten::bmm", "aten::mm", "aten::addmm", "aten::baddbmm", "aten::matmul",
+            "aten::einsum")
+
+
+@pytest.mark.cuda
+def test_captured_default_step_projects_through_p_alone(device):
+    """The default loss at 64×96, B = 2 (four scales, two sources): a replay
+    of the captured step launches P 8 times each way (one a grid: the
+    photometric and the geo grid of each scale), beside its S and T; the
+    eager step under ``torch.profiler`` runs no GEMM operator with a
+    pixel axis (the smallest grid's 384 pixels or more), so no cuBLAS
+    float32 GEMM comes from the projection."""
+    from colvo_torch.data import SnippetDataset, batch_iterator, render_sequence
+    from colvo_torch.runtime import init_state, make_train_step, to_device, train_step
+
+    cfg = ColvoConfig()
+    cfg.data.height, cfg.data.width, cfg.data.batch_size = 64, 96, 2
+    seq = render_sequence(n_frames=8, height=64, width=96, seed=3)
+    it = batch_iterator(SnippetDataset([seq.frames], [seq.k], cfg.data.frame_offsets), cfg.data,
+                        seed=0)
+    batches = [to_device(next(it), device) for _ in range(3)]
+    state = init_state(cfg, seed=0, device=device)
+    step_fn = make_train_step(state, cfg)
+    step_fn(state, batches[0])
+    kernels.reset_launch_counts()
+    step_fn(state, batches[1])
+    assert kernels.launch_counts() == {"P/fwd": 8, "P/bwd": 8, "S/grad/C3": 8, "S/grad/C1": 1,
+                                       "T/C1": 1}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA],
+                                record_shapes=True) as prof:
+        train_step(state, batches[2], cfg)
+        torch.cuda.synchronize()
+    pixel_gemms = [(e.name, e.input_shapes) for e in prof.events() if e.name in GEMM_OPS
+                   and any(dim >= 16 * 24 for shape in e.input_shapes for dim in shape)]
+    assert not pixel_gemms, pixel_gemms
+    names = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert any("project_depth_kernel" in n for n in names), sorted(names)[:40]
 
 
 @pytest.mark.cuda
