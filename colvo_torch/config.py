@@ -6,6 +6,13 @@ knob lives beside it in ``colvo/config.py``. Every knob is ported:
 ``data.loader="grain"`` is the port's checkpointable loader
 (``data/grain_loader.py``), and ``mesh.data_parallel`` counts the ranks of
 a ``torch.distributed`` process group (``runtime/mesh.py``).
+
+The port also has knobs of its own, which ``PORT_ONLY`` names:
+``model.depth_net`` chooses the depth network (``models/depthnet.py``).
+``dump`` leaves a port-only knob out of the file while it holds its
+default, so a file of a configuration both packages run loads in either;
+one that sets it is refused by the JAX package's loader, which names the
+key.
 """
 
 from __future__ import annotations
@@ -50,6 +57,9 @@ class ModelConfig:
     norm: str = "group"  # group | none (BN-folded family import target)
     dtype: str = "bfloat16"  # conv compute dtype; params stay float32
     remat: bool = False  # recompute conv blocks in the backward pass
+    # depth network: resnet (ResNet encoder + Monodepth2 decoder) |
+    # dpt_vits14 | dpt_vitb14 | dpt_vitl14 (Depth Anything V2: DINOv2 + DPT)
+    depth_net: str = "resnet"
 
 
 @dataclass
@@ -119,6 +129,10 @@ class EvalConfig:
     ate_alignment: str = "sim3"  # sim3 | se3
 
 
+# Knobs the JAX package's config lacks ("section.key").
+PORT_ONLY: Tuple[str, ...] = ("model.depth_net",)
+
+
 @dataclass
 class ColvoConfig:
     data: DataConfig = field(default_factory=DataConfig)
@@ -131,9 +145,26 @@ class ColvoConfig:
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
 
+    def shared_dict(self) -> dict:
+        """``to_dict`` without the port-only knobs: the keys the JAX
+        package's config has."""
+        d = self.to_dict()
+        for key in PORT_ONLY:
+            section, _, leaf = key.partition(".")
+            del d[section][leaf]
+        return d
+
     def dump(self, path: str) -> None:
+        """Write the configuration as JSON; a port-only knob at its default
+        is left out."""
+        d, default = self.shared_dict(), ColvoConfig()
+        for key in PORT_ONLY:
+            section, _, leaf = key.partition(".")
+            value = getattr(getattr(self, section), leaf)
+            if value != getattr(getattr(default, section), leaf):
+                d[section][leaf] = value
         with open(path, "w") as f:
-            json.dump(self.to_dict(), f, indent=2, default=list)
+            json.dump(d, f, indent=2, default=list)
 
     @classmethod
     def load(cls, path: str) -> "ColvoConfig":

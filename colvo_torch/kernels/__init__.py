@@ -19,6 +19,9 @@ error of the training loss, as in ``colvo/kernels/__init__.py``:
   transforms' per-CTA partials) and the partials' sum in a fixed order;
   no gradient to K or K⁻¹, and no float atomics, so its gradients are the
   same bits on every run.
+* ``attention`` — softmax(q·kᵀ/√d)·v of the DPT depth net's ViT blocks
+  (``kernels/attention.py``): PyTorch's fused attention kernels with the
+  math backend refused, counted as ``attn/fwd``.
 * ``warp_photometric`` — the per-pixel warp + LCC + SSIM + L1 error of
   one source frame (``loss.fused_kernel``): kernel F's forward, and its
   backward for the coordinate cotangent, where LCC is affine or off; the
@@ -39,6 +42,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from colvo_torch.kernels import build, fused_loss, project, sampler, scatter
+from colvo_torch.kernels.attention import attention
 
 
 class _SampleCoordsGrad(torch.autograd.Function):
@@ -227,9 +231,10 @@ def bilinear_sample_full(img: torch.Tensor, coords: torch.Tensor) -> torch.Tenso
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last reset: ``S/grad/C3``,
     ``S/grad/C3/g4``, ``S/value/C1``, ``T/C1``, ``F/fwd/C3``, ``F/bwd/C3``,
-    ``P/fwd``, ``P/bwd``, ... (only CUDA launches count; the plain versions do not). They are
-    the counters ``launch.<key>`` of ``runtime.spans``, which count
-    whether it records or not (``spans.tally``)."""
+    ``P/fwd``, ``P/bwd``, ``attn/fwd``, ... (only CUDA launches count; the
+    plain versions do not). They are the counters ``launch.<key>`` of
+    ``runtime.spans``, which count whether it records or not
+    (``spans.tally``)."""
     from colvo_torch.runtime import spans  # the runtime package imports this one
 
     return {k[len(build.LAUNCH):]: v for k, v in spans.counters(build.LAUNCH).items()}
@@ -253,6 +258,7 @@ def add_launch_counts(counts: Dict[str, int], times: int = 1) -> None:
 
 
 __all__ = [
+    "attention",
     "bilinear_sample_fast",
     "bilinear_sample_full",
     "bilinear_sample_planes",

@@ -1,6 +1,12 @@
 """DepthNet and the coupled ColVO snippet model (port of
 ``colvo/models/depthnet.py``).
 
+``model.depth_net`` chooses the depth network (``build_depth_net``):
+``"resnet"``, the reference's ResNet encoder and Monodepth2 decoder
+(``DepthNet``), or a Depth Anything V2 preset (``"dpt_vitl14"``, ...:
+``models/dpt.py``), which gives one full-resolution disparity and leaves
+``model.num_layers`` and ``model.norm`` to the pose encoder.
+
 ``model.remat`` recomputes every encoder ``BasicBlock`` and decoder
 ``ConvBlock`` in the backward pass (``torch.utils.checkpoint``); the
 ``state_dict`` keys do not change with it. ``model.batched_snippet=false``
@@ -17,8 +23,10 @@ import torch.nn as nn
 
 from colvo_torch.config import ModelConfig
 from colvo_torch.models.depth_decoder import DepthDecoder
+from colvo_torch.models.dpt import ConvTranspose, DPTDepthNet
 from colvo_torch.models.encoder import ENCODER_CHANNELS, Conv, ResNetEncoder
 from colvo_torch.models.posenet import DCDPFusion, PoseDecoder
+from colvo_torch.models.vit import LayerScale, Linear, ViTEncoder
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -42,6 +50,13 @@ class DepthNet(nn.Module):
         return self.decoder(feats), feats[-1]
 
 
+def build_depth_net(cfg: ModelConfig) -> nn.Module:
+    """The depth network ``model.depth_net`` names."""
+    if cfg.depth_net == "resnet":
+        return DepthNet(cfg)
+    return DPTDepthNet(cfg, compute_dtype(cfg))
+
+
 class ColVOModel(nn.Module):
     """Coupled depth+pose over a snippet — the DCDP forward.
 
@@ -54,7 +69,7 @@ class ColVOModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         dt = compute_dtype(cfg)
-        self.depth = DepthNet(cfg)
+        self.depth = build_depth_net(cfg)
         self.pose_encoder = ResNetEncoder(cfg.num_layers, 6, dt, cfg.norm, cfg.remat)
         cin = ENCODER_CHANNELS[-1]
         self.fusion = None
@@ -67,13 +82,18 @@ class ColVOModel(nn.Module):
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Flax-like init from ``generator``: conv kernels lecun-normal
-        (fan-in, truncated), biases 0, GroupNorm scale 1 and bias 0."""
+        (fan-in, truncated), biases 0, GroupNorm scale 1 and bias 0; in a
+        DPT depth net also linear layers trunc-normal of std 0.02 with
+        biases 0, LayerNorm 1 and 0, LayerScale 1.0, the position table
+        trunc-normal of std 0.02 and the cls token of std 1e-6."""
         for m in self.modules():
-            if isinstance(m, Conv):
+            if isinstance(m, (Conv, ConvTranspose, Linear, ViTEncoder)):
                 m.reset_parameters(generator)
-            elif isinstance(m, nn.GroupNorm):
+            elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
+            elif isinstance(m, LayerScale):
+                nn.init.ones_(m.gamma)
 
     def pose(self, img_a: torch.Tensor, img_b: torch.Tensor,
              depth_feats: Sequence[torch.Tensor] | None):

@@ -1,6 +1,8 @@
 """Weights across the two packages: the reference's flat ``.npz`` export
 (Flax parameter paths joined with ``/``, conv kernels HWIO) ⇄ the port's
-``state_dict`` (conv weights OIHW)."""
+``state_dict`` (conv weights OIHW). A DPT depth net (``model.depth_net``
+other than ``"resnet"``) has no counterpart in the JAX package, and its
+weights are refused both ways."""
 
 from __future__ import annotations
 
@@ -13,6 +15,10 @@ import torch
 
 from colvo_torch.config import ModelConfig
 from colvo_torch.models import ColVOModel
+
+# The DPT depth net's modules (``models/dpt.py``).
+_DPT_PREFIXES = ("depth.pretrained.", "depth.depth_head.")
+_NO_DPT = "the JAX package has no DPT depth net, so its weights have no .npz layout"
 
 # Port module path → Flax module path, applied in order.
 _RULES = (
@@ -66,8 +72,12 @@ def params_from_flax(
 ) -> Dict[str, torch.Tensor]:
     """Flat Flax params (``load_params``/``export_params`` keys) → the
     port's ``state_dict``. Raises on any key left over, missing, or of the
-    wrong shape for ``model_cfg`` (default ``ModelConfig()``)."""
-    template = _template(model_cfg or ModelConfig())
+    wrong shape for ``model_cfg`` (default ``ModelConfig()``); a DPT
+    depth net raises ValueError."""
+    model_cfg = model_cfg or ModelConfig()
+    if model_cfg.depth_net != "resnet":
+        raise ValueError(f"model.depth_net={model_cfg.depth_net!r}: {_NO_DPT}")
+    template = _template(model_cfg)
     out: Dict[str, torch.Tensor] = {}
     used = set()
     missing = []
@@ -89,7 +99,10 @@ def params_from_flax(
 
 def flax_params(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """A port ``state_dict`` → flat Flax params (the inverse of
-    :func:`params_from_flax`)."""
+    :func:`params_from_flax`); a DPT depth net's raises ValueError."""
+    dpt = [k for k in state_dict if k.startswith(_DPT_PREFIXES)]
+    if dpt:
+        raise ValueError(f"{dpt[0]}, ...: {_NO_DPT}")
     return {_flax_leaf(k, v): _to_flax(v) for k, v in state_dict.items()}
 
 

@@ -132,8 +132,13 @@ def import_family_checkpoint(
     ``ModelConfig(norm="none")`` model. Modules the checkpoint has are
     replaced; what the family lacks (the DCDP fusion convs, and the pose
     branch of a depth-only release) keeps its template values. Imported
-    entries are checked against the template's keys and shapes.
+    entries are checked against the template's keys and shapes. A template
+    with a DPT depth net (``model.depth_net``) raises ValueError: the
+    family's depth checkpoints are ResNet and Monodepth2 modules.
     """
+    if not any(k.startswith("depth.encoder.") for k in params_template):
+        raise ValueError("the template's depth net is not the ResNet one "
+                         "(model.depth_net='resnet'): a family checkpoint has no weights for it")
     out = {k: v.clone() for k, v in params_template.items()}
     parts = [("depth.encoder.", import_resnet_encoder(encoder_sd, num_layers)),
              ("depth.decoder.", import_depth_decoder(depth_sd, n_scales))]

@@ -166,7 +166,9 @@ def _fake_render(calls):
 def _fake_train(calls):
     def train(cfg, ds, **kw):
         kw.pop("device", None)
-        calls.append((cfg.to_dict(), len(ds), ds.frame_offsets, kw))
+        # the port's config without its port-only knobs (config.PORT_ONLY)
+        shared = cfg.shared_dict() if hasattr(cfg, "shared_dict") else cfg.to_dict()
+        calls.append((shared, len(ds), ds.frame_offsets, kw))
         raise _Stop
     return train
 

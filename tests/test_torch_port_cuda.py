@@ -1194,6 +1194,93 @@ def test_captured_default_step_projects_through_p_alone(device):
     assert any("project_depth_kernel" in n for n in names), sorted(names)[:40]
 
 
+# A small Depth Anything V2 preset (``models/vit.py``'s table), every width
+# but the ViT's and the head's as published.
+DPT_TINY = dict(dim=64, depth=4, heads=4, taps=(0, 1, 2, 3), features=16,
+                out_channels=(8, 16, 32, 32))
+
+
+def _dpt_setup(device, monkeypatch):
+    """A bf16 DPT configuration at 56×70, B = 2, and three device batches."""
+    from colvo_torch.data import SnippetDataset, batch_iterator, render_sequence
+    from colvo_torch.models import vit
+    from colvo_torch.runtime import to_device
+
+    monkeypatch.setitem(vit.PRESETS, "dpt_tiny14", DPT_TINY)
+    cfg = ColvoConfig()
+    cfg.model.depth_net, cfg.model.n_scales, cfg.model.dcdp_fusion = "dpt_tiny14", 1, False
+    cfg.data.height, cfg.data.width, cfg.data.batch_size = 56, 70, 2
+    seq = render_sequence(n_frames=8, height=56, width=70, seed=3)
+    it = batch_iterator(SnippetDataset([seq.frames], [seq.k], cfg.data.frame_offsets), cfg.data,
+                        seed=0)
+    return cfg, [to_device(next(it), device) for _ in range(3)]
+
+
+@pytest.mark.cuda
+def test_captured_dpt_step_equals_the_eager_step(device, monkeypatch):
+    """With TF32 off, two replays of the captured DPT step against two eager
+    ``train_step`` calls, each from the same weights and Adam state (the
+    eager side's, copied into the captured one's tensors after each step):
+    the loss terms bit for bit (the same forward kernels), the gradient's
+    norm within 1e-3 relative and the weights after the step within 2·lr
+    (FlashAttention's and the bilinear upsample's backwards sum in a
+    run-dependent order, and Adam's first steps move a weight by about
+    ±lr); a replay launches 4 attention calls, one a block."""
+    from colvo_torch.runtime import init_state, make_train_step, train_step
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg, batches = _dpt_setup(device, monkeypatch)
+    eager, graphed = (init_state(cfg, seed=0, device=device) for _ in range(2))
+    step_fn = make_train_step(graphed, cfg)
+    for i, batch in enumerate(batches[:2]):
+        kernels.reset_launch_counts()
+        got = {k: v.clone() for k, v in step_fn(graphed, batch).items()}
+        if i == 1:
+            assert kernels.launch_counts().get("attn/fwd") == 4, kernels.launch_counts()
+        want = train_step(eager, batch, cfg)
+        for key in ("loss/total", "loss/photometric", "loss/smoothness", "loss/geometric"):
+            assert torch.equal(got[key], want[key]), (i, key)
+        torch.testing.assert_close(got["grad_norm"], want["grad_norm"], rtol=1e-3, atol=0)
+        pairs = list(zip(eager.model.named_parameters(), graphed.model.parameters()))
+        with torch.no_grad():
+            for (name, p), q in pairs:
+                assert (p - q).abs().max() <= 2 * cfg.train.lr, (i, name)
+                q.copy_(p)
+                for key, v in eager.optimizer.state[p].items():
+                    graphed.optimizer.state[q][key].copy_(v)
+    assert graphed.step == eager.step == 2
+
+
+@pytest.mark.cuda
+def test_dpt_attention_takes_a_fused_kernel_never_math(device, monkeypatch):
+    """A profiled eager DPT step runs attention through FlashAttention,
+    cuDNN's or the memory-efficient kernel, forward and backward, and
+    never the math backend's operator; an input no fused kernel takes
+    (float64) raises instead of falling back."""
+    from colvo_torch.runtime import init_state, train_step
+
+    cfg, batches = _dpt_setup(device, monkeypatch)
+    state = init_state(cfg, seed=0, device=device)
+    train_step(state, batches[0], cfg)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        train_step(state, batches[1], cfg)
+        torch.cuda.synchronize()
+    ops = {e.name for e in prof.events()}
+    fused = {"aten::_scaled_dot_product_flash_attention",
+             "aten::_scaled_dot_product_cudnn_attention",
+             "aten::_scaled_dot_product_efficient_attention"}
+    assert ops & fused, sorted(o for o in ops if "attention" in o)
+    assert "aten::_scaled_dot_product_attention_math" not in ops
+    names = [e.name.lower() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any(k in n for n in names for k in ("flash", "fmha", "sdpa")), sorted(set(names))[:40]
+    q = torch.randn(2, 4, 9, 16, device=device, dtype=torch.float64)
+    with pytest.raises(RuntimeError):
+        kernels.attention(q, q, q)
+
+
 @pytest.mark.cuda
 def test_a_capture_that_reads_the_card_on_the_host_raises(device):
     """A step whose body reads a device value on the host (``.item()``)

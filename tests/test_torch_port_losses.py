@@ -17,7 +17,7 @@ from colvo.config import ColvoConfig as JaxConfig
 from colvo.losses import photometric as jphoto
 from colvo.losses import terms as jterms
 from colvo.losses.total import snippet_loss as jax_snippet_loss
-from colvo_torch.config import ColvoConfig
+from colvo_torch.config import PORT_ONLY, ColvoConfig
 from colvo_torch.data import render_sequence
 from colvo_torch.losses import photometric as tphoto
 from colvo_torch.losses import terms as tterms
@@ -365,9 +365,12 @@ def test_unported_loss_knobs_raise(knobs, match):
 
 def test_config_defaults_mirror_reference():
     """Every knob of the reference config exists in the port with the same
-    default, and overrides parse the same way."""
+    default, and overrides parse the same way; the port's own knobs are
+    exactly those ``PORT_ONLY`` names, and left out of the comparison."""
     jcfg, tcfg = JaxConfig(), ColvoConfig()
-    assert tcfg.to_dict() == jcfg.to_dict()
+    assert tcfg.shared_dict() == jcfg.to_dict()
     ov = ["loss.lcc_mode=global", "data.frame_offsets=[-2,2]", "--train.lr=2e-4"]
-    assert tcfg.apply_overrides(ov).to_dict() == jcfg.apply_overrides(ov).to_dict()
-    assert dataclasses.asdict(ColvoConfig.from_dict(jcfg.to_dict())) == jcfg.to_dict()
+    assert tcfg.apply_overrides(ov).shared_dict() == jcfg.apply_overrides(ov).to_dict()
+    assert ColvoConfig.from_dict(jcfg.to_dict()).shared_dict() == jcfg.to_dict()
+    port, ref = dataclasses.asdict(ColvoConfig()), jcfg.to_dict()
+    assert {f"{s}.{k}" for s in port for k in port[s] if k not in ref[s]} == set(PORT_ONLY)

@@ -160,5 +160,33 @@ def test_config_files_cross_packages(tmp_path, direction):
     path = str(tmp_path / "cfg.json")
     cfg.dump(path)
     back = dst.load(path)
-    assert back.to_dict() == cfg.to_dict()
+    assert _shared(back) == _shared(cfg)
     assert back.data.frame_offsets == (-2, 1)
+
+
+def _shared(cfg) -> dict:
+    """The knobs both packages have: the port's dict without its
+    port-only knobs (``config.PORT_ONLY``)."""
+    return cfg.shared_dict() if isinstance(cfg, ColvoConfig) else cfg.to_dict()
+
+
+def test_port_config_at_the_port_only_default_loads_in_colvo(tmp_path):
+    """A port-only knob at its default stays out of the file, which the
+    JAX package then loads as its own."""
+    cfg = ColvoConfig().apply_overrides(["train.lr=3e-4"])
+    path = tmp_path / "cfg.json"
+    cfg.dump(str(path))
+    assert "depth_net" not in json.loads(path.read_text())["model"]
+    assert JaxConfig.load(str(path)).to_dict() == cfg.shared_dict()
+    assert ColvoConfig.load(str(path)).to_dict() == cfg.to_dict()
+
+
+def test_port_config_with_a_dpt_depth_net_is_refused_by_colvo(tmp_path):
+    """A file that sets a port-only knob is refused by the JAX package, by
+    an error that names the key; the port reads it back."""
+    cfg = ColvoConfig().apply_overrides(["model.depth_net=dpt_vitl14", "model.n_scales=1"])
+    path = str(tmp_path / "cfg.json")
+    cfg.dump(path)
+    with pytest.raises(KeyError, match="model.depth_net"):
+        JaxConfig.load(path)
+    assert ColvoConfig.load(path).model.depth_net == "dpt_vitl14"
