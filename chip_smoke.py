@@ -23,7 +23,11 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
    cell's four grids (B=12), its backward twice bit for bit, timed at the
    full-resolution grid (replayed, warm and cold, and eager) beside the
    plain path's forward and forward + backward, and a default step's P
-   against the plain path's. Every kernel's registers and spills come from the
+   against the plain path's. Kernel L (LCC's windowed calibration) at the
+   photometric shape against the plain path (its float32 and float64
+   ``avg_pool2d`` means), in ``affine`` and ``gain`` and in bfloat16, twice
+   bit for bit, timed (replayed, warm and cold, and eager) beside the plain
+   path. Every kernel's registers and spills come from the
    build's ``ptxas`` report; a spill fails the run.
 4. Slice phase, three times: ``ColvoConfig`` at full width (ResNet-18,
    B=12, 256×320, 3 frames, 4 scales, bf16 convs) by default, with
@@ -216,7 +220,7 @@ from colvo_torch.config import ColvoConfig  # noqa: E402
 from colvo_torch.geometry.ops import bilinear_taps  # noqa: E402
 from colvo_torch.data import batch_iterator, synthetic_dataset  # noqa: E402
 from colvo_torch.kernels import build, launch_counts, project_depth, reset_launch_counts  # noqa: E402
-from colvo_torch.kernels import fused_loss, project, sampler, scatter  # noqa: E402
+from colvo_torch.kernels import fused_loss, lcc, project, sampler, scatter  # noqa: E402
 from colvo_torch.losses.photometric import lcc_calibrate  # noqa: E402
 from colvo_torch.runtime import InferenceRunner, init_state, loss_fn, to_device, train_step  # noqa: E402
 from colvo_torch.runtime import graphs, spans  # noqa: E402
@@ -269,6 +273,12 @@ TOL_PROJ_FWD_REL, TOL_PROJ_BWD_REL = 1e-5, 1e-4
 F_TAP_OPS = 12
 F_FWD_OPS = 6 + 2 + 8 * (LCC_WINDOW - 1) + 17 + 3 + 20 + 23 + 4
 F_BWD_OPS = F_FWD_OPS + 4 + 30 + 12 + 12
+# Kernel L: f32 operations a pixel and channel, the two products, the four
+# running sums each way (an add and a subtract each, 2 · 2 · 4) and the
+# statistics, a and ŵ (17); the floors of its comparison with the float64
+# plain path (ŵ, a), as tests/test_torch_port_lcc_emu.py's.
+L_OPS = 2 + 16 + 17
+LCC_FLOOR = (2e-6, 2e-5)
 
 
 def log(msg: str) -> None:
@@ -381,8 +391,8 @@ def _norm_grid(x, y, h, w):
 
 def kernel_phase(device, photo=PHOTO, geo_n=GEO_N, geo_scales=GEO_SCALES, group=GROUP,
                  timed=True):
-    """Hold S, T and F against their plain versions; returns the kernel
-    rows (without launch counts) keyed P1..P8."""
+    """Hold S, T, F, P and L against their plain versions; returns the
+    kernel rows (without launch counts) keyed P1..P8, P/fwd, P/bwd and L."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cpu").manual_seed(0)
@@ -428,6 +438,7 @@ def kernel_phase(device, photo=PHOTO, geo_n=GEO_N, geo_scales=GEO_SCALES, group=
     rows.update(grouped_rows(device, gen, photo, group, timer, eager))
     rows.update(fused_rows(device, gen, photo, timer, eager, cold))
     rows.update(project_rows(device, gen, geo_scales, timer, eager, cold))
+    rows.update(lcc_rows(device, gen, photo, timer, eager, cold))
     torch.backends.cudnn.allow_tf32 = True
     return rows
 
@@ -609,7 +620,7 @@ def fused_parity(args, g, window):
     t = tgt.permute(0, 2, 3, 1)
     w_hat = sampler.sample_plain(src, x, y, False)[0].permute(0, 2, 3, 1)
     if window:
-        w_hat = lcc_calibrate(w_hat, t, "affine", window)
+        w_hat = lcc.window_plain(w_hat, t, window, (0.5, 2.0), "affine")
     ties = (w_hat - t).abs().amin(-1) < TIE_GAP
     err_b = diff[~ties].max().item()
     check(bool(torch.isfinite(e).all() and torch.isfinite(gx).all() and torch.isfinite(gy).all()),
@@ -770,6 +781,82 @@ def project_rows(device, gen, geo_scales, timer, eager, cold):
     return rows
 
 
+def lcc_forward_plain(warped, target, window, clip, mode, with_a):
+    """``lcc.forward`` by its plain version (ŵ; no a: only no-grad calls
+    take it), in L's arithmetic: float32, stored in the frames' dtype."""
+    out = lcc.window_plain(warped.float(), target.float(), window, clip, mode)
+    return out.to(warped.dtype), None
+
+
+def lcc_inputs(gen, photo, device):
+    """Kernel L's inputs at the photometric shape (B, C, H, W): the warp as
+    the loss hands it (a permuted plane stack, (B, H, W, C)) with smooth
+    structure and noise, and an interleaved target that relights it by a
+    gain and an offset varying across the frame."""
+    b, c, h, w = photo
+    yy, xx = torch.meshgrid(torch.linspace(0, 1, h), torch.linspace(0, 1, w), indexing="ij")
+    base = (0.5 + 0.3 * torch.sin(6 * xx + 4 * yy)[None, :, :, None]
+            + 0.2 * torch.rand((b, h, w, c), generator=gen))
+    tgt = ((0.7 + 0.5 * xx[None, :, :, None]) * base + 0.1 * yy[None, :, :, None]
+           + 0.02 * torch.rand((b, h, w, c), generator=gen)).clamp(0, 1.5)
+    warp = base.permute(0, 3, 1, 2).contiguous().to(device).permute(0, 2, 3, 1)
+    return warp, tgt.contiguous().to(device)
+
+
+def lcc_rows(device, gen, photo, timer, eager, cold):
+    """L: LCC's windowed calibration at the photometric shape against the
+    plain path: ŵ and a no farther from the float64 plain path than twice
+    the float32 plain path's distance plus ``LCC_FLOOR``, in ``affine`` and
+    ``gain``; bfloat16 within one bfloat16 unit in the last place of the
+    float32 plain path; two calls bit for bit. Timed (replayed, warm and
+    cold, and eager through the wrapper) beside the plain path, which is
+    also the nearest PyTorch: its ``avg_pool2d`` means."""
+    warp, target = lcc_inputs(gen, photo, device)
+    worst = 0.0
+
+    def plain(w, t, mode, dtype):
+        x = w.to(dtype).requires_grad_()
+        out = lcc.window_plain(x, t.to(dtype), LCC_WINDOW, (0.5, 2.0), mode)
+        (a,) = torch.autograd.grad(out, x, torch.ones_like(out))
+        return out.detach(), a
+
+    def gap(got, want):
+        return (got.double() - want.double()).abs().max().item()
+
+    for mode in ("affine", "gain"):
+        got = lcc.forward(warp, target, LCC_WINDOW, (0.5, 2.0), mode, True)
+        want64, want32 = plain(warp, target, mode, torch.float64), plain(warp, target, mode,
+                                                                          torch.float32)
+        gaps = [(gap(g, w64), gap(w32, w64)) for g, w64, w32 in zip(got, want64, want32)]
+        log(f"L {mode} at {tuple(warp.shape)}: off the float64 plain path ŵ {gaps[0][0]:.3g} "
+            f"(plain float32 {gaps[0][1]:.3g}), a {gaps[1][0]:.3g} ({gaps[1][1]:.3g})")
+        check(all(k <= 2 * p + f for (k, p), f in zip(gaps, LCC_FLOOR)),
+              f"L {mode} vs the plain path")
+        check(all(bool(torch.isfinite(g).all()) for g in got), "L finite")
+        again = lcc.forward(warp, target, LCC_WINDOW, (0.5, 2.0), mode, True)
+        check(all(same_bits(a, b) for a, b in zip(got, again)), f"L {mode}: the same bits twice")
+        worst = max(worst, gaps[0][0])
+    wb, tb = warp.to(torch.bfloat16), target.to(torch.bfloat16)
+    got = lcc.forward(wb, tb, LCC_WINDOW, (0.5, 2.0), "affine", True)
+    for g, ref in zip(got, plain(wb, tb, "affine", torch.float32)):
+        check(bool(((g.float() - ref).abs() <= 2.0**-7 * ref.abs() + 1e-5).all()),
+              "L bfloat16 within one unit in the last place of the float32 plain path")
+    fn = lambda: lcc.forward(warp, target, LCC_WINDOW, (0.5, 2.0), "affine", True)  # noqa: E731
+    row = dict(
+        max_abs_err=worst, ms=timer(fn), cold_ms=cold(fn),
+        eager_ms=eager(lambda: lcc_calibrate(warp, target, "affine", LCC_WINDOW)),
+        plain_ms=timer(lambda: lcc.window_plain(warp, target, LCC_WINDOW, (0.5, 2.0), "affine")),
+        library_ms=None,
+        bound=bound(4 * 4 * warp.numel(), warp.numel() * L_OPS),
+    )
+    bf16_ms = timer(lambda: lcc.forward(wb, tb, LCC_WINDOW, (0.5, 2.0), "affine", True))
+    log(f"L at {tuple(warp.shape)}, L={LCC_WINDOW}: {row['ms']:.4f} ms (cold {row['cold_ms']:.4f}, "
+        f"eager {row['eager_ms']:.4f}, bfloat16 {bf16_ms:.4f}); plain {row['plain_ms']:.4f} ms; "
+        f"bound {row['bound'][0]:.4f} ms ({row['bound'][1]}); a default step's 8 calls: "
+        f"{8 * row['ms']:.4f} ms against {8 * row['plain_ms']:.4f}")
+    return {"L": row}
+
+
 def kernel_ptxas() -> None:
     """Logs every kernel's registers and stack frame from the builds'
     ``ptxas -v`` reports, and fails if any kernel spills. A stack frame
@@ -825,7 +912,14 @@ def expected_launches(cfg: ColvoConfig, n_steps: int) -> dict:
     held-out loss its forwards): the photometric grid of each scale, the
     geo grid of each scale unless the geo term reuses the photometric one
     (``geo_full_res``; ``photo_native`` without ``geo_res_cap``), and under
-    ``geo_grad="sym"`` the reverse warps' grid of each scale."""
+    ``geo_grad="sym"`` the reverse warps' grid of each scale. Kernel L
+    calibrates each photometric term's warp where LCC is windowed
+    (``L/affine``, ``L/gain``; the global step stays plain): once a term,
+    once for the whole stack under ``loss.batched_photo``, none where F
+    computes LCC itself (``loss.fused_kernel`` with ``affine``), twice in a
+    training step under ``loss.photo_remat`` (its recomputation in the
+    backward); and under ``loss.lcc_identity`` once for each automask
+    identity source."""
     n_scales, n_sources = cfg.model.n_scales, len(cfg.data.frame_offsets)
     pairs = n_scales * n_sources
     grids = n_scales
@@ -845,7 +939,33 @@ def expected_launches(cfg: ColvoConfig, n_steps: int) -> dict:
         counts.update({f"S/grad/C3/g{n_scales}": n_steps, f"S/value/C3/g{n_scales}": 1})
     else:
         counts.update({"S/grad/C3": pairs * n_steps, "S/value/C3": pairs})
+    key = lcc_key(cfg)
+    if key:
+        fused = cfg.loss.fused_kernel and cfg.loss.lcc_mode == "affine" and cfg.loss.ssim_alpha > 0
+        terms = 0 if fused else (1 if cfg.loss.batched_photo else pairs)
+        per_step = terms * (2 if cfg.loss.photo_remat else 1)
+        idents = n_sources * (n_scales if cfg.loss.photo_native else 1)
+        idents *= cfg.loss.lcc_identity and cfg.loss.automask
+        counts[key] = per_step * n_steps + terms + idents * (n_steps + 1)
     return {k: v for k, v in counts.items() if v}
+
+
+def lcc_key(cfg: ColvoConfig):
+    """Kernel L's launch counter under ``cfg``'s LCC, or None where LCC has
+    no windowed step (off, or ``global`` alone)."""
+    mode = cfg.loss.lcc_mode if cfg.loss.lcc else "off"
+    mode = mode[len("global+"):] if mode.startswith("global+") else mode
+    return f"L/{mode}" if mode in lcc.MODES else None
+
+
+def eval_hook_launches(cfg: ColvoConfig, calls: int) -> dict:
+    """The launches of ``calls`` calls of the training eval hook on one
+    model: its forward calibrates each source's warp by L (once a source a
+    call; its captured program's warm-up counts as a call)."""
+    key = lcc_key(cfg)
+    if not (key and calls):
+        return {}
+    return {key: len(cfg.data.frame_offsets) * (STEP_WARMUP + calls)}
 
 
 def slice_phase(cfg: ColvoConfig, device, batches, n_steps: int = TRAIN_STEPS,
@@ -872,7 +992,8 @@ def slice_phase(cfg: ColvoConfig, device, batches, n_steps: int = TRAIN_STEPS,
             mock.patch.object(scatter, "scatter_multi", scatter.scatter_multi_plain), \
             mock.patch.object(fused_loss, "err", fused_loss.err_plain), \
             mock.patch.object(fused_loss, "err_bwd", fused_loss.err_bwd_plain), \
-            mock.patch.object(project, "forward", project.project_plain):
+            mock.patch.object(project, "forward", project.project_plain), \
+            mock.patch.object(lcc, "forward", lcc_forward_plain):
         _, ref_aux = loss_fn(state.model, batches[0], cfg)
     ref_aux = {k: v.item() for k, v in ref_aux.items()}
 
@@ -1431,6 +1552,8 @@ BUCKETS = (
     ("S (bilinear_sample)", ("bilinear_sample",)),
     ("F (fused_err)", ("fused_err",)),
     ("T (bilinear_scatter)", ("bilinear_scatter",)),
+    ("P (project_depth)", ("project_depth",)),
+    ("L (lcc_window)", ("lcc_window",)),
     ("conv / gemm", ("conv", "gemm", "xmma", "cutlass", "sm90", "wgrad", "dgrad", "fprop")),
     ("norm", ("norm",)),
     ("pooling", ("pool",)),
@@ -1878,9 +2001,10 @@ def loop_phase(device, smi: str, slice_ms: float, slice_dispatch_ms: float) -> d
         counts = launch_counts()
         peak = torch.cuda.max_memory_allocated() / 2**30
         check(kinds == ["TrainStep"], f"run 1's steps are replays of one captured step: {kinds}")
-        # the warm-up's step, then the captured step's launches × the replays
+        # the warm-up's step, then the captured step's launches × the replays,
+        # and the eval hook's call at step 7
         per_step = Counter(expected_launches(cfg, LOOP_STEPS + STEP_WARMUP)) - Counter(
-            expected_launches(cfg, 0))
+            expected_launches(cfg, 0)) + Counter(eval_hook_launches(cfg, 1))
         check(counts == dict(per_step), f"loop run 1 launches {counts} == {dict(per_step)}")
 
         # The checkpoint of step 8 holds run 1's final state bit for bit.
@@ -2104,7 +2228,7 @@ def device_loop_run(device, smi: str, dataset, numpy_loop_ms: float,
         peak = torch.cuda.max_memory_allocated() / 2**30
         check(kinds == ["TrainStep"], f"the device loader's steps are replays: {kinds}")
         per_step = Counter(expected_launches(cfg, LOOP_STEPS + STEP_WARMUP)) - Counter(
-            expected_launches(cfg, 0))
+            expected_launches(cfg, 0)) + Counter(eval_hook_launches(cfg, 1))
         check(counts == dict(per_step), f"device-loader run launches {counts} == {dict(per_step)}")
         check(runs[0].step == LOOP_STEPS, f"the device-loader run ended at step {runs[0].step}")
         check(sorted(int(d) for d in os.listdir(ckpt_dir)) == [4, 8], "checkpoints at 4 and 8")
@@ -2700,6 +2824,17 @@ DP_WORLD, DP_STEPS = 2, 2  # gloo ranks sharing the card, and their steps
 TOL_DP_LOSS_REL = 1e-5  # step 1's loss terms, two ranks against one process (the CPU test's)
 TOL_DP_GRAD = 1e-4  # step 1's pre-clip gradients, of max |g| (the CPU test's)
 REFINE_ITERS, REFINE_BATCH = 40, 64  # refine_keyframe_poses' defaults
+
+
+def refine_launches(calls: int) -> dict:
+    """The launches of ``calls`` calls of the refinement's program (a call a
+    batch, and its warm-up): each Adam iteration's warp with d/dx, d/dy (S)
+    and its ``global+affine`` LCC's windowed step (L), and the depth warp;
+    then twice the value-only warps and L for the keep-or-reject
+    residuals."""
+    return {"S/grad/C3": REFINE_ITERS * calls, "S/grad/C1": REFINE_ITERS * calls,
+            "S/value/C3": 2 * calls, "S/value/C1": 2 * calls,
+            "L/affine": (REFINE_ITERS + 2) * calls}
 TOL_REFINE_POSE = 1e-4  # refined poses, kernel S against the plain sampler (the CPU test's)
 REFINE_SHORT = 4  # iterations of the refinement held to TOL_REFINE_POSE (the CPU test's)
 
@@ -3066,8 +3201,7 @@ def refine_phase(device, smi: str, vo_inputs: dict) -> Counter:
     vo_counts = launch_counts()
     # a program's first call warms up once, then every batch is a replay
     calls = STEP_WARMUP + n_batches
-    want = {"S/grad/C3": REFINE_ITERS * calls, "S/grad/C1": REFINE_ITERS * calls,
-            "S/value/C3": 2 * calls, "S/value/C1": 2 * calls}
+    want = refine_launches(calls)
     check(vo_counts == want or device.type == "cpu", f"refine launches {vo_counts} == {want}")
     counts.update(vo_counts)
     check(np.isfinite(got).all() and stats["residual_after"] <= stats["residual_before"],
@@ -3489,8 +3623,9 @@ def eval_program_rows(device, smi: str, cfg: ColvoConfig, weights: dict, timer) 
     into the wait for queued work, forward, host metrics and panel writes;
     the program's outputs
     against its eager body on the same weights, bit for bit (or within 1e-6
-    of each output's max, the reason logged); no kernel of ours launched;
-    replay ms against eager ms (CUDA events). Returns its row."""
+    of each output's max, the reason logged); of our kernels only L
+    launched (``eval_hook_launches``); replay ms against eager ms (CUDA
+    events). Returns its row."""
     import types
 
     from colvo_torch.models import ColVOModel
@@ -3521,7 +3656,8 @@ def eval_program_rows(device, smi: str, cfg: ColvoConfig, weights: dict, timer) 
     rel = [((a.float() - w.float()).abs().max() / w.float().abs().max().clamp_min(1e-30)).item()
            for a, w in zip(got, want)]
     same = all(torch.equal(a, w) for a, w in zip(got, want))
-    check((same or max(rel) <= 1e-6) and launches == {}
+    want_launches = eval_hook_launches(cfg, GRAPH_HOOK_CALLS)
+    check((same or max(rel) <= 1e-6) and launches == want_launches
           and all(p is programs[0] for p in programs) and len(programs[0].programs) == 1
           and len(panels) == 3 * GRAPH_HOOK_CALLS,
           f"the eval hook's program against its eager body: bit for bit {same}, of max {rel}; "
@@ -3599,7 +3735,8 @@ def demo_phase(device, smi: str, out: str) -> tuple:
     check(len(total) == DEMO_STEPS and np.isfinite(total).all() and last < first,
           f"the demo's {len(total)} step losses finite, the last {DEMO_LOSS_WINDOW}'s mean "
           f"{last:.6g} below the first {DEMO_LOSS_WINDOW}'s {first:.6g}")
-    want = step_launches(cfg, DEMO_STEPS + STEP_WARMUP)
+    want = dict(Counter(step_launches(cfg, DEMO_STEPS + STEP_WARMUP))
+                + Counter(eval_hook_launches(cfg, len(calls))))
     check(counts == want, f"demo launches {counts} == {want}")
     with open(os.path.join(out, "train", "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
@@ -3671,8 +3808,7 @@ def fullcolon_phase(device, smi: str, weights: str, out: str) -> Counter:
     counts = launch_counts()
     pairs = FULLCOLON_FRAMES // 10 - 1
     calls = -(-pairs // REFINE_BATCH) + STEP_WARMUP * (len(refine_mod._refine.programs) - before)
-    want = {"S/grad/C3": REFINE_ITERS * calls, "S/grad/C1": REFINE_ITERS * calls,
-            "S/value/C3": 2 * calls, "S/value/C1": 2 * calls}
+    want = refine_launches(calls)
     check(counts == want, f"full-colon launches {counts} == {want}")
     keys = ["ate", "raw/ate", "rpe_rot_deg", "polyp/e1", "polyp/e2", "polyp/e3", "polyp/e_mean"]
     check(all(np.isfinite(rec[k]) for k in keys) and rec["n_points_ours"] > 0
@@ -3940,7 +4076,9 @@ def studies_phase(device, smi: str, root: str, out: str) -> None:
 
 
 DRIFT_FRAMES = 98  # 97 pairs: three batches of 32 and one padded (600 frames uncut)
-EXPJIT_MECHANISM_LAUNCHES = {"S/value/C3": 4}  # 2 arms × 2 sources, one warp of 31 frames each
+# 2 arms × 2 sources, one warp of 31 frames each; L: each warp's and each
+# calibrated identity's global+affine LCC
+EXPJIT_MECHANISM_LAUNCHES = {"S/value/C3": 4, "L/affine": 8}
 
 
 def analysis_with_peaks(device, root: str, out_dir: str) -> tuple:
@@ -4137,6 +4275,8 @@ KERNELS = (
      "none: XLA's in the JAX package", "P/fwd"),
     ("P/bwd", "project_depth[bwd,S=2,12x256x320]", "colvo_torch/kernels/csrc/project.cu",
      "none: XLA's in the JAX package", "P/bwd"),
+    ("L", "lcc_window[affine,C=3,L=15,12x256x320]", "colvo_torch/kernels/csrc/lcc.cu",
+     "none: XLA's reduce_window in the JAX package", "L/affine"),
 )
 
 # The configurations the slice phase trains: the default path, and the two

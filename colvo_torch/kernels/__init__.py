@@ -19,6 +19,10 @@ error of the training loss, as in ``colvo/kernels/__init__.py``:
   transforms' per-CTA partials) and the partials' sum in a fixed order;
   no gradient to K or K⁻¹, and no float atomics, so its gradients are the
   same bits on every run.
+* ``lcc_window`` — LCC's windowed calibration of a warp to its target
+  (the windowed step of ``losses.photometric.lcc_calibrate``, ``affine``
+  or ``gain``): kernel L writes ŵ and, for the backward, a; the warp's
+  cotangent is g·a and the target gets none.
 * ``attention`` — softmax(q·kᵀ/√d)·v of the DPT depth net's ViT blocks
   (``kernels/attention.py``): PyTorch's fused attention kernels with the
   math backend refused, counted as ``attn/fwd``.
@@ -41,7 +45,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
-from colvo_torch.kernels import build, fused_loss, project, sampler, scatter
+from colvo_torch.kernels import build, fused_loss, lcc, project, sampler, scatter
 from colvo_torch.kernels.attention import attention
 
 
@@ -122,6 +126,24 @@ class _ProjectDepth(torch.autograd.Function):
         d_depth, d_t = project.backward(*ctx.saved_tensors, gx.contiguous(), gy.contiguous(),
                                         gz.contiguous())
         return d_depth, None, None, d_t
+
+
+class _LccWindow(torch.autograd.Function):
+    """Forward L with a; backward g·a, summed to the warp's shape where it
+    broadcast. The target is data."""
+
+    @staticmethod
+    def forward(ctx, warped, target, window, clip, mode):
+        out, a = lcc.forward(warped, target, window, clip, mode, with_a=True)
+        ctx.save_for_backward(a)
+        ctx.shape = warped.shape
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (a,) = ctx.saved_tensors
+        d = g * a
+        return d.sum_to_size(ctx.shape), None, None, None, None
 
 
 def _needs_grad(*ts: torch.Tensor) -> bool:
@@ -210,6 +232,19 @@ def project_depth(depth: torch.Tensor, k: torch.Tensor, k_inv: torch.Tensor,
     return project.forward(depth, k, k_inv, t_mats)
 
 
+def lcc_window(warped: torch.Tensor, target: torch.Tensor, window: int = 15,
+               clip: Tuple[float, float] = (0.5, 2.0), mode: str = "affine") -> torch.Tensor:
+    """LCC's windowed calibration of ``warped`` to ``target``, (..., H, W, C)
+    each, leading dims broadcasting: kernel L for CUDA tensors (float32 or
+    bfloat16), ``lcc.window_plain`` otherwise. Gradients flow to ``warped``
+    only, as g·a."""
+    if warped.device.type != "cuda":
+        return lcc.window_plain(warped, target, window, clip, mode)
+    if _needs_grad(warped):
+        return _LccWindow.apply(warped, target, window, tuple(clip), mode)
+    return lcc.forward(warped, target, window, clip, mode, with_a=False)[0]
+
+
 def bilinear_sample_fast(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """img (B, H, W, C), coords (B, h, w, 2) → (B, h, w, C); gradients
     flow to ``coords`` only."""
@@ -231,10 +266,10 @@ def bilinear_sample_full(img: torch.Tensor, coords: torch.Tensor) -> torch.Tenso
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last reset: ``S/grad/C3``,
     ``S/grad/C3/g4``, ``S/value/C1``, ``T/C1``, ``F/fwd/C3``, ``F/bwd/C3``,
-    ``P/fwd``, ``P/bwd``, ``attn/fwd``, ... (only CUDA launches count; the
-    plain versions do not). They are the counters ``launch.<key>`` of
-    ``runtime.spans``, which count whether it records or not
-    (``spans.tally``)."""
+    ``P/fwd``, ``P/bwd``, ``L/affine``, ``attn/fwd``, ... (only CUDA
+    launches count; the plain versions do not). They are the counters
+    ``launch.<key>`` of ``runtime.spans``, which count whether it records
+    or not (``spans.tally``)."""
     from colvo_torch.runtime import spans  # the runtime package imports this one
 
     return {k[len(build.LAUNCH):]: v for k, v in spans.counters(build.LAUNCH).items()}
@@ -267,6 +302,7 @@ __all__ = [
     "bilinear_sample_grouped_planes",
     "warp_photometric",
     "project_depth",
+    "lcc_window",
     "launch_counts",
     "reset_launch_counts",
     "add_launch_counts",

@@ -25,7 +25,7 @@ from typing import Tuple
 
 import torch
 
-from colvo_torch.kernels import build
+from colvo_torch.kernels import build, lcc
 from colvo_torch.kernels.sampler import planes_contiguous, sample_plain
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -50,14 +50,15 @@ def _nhwc(planes: torch.Tensor) -> torch.Tensor:
 def err_plain(src: torch.Tensor, tgt: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
               lcc_window: int, alpha: float) -> torch.Tensor:
     """Plain version of the forward: the composed sampler → LCC → SSIM+L1
-    of the port's own functions."""
+    of the port's own plain functions (LCC's ``lcc.window_plain``, which
+    launches no kernel on a card)."""
     # imported here: colvo_torch.losses imports this package
-    from colvo_torch.losses.photometric import lcc_calibrate, photometric_error
+    from colvo_torch.losses.photometric import photometric_error
 
     warped = _nhwc(sample_plain(src, x, y, False)[0])
     tgt = _nhwc(tgt)
     if lcc_window:
-        warped = lcc_calibrate(warped, tgt, "affine", lcc_window)
+        warped = lcc.window_plain(warped, tgt, lcc_window, (0.5, 2.0), "affine")
     return photometric_error(warped, tgt, alpha)
 
 
@@ -69,18 +70,14 @@ def err_bwd_plain(src: torch.Tensor, tgt: torch.Tensor, x: torch.Tensor, y: torc
     and B3 the 3×3 box sum,
     dŵ = B3(g̃·G1/n3) + 2ŵ·B3(g̃·G2/n3) + t·B3(g̃·G3/n3) + (1−α)·g/C·sign(ŵ−t),
     dw = a·dŵ, and gx, gy = Σ_c dw·∂w/∂x, Σ_c dw·∂w/∂y."""
-    from colvo_torch.losses.photometric import _avg_pool_same, _box_sum
+    from colvo_torch.losses.photometric import _box_sum
 
     w, dx, dy = (_nhwc(v) for v in sample_plain(src, x, y, True))
     t = _nhwc(tgt)
     a = None
     if lcc_window:
-        mu_w = _avg_pool_same(w, lcc_window)
-        mu_t = _avg_pool_same(t, lcc_window)
-        var_w = _avg_pool_same(w * w, lcc_window) - mu_w * mu_w
-        cov = _avg_pool_same(w * t, lcc_window) - mu_w * mu_t
-        a = torch.clamp(cov / (var_w + 1e-4), 0.5, 2.0)
-        w = a * w + (mu_t - a * mu_w)
+        a, b = lcc.coefficients(w, t, lcc_window, (0.5, 2.0), "affine")
+        w = a * w + b
     c1, c2 = 0.01**2, 0.03**2
     n3 = _box_sum(torch.ones_like(w[:1, ..., :1]), 3)
     m_x = _box_sum(w, 3) / n3

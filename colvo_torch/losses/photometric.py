@@ -5,7 +5,8 @@
 * ``lcc_calibrate``: Light Consistent Calibration of the warped source to
   the target from windowed (and optionally per-frame global) statistics,
   with the coefficients clipped and stop-gradiented; see the JAX module for
-  the rationale of each mode.
+  the rationale of each mode. Its windowed step (``affine``, ``gain``) is
+  ``kernels.lcc_window``: kernel L on a card, the plain means on the CPU.
 
 Images are (B, H, W, C) as in the JAX package, or (..., H, W, C) with any
 leading dims that broadcast against each other (the batched photometric
@@ -19,6 +20,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from colvo_torch.kernels import lcc_window
 
 
 def _box_sum(x: torch.Tensor, window: int) -> torch.Tensor:
@@ -80,7 +83,6 @@ def lcc_calibrate(
     """
     if mode == "off":
         return warped
-    eps = 1e-4
     if mode.startswith("global"):
         if valid_mask is not None:
             m = valid_mask.to(warped.dtype)
@@ -106,15 +108,4 @@ def lcc_calibrate(
         if not rest:
             return warped
         mode = rest
-    mu_w = _avg_pool_same(warped, window)
-    mu_t = _avg_pool_same(target, window)
-    if mode == "gain":
-        g = torch.clamp(mu_t / (mu_w + eps), clip[0], clip[1])
-        return g.detach() * warped
-    if mode == "affine":
-        var_w = _avg_pool_same(warped * warped, window) - mu_w * mu_w
-        cov = _avg_pool_same(warped * target, window) - mu_w * mu_t
-        a = torch.clamp(cov / (var_w + eps), clip[0], clip[1])
-        b = mu_t - a * mu_w
-        return a.detach() * warped + b.detach()
-    raise ValueError(f"unknown lcc mode {mode!r}")
+    return lcc_window(warped, target, window, clip, mode)

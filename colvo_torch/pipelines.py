@@ -212,7 +212,8 @@ def make_training_eval_hook(cfg: ColvoConfig, model: torch.nn.Module) -> Trainin
     its outputs go to the host after the replay; the held-out frames, K
     and the snippet are the hook's own constant tensors, and the convs
     cast to ``model.dtype`` inside the body. Its warp is the plain
-    ``bilinear_sample``, so it launches no kernel.
+    ``bilinear_sample``; its LCC's windowed step is kernel L on a card
+    (``kernels.lcc_window``), once a source a call.
     """
     return TrainingEvalHook(cfg, model)
 

@@ -45,6 +45,7 @@ graph's replay; on the CPU the eager body).
 
 from __future__ import annotations
 
+import gc
 from collections import Counter
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence
@@ -207,12 +208,20 @@ class Graphed:
         for g in self.generators:
             graph.register_generator_state(g)
         before = launch_counts()
+        # No cyclic garbage collection inside the capture: a collected cycle
+        # may hold a dropped program's CUDA graph, whose destruction is not
+        # permitted while a stream captures and would invalidate this
+        # capture (PyTorch collects before a capture no more).
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             # thread_local: other threads (the batch producer, the metrics
             # and fetch threads) may go on using the card meanwhile
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 out = self._call_fn(prog)
         finally:
+            if collecting:
+                gc.enable()
             captured = dict(Counter(launch_counts()) - Counter(before))
             reset_launch_counts()
             add_launch_counts(before)

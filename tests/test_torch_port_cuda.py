@@ -576,8 +576,8 @@ def _chunk_setup(device, n_steps=3):
 def test_replayed_chunk_equals_eager_steps_on_the_same_draws(device):
     """The first call captures and replays: its indices are those an eager
     run draws from the same generator state, its launches are one geo S
-    and one T a step plus the photometric S and two P each way a scale
-    (the photometric and the geo grid), and its metrics equal 3 eager
+    and one T a step plus the photometric S, one L and two P each way a
+    scale (the photometric and the geo grid), and its metrics equal 3 eager
     train_steps on the same batches and augmentation draws from the same
     weights (TF32 off): step 1's terms to 1e-5 relative and grad_norm to
     1e-4 (T adds with atomics, in another order each run); the loss terms
@@ -599,7 +599,7 @@ def test_replayed_chunk_equals_eager_steps_on_the_same_draws(device):
         state, metrics = chunk(state, store.frames, store.table, store.k, gen)
         assert chunk.graph is not None and state.step == 3 and int(chunk.step) == 3
         assert chunk.captured_launches == {"S/grad/C3": 6, "S/grad/C1": 3, "T/C1": 3,
-                                           "P/fwd": 12, "P/bwd": 12}
+                                           "P/fwd": 12, "P/bwd": 12, "L/affine": 6}
         replay = torch.Generator(device=device)
         replay.set_state(rng)
         eager = []
@@ -721,7 +721,9 @@ def test_chunk_captures_under_remat_and_the_bf16_moment(device, knob):
     """make_scan_train captures and replays under model.remat (with
     loss.photo_remat: checkpointed blocks in the graph) and under
     adam_mu_dtype="bfloat16" (the port's Adam): finite losses, the first
-    moments bf16 under the latter, and a second replay that trains on."""
+    moments bf16 under the latter, and a second replay that trains on; L
+    launches once a photometric term, twice under photo_remat (its
+    recomputation in the backward)."""
     from colvo_torch.data import DeviceSnippetStore, render_sequence
     from colvo_torch.runtime import init_state, make_scan_train
 
@@ -744,7 +746,8 @@ def test_chunk_captures_under_remat_and_the_bf16_moment(device, knob):
     assert chunk.graph is not None and state.step == 4
     assert torch.isfinite(m1["loss/total"]).all() and torch.isfinite(m2["loss/total"]).all()
     assert chunk.captured_launches == {"S/grad/C3": 4, "S/grad/C1": 2, "T/C1": 2,
-                                       "P/fwd": 8, "P/bwd": 8}
+                                       "P/fwd": 8, "P/bwd": 8,
+                                       "L/affine": 8 if knob == "model.remat" else 4}
     if knob == "train.adam_mu_dtype":
         moments = [state.optimizer.state[p]["exp_avg"] for p in state.model.parameters()]
         assert all(m.dtype == torch.bfloat16 for m in moments)
@@ -789,8 +792,9 @@ def test_refine_with_kernel_s_matches_the_plain_sampler(device):
     """``refine_keyframe_poses`` on the card through kernel S (2 launches
     with d/dx, d/dy an iteration, 4 value-only a batch; two batches of one
     shape: one warm-up call, then two replays of the captured program)
-    against the same call with the sampler's plain version, captured anew:
-    poses to 1e-4."""
+    and L (its ``global+affine`` LCC's windowed step, once an iteration and
+    twice a batch after them) against the same call with the sampler's
+    plain version, captured anew: poses to 1e-4."""
     from unittest import mock
 
     from colvo_torch.data.synthetic import default_intrinsics, make_trajectory, render_frame
@@ -809,7 +813,7 @@ def test_refine_with_kernel_s_matches_the_plain_sampler(device):
     got, _ = refine_keyframe_poses(gt, **kw)
     counts = kernels.launch_counts()
     assert counts == {"S/grad/C3": 3 * iters, "S/grad/C1": 3 * iters, "S/value/C3": 6,
-                      "S/value/C1": 6}, counts
+                      "S/value/C1": 6, "L/affine": 3 * iters + 6}, counts
     _refine.programs.clear()  # a program holds the kernels it captured
     try:
         with mock.patch.object(sampler, "sample", sampler.sample_plain):
@@ -932,11 +936,12 @@ def test_captured_batch_program_equals_eager_gather_and_augment(device, augment)
 def test_captured_eval_forward_equals_its_eager_body(device):
     """The eval hook's program at 64×96 (bf16 convs) against its eager body
     on the same weights: every output bit for bit at the capture's call and
-    at a replay after the weights changed in place; no kernel of ours
-    launched (its warp is the plain sampler)."""
+    at a replay after the weights changed in place; of our kernels only L
+    launched, once a source a call (its warp is the plain sampler)."""
     import types
 
     from colvo_torch.pipelines import make_training_eval_hook
+    from colvo_torch.runtime import graphs
 
     cfg = ColvoConfig()
     cfg.data.height, cfg.data.width = 64, 96
@@ -957,7 +962,10 @@ def test_captured_eval_forward_equals_its_eager_body(device):
         with torch.no_grad():
             for p in model.parameters():
                 p.mul_(1.01)
-    assert kernels.launch_counts() == {}
+    # the warm-up, the hook's and the test's two calls of the program each,
+    # and the two eager bodies
+    calls = graphs.WARMUP + 2 * 2 + 2
+    assert kernels.launch_counts() == {"L/affine": len(cfg.data.frame_offsets) * calls}
     assert len(hook.program.programs) == 1
 
 
@@ -992,7 +1000,8 @@ def test_ablation_cell_launches_its_steps_and_its_resume_none(device, tmp_path, 
     """``ablate.run_cell`` at 64×96, B=2, 3 steps on a corpus of 2 × 6
     frames: the captured step's launches (8 S/grad/C3, one S/grad/C1 for
     the four geo scales, one T/C1, 8 P/fwd and 8 P/bwd: the photometric
-    and the geo grid of each scale) × (3 replays + the warm-up), none in
+    and the geo grid of each scale, 8 L/affine) × (3 replays + the
+    warm-up), none in
     the export and evaluation; resumed, the cell returns its record and
     launches nothing."""
     import sys
@@ -1014,7 +1023,7 @@ def test_ablation_cell_launches_its_steps_and_its_resume_none(device, tmp_path, 
         rec = ablate.run_cell(True, True, 3, str(tmp_path), device="cuda")
         n = 3 + graphs.WARMUP
         assert kernels.launch_counts() == {"S/grad/C3": 8 * n, "S/grad/C1": n, "T/C1": n,
-                                           "P/fwd": 8 * n, "P/bwd": 8 * n}
+                                           "P/fwd": 8 * n, "P/bwd": 8 * n, "L/affine": 8 * n}
         assert np.isfinite(rec["abs_rel"]) and np.isfinite(rec["polyp/e_mean"])
         kernels.reset_launch_counts()
         assert ablate.run_cell(True, True, 3, str(tmp_path), device="cuda") == rec
@@ -1162,7 +1171,8 @@ GEMM_OPS = ("aten::bmm", "aten::mm", "aten::addmm", "aten::baddbmm", "aten::matm
 def test_captured_default_step_projects_through_p_alone(device):
     """The default loss at 64×96, B = 2 (four scales, two sources): a replay
     of the captured step launches P 8 times each way (one a grid: the
-    photometric and the geo grid of each scale), beside its S and T; the
+    photometric and the geo grid of each scale), beside its S, T and 8
+    L (one a photometric term); the
     eager step under ``torch.profiler`` runs no GEMM operator with a
     pixel axis (the smallest grid's 384 pixels or more), so no cuBLAS
     float32 GEMM comes from the projection."""
@@ -1181,7 +1191,7 @@ def test_captured_default_step_projects_through_p_alone(device):
     kernels.reset_launch_counts()
     step_fn(state, batches[1])
     assert kernels.launch_counts() == {"P/fwd": 8, "P/bwd": 8, "S/grad/C3": 8, "S/grad/C1": 1,
-                                       "T/C1": 1}
+                                       "T/C1": 1, "L/affine": 8}
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA],
                                 record_shapes=True) as prof:
@@ -1192,6 +1202,271 @@ def test_captured_default_step_projects_through_p_alone(device):
     assert not pixel_gemms, pixel_gemms
     names = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
     assert any("project_depth_kernel" in n for n in names), sorted(names)[:40]
+
+
+def _lcc_frames(n, h, w, device, seed=0):
+    """A warp (n, h, w, 3) as the loss hands it, a permuted plane stack, with
+    smooth structure and noise, and an interleaved target that relights it
+    by a gain and an offset varying across the frame."""
+    gen = torch.Generator().manual_seed(seed)
+    yy, xx = torch.meshgrid(torch.linspace(0, 1, h), torch.linspace(0, 1, w), indexing="ij")
+    base = 0.5 + 0.3 * torch.sin(6 * xx + 4 * yy)[None, :, :, None] + 0.2 * torch.rand(
+        (n, h, w, 3), generator=gen)
+    tgt = ((0.7 + 0.5 * xx[None, :, :, None]) * base + 0.1 * yy[None, :, :, None]
+           + 0.02 * torch.rand((n, h, w, 3), generator=gen)).clamp(0, 1.5)
+    warp = base.permute(0, 3, 1, 2).contiguous().to(device).permute(0, 2, 3, 1)
+    return warp, tgt.contiguous().to(device)
+
+
+def _lcc_plain(warp, target, mode, dtype):
+    """ŵ and a (= ∂ŵ/∂w) of the plain path in ``dtype``."""
+    from colvo_torch.kernels import lcc
+
+    x = warp.to(dtype).requires_grad_()
+    out = lcc.window_plain(x, target.to(dtype), 15, (0.5, 2.0), mode)
+    (a,) = torch.autograd.grad(out, x, torch.ones_like(out))
+    return out.detach(), a
+
+
+def _gap(got, want):
+    return (got.double() - want.double()).abs().max().item()
+
+
+# The floor of L's comparison with the float64 plain path: ŵ, a (the CPU
+# test's, tests/test_torch_port_lcc_emu.py).
+LCC_FLOOR = (2e-6, 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(256, 320), (224, 280)], ids=["train_device", "train_dpt"])
+@pytest.mark.parametrize("mode", ["affine", "gain"])
+def test_lcc_kernel_matches_the_plain_path_at_the_cells_shapes(device, hw, mode):
+    """L at the training cells' shapes (B = 12): ŵ and a no farther from the
+    float64 plain path than twice the float32 plain path's distance plus
+    ``LCC_FLOOR``; ŵ in the warp's layout; one launch."""
+    from colvo_torch.kernels import lcc
+
+    warp, target = _lcc_frames(12, *hw, device)
+    kernels.reset_launch_counts()
+    out, a = lcc.forward(warp, target, 15, (0.5, 2.0), mode, True)
+    assert kernels.launch_counts() == {f"L/{mode}": 1}
+    assert out.stride() == a.stride() == warp.stride()
+    want64 = _lcc_plain(warp, target, mode, torch.float64)
+    want32 = _lcc_plain(warp, target, mode, torch.float32)
+    for got, w64, w32, floor in zip((out, a), want64, want32, LCC_FLOOR):
+        assert torch.isfinite(got).all()
+        assert _gap(got, w64) <= 2 * _gap(w32, w64) + floor, (_gap(got, w64), _gap(w32, w64))
+
+
+@pytest.mark.cuda
+def test_lcc_kernel_in_bfloat16(device):
+    """bfloat16 frames (``loss.compute_dtype``): ŵ and a stored in bfloat16,
+    within one bfloat16 unit in the last place (2^-7 of the value) of the
+    float32 plain path on the same inputs: the kernel's float32 value and
+    the plain path's may round to neighbouring bfloat16 values."""
+    from colvo_torch.kernels import lcc
+
+    warp, target = (x.to(torch.bfloat16) for x in _lcc_frames(12, 256, 320, device))
+    out, a = lcc.forward(warp, target, 15, (0.5, 2.0), "affine", True)
+    assert out.dtype == a.dtype == torch.bfloat16
+    for got, ref in zip((out, a), _lcc_plain(warp, target, "affine", torch.float32)):
+        assert ((got.float() - ref).abs() <= 2.0**-7 * ref.abs() + 1e-5).all()
+
+
+# The card's bfloat16 loss against the CPU's. L computes LCC's windowed
+# means in float32 and stores ŵ in bfloat16; the CPU's plain path (the JAX
+# package's arithmetic) rounds each mean to bfloat16 before var and cov
+# cancel. On these inputs each arithmetic puts its bf16 loss up to 3.1e-3
+# from the float32 loss, and the two lie up to 1.6e-3 apart in the loss
+# and its terms, at a pose-gradient cosine of 0.9928 or more (measured on
+# the CPU with L's arithmetic in its plain form: seeds 0-3, 5 and 9, the
+# three knobs). The limits leave room for
+# that and for the card's other kernels: 5e-3 relative on the loss and each
+# term, and a cosine above 0.98 (the reference's own bf16 bound is 0.97).
+BF16_LOSS_REL, BF16_POSE_COS = 5e-3, 0.98
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", [{}, {"lcc_mode": "global+affine"}, {"batched_photo": True}],
+                         ids=["affine", "global_affine", "batched_photo"])
+def test_bf16_loss_on_the_card_stays_near_the_cpus(device, knobs):
+    """``loss.compute_dtype="bfloat16"``: ``snippet_loss`` on one 64×96
+    snippet of uniform noise (four scales, two sources) on the card, where
+    L computes in float32, and on the CPU, where the windowed means round
+    to bfloat16: the loss and its terms within ``BF16_LOSS_REL`` of the
+    CPU's and the pose gradients at a cosine above ``BF16_POSE_COS``, and
+    the card launches L for every term."""
+    from colvo_torch.losses import snippet_loss
+
+    h, w = 64, 96
+    rng = np.random.default_rng(1)
+    frames = rng.random((1, 3, h, w, 3)).astype(np.float32)
+    k = np.array([[0.58 * w, 0, w / 2], [0, 0.92 * h, h / 2], [0, 0, 1]], np.float32)
+    disps = [{s: (0.05 + 0.9 * rng.random((1, h >> s, w >> s, 1))).astype(np.float32)
+              for s in range(4)} for _ in range(3)]
+    poses = (0.01 * rng.standard_normal((1, 2, 6))).astype(np.float32)
+    cfg = ColvoConfig()
+    cfg.loss.compute_dtype = "bfloat16"
+    for key, v in knobs.items():
+        setattr(cfg.loss, key, v)
+    results = {}
+    for dev in (device, torch.device("cpu")):
+        ds = [{s: torch.tensor(v, device=dev, requires_grad=True) for s, v in d.items()}
+              for d in disps]
+        ps = torch.tensor(poses, device=dev, requires_grad=True)
+        kk = torch.tensor(k, device=dev)
+        kernels.reset_launch_counts()
+        loss, aux = snippet_loss(ds, ps, torch.tensor(frames, device=dev), kk,
+                                 torch.linalg.inv(kk), cfg.loss, cfg.model)
+        loss.backward()
+        if dev.type == "cuda":
+            counts = kernels.launch_counts()
+            assert counts.get("L/affine") == (1 if knobs.get("batched_photo") else 8), counts
+        terms = {key: v.item() for key, v in aux.items() if v.dim() == 0}
+        results[dev.type] = loss.item(), terms, ps.grad.flatten().cpu().double()
+    (got_l, got_t, got_g), (want_l, want_t, want_g) = results["cuda"], results["cpu"]
+    assert abs(got_l - want_l) <= BF16_LOSS_REL * abs(want_l), (got_l, want_l)
+    for key, v in want_t.items():
+        assert abs(got_t[key] - v) <= BF16_LOSS_REL * max(abs(v), 1e-6), (key, got_t[key], v)
+    cos = (got_g @ want_g / (got_g.norm() * want_g.norm())).item()
+    assert cos > BF16_POSE_COS, cos
+
+
+@pytest.mark.cuda
+def test_lcc_gradient_is_g_times_a_and_the_bits_repeat(device):
+    """Through ``kernels.lcc_window``: the warp's gradient is g·a bit for
+    bit, the target gets none; two calls give ŵ and a bit for bit, and so
+    do calls on 6 of the 12 images and on one (other row splits); a
+    target broadcast over sources and scales (the batched stack) sums the
+    gradient back to a warp that broadcast too, and each image of the
+    stack is held to the plain path as the cells' shapes are."""
+    from colvo_torch.kernels import lcc
+
+    warp, target = _lcc_frames(12, 256, 320, device)
+    x = warp.clone().requires_grad_()
+    t = target.clone().requires_grad_()
+    y = kernels.lcc_window(x, t, 15, (0.5, 2.0), "affine")
+    g = torch.randn_like(y)
+    dx, dt = torch.autograd.grad(y, (x, t), g, allow_unused=True)
+    first = lcc.forward(warp, target, 15, (0.5, 2.0), "affine", True)
+    again = lcc.forward(warp, target, 15, (0.5, 2.0), "affine", True)
+    half = lcc.forward(warp[:6], target[:6], 15, (0.5, 2.0), "affine", True)
+    one = lcc.forward(warp[7:8], target[7:8], 15, (0.5, 2.0), "affine", True)
+    assert dt is None
+    assert torch.equal(y.detach(), first[0]) and torch.equal(dx, g * first[1])
+    assert all(torch.equal(p, q) for p, q in zip(first, again))
+    assert all(torch.equal(p[:6], q) for p, q in zip(first, half))
+    assert all(torch.equal(p[7:8], q) for p, q in zip(first, one))
+    stack = _lcc_frames(2 * 3 * 2, 64, 96, device)[0].reshape(2, 3, 2, 64, 96, 3)
+    tgt = _lcc_frames(3, 64, 96, device, seed=1)[1][None, :, None]
+    xs = stack[:1].clone().requires_grad_()  # broadcast over the sources too
+    ys = kernels.lcc_window(xs, tgt, 15)
+    gs = torch.randn_like(ys)
+    (dxs,) = torch.autograd.grad(ys, xs, gs)
+    _, a = lcc.forward(xs.detach(), tgt, 15, (0.5, 2.0), "affine", True)
+    assert ys.shape == (1, 3, 2, 64, 96, 3) and torch.equal(dxs, gs * a)
+    y2 = kernels.lcc_window(stack, tgt, 15)
+    assert ys.shape[1:] == y2.shape[1:]
+    want64, want32 = (torch.cat([_lcc_plain(stack[i, j, k][None], tgt[0, j, 0][None], "affine",
+                                            dtype)[0] for i in range(2) for j in range(3)
+                                 for k in range(2)])
+                      for dtype in (torch.float64, torch.float32))
+    gap = _gap(y2.reshape(-1, 64, 96, 3), want64)
+    assert gap <= 2 * _gap(want32, want64) + LCC_FLOOR[0], (gap, _gap(want32, want64))
+
+
+@pytest.mark.cuda
+def test_lcc_kernel_captures_in_a_cuda_graph(device):
+    """L captured in a CUDA graph: a replay on new inputs copied into the
+    static ones equals an eager call bit for bit."""
+    from colvo_torch.kernels import lcc
+
+    warp, target = _lcc_frames(12, 256, 320, device)
+    new_w, new_t = _lcc_frames(12, 256, 320, device, seed=5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        lcc.forward(warp, target, 15, (0.5, 2.0), "affine", True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, a = lcc.forward(warp, target, 15, (0.5, 2.0), "affine", True)
+    warp.copy_(new_w)
+    target.copy_(new_t)
+    graph.replay()
+    want = lcc.forward(new_w, new_t, 15, (0.5, 2.0), "affine", True)
+    assert torch.equal(out, want[0]) and torch.equal(a, want[1])
+
+
+@pytest.mark.cuda
+def test_lcc_wrapper_rejects_what_it_cannot_launch(device):
+    """float16, mixed dtypes or devices, CPU tensors, an unknown mode and a
+    window that cannot fit shared memory raise; nothing falls back."""
+    from colvo_torch.kernels import lcc
+
+    warp, target = _lcc_frames(2, 32, 48, device)
+    for bad, exc in (((warp.half(), target.half(), 15, "affine"), TypeError),
+                     ((warp, target.double(), 15, "affine"), TypeError),
+                     ((warp, target.cpu(), 15, "affine"), ValueError),
+                     ((warp.cpu(), target.cpu(), 15, "affine"), ValueError),
+                     ((warp, target, 15, "global"), ValueError),
+                     ((warp, target, 301, "affine"), ValueError)):
+        with pytest.raises(exc):
+            lcc.forward(*bad[:3], (0.5, 2.0), bad[3], True)
+
+
+# (loss knobs, size, L launches of one loss with its backward, SSIM calls:
+# one a photometric term that F does not compute, and the automask's
+# identity error of each source)
+LCC_LOSSES = {
+    "default": ({}, (64, 96), {"L/affine": 8}, 8 + 2),
+    "fused_kernel": ({"fused_kernel": True}, (64, 96), {}, 0 + 2),
+    "batched_photo": ({"batched_photo": True}, (64, 96), {"L/affine": 1}, 1 + 2),
+    "lcc_mode=gain": ({"lcc_mode": "gain"}, (64, 96), {"L/gain": 8}, 8 + 2),
+    "dpt": ({}, (56, 70), {"L/affine": 2}, 2 + 2),  # _dpt_setup's net: one scale
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knob", list(LCC_LOSSES))
+def test_lcc_launches_of_one_loss(device, knob, monkeypatch):
+    """``snippet_loss`` with its backward, two sources: L once a
+    photometric term (8 at four scales, 2 at the DPT net's one scale),
+    once for the batched stack, none under ``loss.fused_kernel`` (F
+    computes LCC itself); no ``avg_pool2d`` launch is left on LCC's path:
+    the forward's are SSIM's, 10 a call (five 3×3 means, each over its
+    count plane)."""
+    from colvo_torch.data import SnippetDataset, batch_iterator, render_sequence
+    from colvo_torch.losses import snippet_loss
+    from colvo_torch.runtime import init_state, to_device
+
+    loss_knobs, (h, w), want, ssim_calls = LCC_LOSSES[knob]
+    if knob == "dpt":
+        cfg, batches = _dpt_setup(device, monkeypatch)
+        batch = batches[0]
+    else:
+        cfg = ColvoConfig()
+        cfg.model.dtype = "float32"
+        cfg.data.height, cfg.data.width, cfg.data.batch_size = h, w, 2
+        for key, v in loss_knobs.items():
+            setattr(cfg.loss, key, v)
+        seq = render_sequence(n_frames=8, height=h, width=w, seed=4)
+        batch = to_device(next(batch_iterator(
+            SnippetDataset([seq.frames], [seq.k], cfg.data.frame_offsets), cfg.data, seed=0)),
+            device)
+    state = init_state(cfg, seed=0, device=device)
+    disps, poses = state.model(batch["frames"])
+    kernels.reset_launch_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        loss, _ = snippet_loss(disps, poses, batch["frames"], batch["k"],
+                               torch.linalg.inv(batch["k"]), cfg.loss, cfg.model,
+                               frames_clean=batch["frames_clean"])
+        loss.backward()
+        torch.cuda.synchronize()
+    assert {k: v for k, v in kernels.launch_counts().items() if k.startswith("L/")} == want
+    assert torch.isfinite(loss)
+    pools = [e for e in prof.key_averages() if "avg_pool2d" in e.key and "backward" not in e.key]
+    assert sum(e.count for e in pools) == 10 * ssim_calls, [(e.key, e.count) for e in pools]
 
 
 # A small Depth Anything V2 preset (``models/vit.py``'s table), every width
@@ -1279,6 +1554,43 @@ def test_dpt_attention_takes_a_fused_kernel_never_math(device, monkeypatch):
     q = torch.randn(2, 4, 9, 16, device=device, dtype=torch.float64)
     with pytest.raises(RuntimeError):
         kernels.attention(q, q, q)
+
+
+@pytest.mark.cuda
+def test_capture_survives_a_graph_dropped_in_a_reference_cycle(device):
+    """A CUDA graph dropped inside a reference cycle is destroyed by the
+    cyclic garbage collector, and destroying it is not permitted while
+    another stream captures. ``Graphed`` collects no cycles inside its
+    capture: a body that drops such a cycle during the capture, then
+    allocates enough to trigger collections, still captures, and its
+    replays compute the body."""
+    import gc
+
+    from colvo_torch.runtime import graphs
+
+    x = torch.ones(8, device=device)
+    old = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(old):
+        x * 3
+    box = [old]
+    del old
+
+    def body(a):
+        if torch.cuda.is_current_stream_capturing() and box:
+            cycle = [box.pop()]
+            cycle.append(cycle)
+            del cycle
+            junk = [[i] for i in range(5 * max(gc.get_threshold()[0], 1))]
+            del junk
+        return a * 2 + 1
+
+    prog = graphs.Graphed(body, device=device)
+    gc.collect()
+    assert torch.equal(prog(x), x * 2 + 1)
+    assert not box
+    assert torch.equal(prog(x + 1), (x + 1) * 2 + 1)
+    gc.collect()
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
