@@ -45,6 +45,11 @@ def count_launch(key: str) -> None:
     spans.tally(LAUNCH + key)
 
 
+def needs_grad(*ts: torch.Tensor) -> bool:
+    """Whether autograd records a call on ``ts`` (the wrappers' Functions)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def empty(numel: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """A new (numel,) tensor, left unfilled also under deterministic
     algorithms (which fill ``torch.empty``'s memory): for buffers a kernel

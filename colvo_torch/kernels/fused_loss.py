@@ -1,17 +1,18 @@
 """F: fused warp + LCC + SSIM + L1 photometric error and its coordinate
 cotangent (``csrc/fused_loss.cu``).
 
-``err`` and ``err_bwd`` are the kernels' wrappers: a CUDA tensor launches
-the kernel (forward P7, backward P8; the source names the TPU kernels they
-replace) and any error raises; a CPU tensor takes the plain versions
-beside them. Each launch counts as ``F/fwd/C<c>`` or ``F/bwd/C<c>``
-(``kernels.launch_counts``).
+``fused_error`` (``loss.fused_kernel``'s error of one source frame) runs
+forward P7 and backward P8; ``err`` and ``err_bwd`` choose by the
+tensor's device: a CUDA tensor launches the kernel (the source names the
+TPU kernels it replaces) and any error raises; a CPU tensor takes the
+plain versions beside them. Each launch counts as ``F/fwd/C<c>`` or
+``F/bwd/C<c>`` (``kernels.launch_counts``).
 
 The function: w = bilinear sample of ``src`` at (x, y); with
-``lcc_window`` > 0, ŵ = a·w + b, the windowed affine LCC of
-``losses.photometric.lcc_calibrate`` (a and b constants to the gradient);
-per channel e_c = α/2·(1 − SSIM(ŵ, t)) + (1 − α)·|ŵ − t|; e = mean of e_c
-over channels. Gradients flow to x and y only: the frames are data.
+``lcc_window`` > 0, ŵ = a·w + b, the windowed affine LCC of ``lcc``
+(a and b constants to the gradient); per channel
+e_c = α/2·(1 − SSIM(ŵ, t)) + (1 − α)·|ŵ − t|; e = mean of e_c over
+channels. Gradients flow to x and y only: the frames are data.
 
 Layout: src (N, C, Hs, Ws) and tgt (N, C, h, w) f32 whose inner three dims
 are contiguous (batch strides are free, so frame slices of a snippet stack
@@ -27,6 +28,7 @@ import torch
 
 from colvo_torch.kernels import build, lcc
 from colvo_torch.kernels.sampler import planes_contiguous, sample_plain
+from colvo_torch.kernels.window import box_sum, photometric_error, ssim_moments, window_count
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
@@ -52,9 +54,6 @@ def err_plain(src: torch.Tensor, tgt: torch.Tensor, x: torch.Tensor, y: torch.Te
     """Plain version of the forward: the composed sampler → LCC → SSIM+L1
     of the port's own plain functions (LCC's ``lcc.window_plain``, which
     launches no kernel on a card)."""
-    # imported here: colvo_torch.losses imports this package
-    from colvo_torch.losses.photometric import photometric_error
-
     warped = _nhwc(sample_plain(src, x, y, False)[0])
     tgt = _nhwc(tgt)
     if lcc_window:
@@ -70,8 +69,6 @@ def err_bwd_plain(src: torch.Tensor, tgt: torch.Tensor, x: torch.Tensor, y: torc
     and B3 the 3×3 box sum,
     dŵ = B3(g̃·G1/n3) + 2ŵ·B3(g̃·G2/n3) + t·B3(g̃·G3/n3) + (1−α)·g/C·sign(ŵ−t),
     dw = a·dŵ, and gx, gy = Σ_c dw·∂w/∂x, Σ_c dw·∂w/∂y."""
-    from colvo_torch.losses.photometric import _box_sum
-
     w, dx, dy = (_nhwc(v) for v in sample_plain(src, x, y, True))
     t = _nhwc(tgt)
     a = None
@@ -79,12 +76,8 @@ def err_bwd_plain(src: torch.Tensor, tgt: torch.Tensor, x: torch.Tensor, y: torc
         a, b = lcc.coefficients(w, t, lcc_window, (0.5, 2.0), "affine")
         w = a * w + b
     c1, c2 = 0.01**2, 0.03**2
-    n3 = _box_sum(torch.ones_like(w[:1, ..., :1]), 3)
-    m_x = _box_sum(w, 3) / n3
-    m_y = _box_sum(t, 3) / n3
-    s_x = _box_sum(w * w, 3) / n3 - m_x * m_x
-    s_y = _box_sum(t * t, 3) / n3 - m_y * m_y
-    s_xy = _box_sum(w * t, 3) / n3 - m_x * m_y
+    n3 = window_count(w, 3)
+    m_x, m_y, s_x, s_y, s_xy = ssim_moments(w, t)
     n1, n2 = 2 * m_x * m_y + c1, 2 * s_xy + c2
     d1, d2 = m_x * m_x + m_y * m_y + c1, s_x + s_y + c2
     ds_dmu = (2 * m_y * n2 * d1 - 2 * m_x * n1 * n2) / (d1 * d1 * d2)
@@ -93,8 +86,8 @@ def err_bwd_plain(src: torch.Tensor, tgt: torch.Tensor, x: torch.Tensor, y: torc
     g1 = ds_dmu - 2 * m_x * ds_dsx - m_y * ds_dsxy
     gc = (g / w.shape[-1])[..., None]
     gt = -(alpha * 0.5) * gc
-    d_what = (_box_sum(gt * g1 / n3, 3) + 2 * w * _box_sum(gt * ds_dsx / n3, 3)
-              + t * _box_sum(gt * ds_dsxy / n3, 3) + (1.0 - alpha) * gc * torch.sign(w - t))
+    d_what = (box_sum(gt * g1 / n3, 3) + 2 * w * box_sum(gt * ds_dsx / n3, 3)
+              + t * box_sum(gt * ds_dsxy / n3, 3) + (1.0 - alpha) * gc * torch.sign(w - t))
     dw = d_what if a is None else a * d_what
     return (dw * dx).sum(-1), (dw * dy).sum(-1)
 
@@ -160,3 +153,32 @@ def err_bwd(src: torch.Tensor, tgt: torch.Tensor, x: torch.Tensor, y: torch.Tens
           alpha=alpha)
     build.count_launch(f"F/bwd/C{src.shape[1]}")
     return gx, gy
+
+
+class _FusedError(torch.autograd.Function):
+    """Forward F (P7), backward F's coordinate cotangent (P8). Only the
+    inputs are saved: the backward recomputes the warp and the window
+    statistics instead of keeping them in memory."""
+
+    @staticmethod
+    def forward(ctx, src, tgt, x, y, lcc_window, alpha):
+        ctx.save_for_backward(src, tgt, x, y)
+        ctx.cfg = (lcc_window, alpha)
+        return err(src, tgt, x, y, lcc_window, alpha)
+
+    @staticmethod
+    def backward(ctx, g):
+        src, tgt, x, y = ctx.saved_tensors
+        gx, gy = err_bwd(src, tgt, x, y, g.contiguous(), *ctx.cfg)
+        return None, None, gx, gy, None, None
+
+
+def fused_error(src: torch.Tensor, tgt: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                lcc_window: int, alpha: float) -> torch.Tensor:
+    """Per-pixel photometric error (N, h, w) of ``src`` (N, C, H, W) warped
+    to (x, y) against ``tgt`` (N, C, h, w), with the windowed affine LCC
+    where ``lcc_window`` > 0; gradients flow to x and y only."""
+    x, y = x.contiguous(), y.contiguous()
+    if build.needs_grad(x, y):
+        return _FusedError.apply(src, tgt, x, y, lcc_window, alpha)
+    return err(src, tgt, x, y, lcc_window, alpha)

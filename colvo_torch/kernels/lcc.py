@@ -1,10 +1,11 @@
 """L: LCC's windowed calibration of a warped frame to its target
 (``csrc/lcc.cu``), the windowed step of ``losses.photometric.lcc_calibrate``.
 
-``forward`` is the kernel's wrapper: one launch for a CUDA tensor, any
-error raised, a CPU tensor refused; ``window_plain`` is the plain version,
-the composed ``_avg_pool_same`` means that CPU tensors take
-(``kernels.lcc_window``). Each launch counts as ``L/affine`` or ``L/gain``
+``lcc_window`` chooses by the tensor's device: a CUDA tensor takes kernel
+L (``forward``: one launch, any error raised, other tensors refused; with
+autograd it also writes a, and the warp's cotangent is g·a), a CPU tensor
+``window_plain``, the plain version: the composed ``window.avg_pool_same``
+means. Each launch counts as ``L/affine`` or ``L/gain``
 (``kernels.launch_counts``).
 
 The function, with means over the window's in-image overlap (SAME
@@ -28,6 +29,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from colvo_torch.kernels import build
+from colvo_torch.kernels.window import avg_pool_same
 
 MAX_LEAD = 6  # kMaxLead of csrc/lcc.cu
 MAX_IMAGES = 65535
@@ -64,18 +66,15 @@ def coefficients(warped: torch.Tensor, target: torch.Tensor, window: int,
                  clip: Sequence[float], mode: str
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(a, b) of the plain version, b None under ``gain``: the windowed means
-    by ``_avg_pool_same``."""
-    # imported here: colvo_torch.losses imports this package
-    from colvo_torch.losses.photometric import _avg_pool_same
-
+    by ``window.avg_pool_same``."""
     eps = 1e-4
-    mu_w = _avg_pool_same(warped, window)
-    mu_t = _avg_pool_same(target, window)
+    mu_w = avg_pool_same(warped, window)
+    mu_t = avg_pool_same(target, window)
     if mode == "gain":
         return torch.clamp(mu_t / (mu_w + eps), clip[0], clip[1]), None
     if mode == "affine":
-        var_w = _avg_pool_same(warped * warped, window) - mu_w * mu_w
-        cov = _avg_pool_same(warped * target, window) - mu_w * mu_t
+        var_w = avg_pool_same(warped * warped, window) - mu_w * mu_w
+        cov = avg_pool_same(warped * target, window) - mu_w * mu_t
         a = torch.clamp(cov / (var_w + eps), clip[0], clip[1])
         return a, mu_t - a * mu_w
     raise ValueError(f"unknown lcc mode {mode!r}")
@@ -173,3 +172,33 @@ def forward(warped: torch.Tensor, target: torch.Tensor, window: int, clip: Seque
                          f"{tuple(shape)} may not fit shared memory")
     build.count_launch(f"L/{mode}")
     return out, a
+
+
+class _LccWindow(torch.autograd.Function):
+    """Forward L with a; backward g·a, summed to the warp's shape where it
+    broadcast. The target is data."""
+
+    @staticmethod
+    def forward(ctx, warped, target, window, clip, mode):
+        out, a = forward(warped, target, window, clip, mode, with_a=True)
+        ctx.save_for_backward(a)
+        ctx.shape = warped.shape
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (a,) = ctx.saved_tensors
+        return (g * a).sum_to_size(ctx.shape), None, None, None, None
+
+
+def lcc_window(warped: torch.Tensor, target: torch.Tensor, window: int = 15,
+               clip: Tuple[float, float] = (0.5, 2.0), mode: str = "affine") -> torch.Tensor:
+    """LCC's windowed calibration of ``warped`` to ``target``, (..., H, W, C)
+    each, leading dims broadcasting: kernel L for CUDA tensors (float32 or
+    bfloat16), ``window_plain`` for CPU tensors. Gradients flow to
+    ``warped`` only, as g·a."""
+    if warped.device.type == "cpu":
+        return window_plain(warped, target, window, clip, mode)
+    if build.needs_grad(warped):
+        return _LccWindow.apply(warped, target, window, tuple(clip), mode)
+    return forward(warped, target, window, clip, mode, with_a=False)[0]

@@ -1,12 +1,14 @@
 """P: the training loss's backprojection → SE(3) → pinhole projection of one
 depth grid to all its source frames (``csrc/project.cu``).
 
-``forward`` and ``backward`` are the kernels' wrappers: a CUDA tensor
-launches the kernels and any error raises; a CPU tensor takes
-``project_plain``, ``geometry.ops.project(backproject(...))`` per source,
-whose backward is autograd's. Each forward counts as ``P/fwd`` and each
-backward (its pass over the pixels and the fixed-order sum of the pose
-gradient's partials) as ``P/bwd`` (``kernels.launch_counts``).
+``project_depth`` chooses by the tensor's device: a CUDA tensor takes
+kernel P (``forward``, ``backward``, which refuse other tensors; any error
+raises), a CPU tensor ``project_plain``, ``geometry.ops.project(
+backproject(...))`` per source, whose backward is autograd's. P's
+backward sums the pose gradient's partials in a fixed order, no float
+atomics: the same bits on every run. Each forward counts as ``P/fwd`` and
+each backward (its pass over the pixels and the sum) as ``P/bwd``
+(``kernels.launch_counts``).
 
 The function, as ``ops.project(ops.backproject(depth, k_inv), k, t)``:
 points ``depth · K⁻¹ (x, y, 1)ᵀ``, then ``K (R p + t)`` and the divide by
@@ -110,10 +112,8 @@ def mats(k: torch.Tensor, k_inv: torch.Tensor, t_mats: torch.Tensor, n: int) -> 
 
 def forward(depth: torch.Tensor, k: torch.Tensor, k_inv: torch.Tensor,
             t_mats: torch.Tensor) -> Planes:
-    """x, y, z (S·N, h, w) of every source: one launch of the forward kernel
-    for a CUDA tensor, ``project_plain`` for a CPU tensor."""
-    if depth.device.type == "cpu":
-        return project_plain(depth, k, k_inv, t_mats)
+    """x, y, z (S·N, h, w) of every source on CUDA tensors: one launch of
+    the forward kernel."""
     _check(depth, k, k_inv, t_mats)
     (n, h, w), s = depth.shape, t_mats.shape[0]
     out = build.empty(3 * s * n * h * w, torch.float32, depth.device).view(3, s * n, h, w)
@@ -151,3 +151,39 @@ def backward(depth: torch.Tensor, k: torch.Tensor, k_inv: torch.Tensor, t_mats: 
         raise RuntimeError(f"project backward kernel launch failed: cudaError {err}")
     build.count_launch("P/bwd")
     return d_depth, d_t
+
+
+class _ProjectDepth(torch.autograd.Function):
+    """Forward P; backward P's pixel pass and fixed-order sum. Only the
+    inputs are saved: the backward recomputes the points."""
+
+    @staticmethod
+    def forward(ctx, depth, k, k_inv, t_mats):
+        ctx.save_for_backward(depth, k, k_inv, t_mats)
+        return forward(depth, k, k_inv, t_mats)
+
+    @staticmethod
+    def backward(ctx, gx, gy, gz):
+        d_depth, d_t = backward(*ctx.saved_tensors, gx.contiguous(), gy.contiguous(),
+                                gz.contiguous())
+        return d_depth, None, None, d_t
+
+
+def project_depth(depth: torch.Tensor, k: torch.Tensor, k_inv: torch.Tensor,
+                  t_mats: torch.Tensor) -> Planes:
+    """Project depth (N, h, w) through K⁻¹, each of ``t_mats`` (S, N, 4, 4)
+    and K ((3, 3) or (N, 3, 3)) → source-pixel x, y and projected z, each
+    (S·N, h, w) with plane ``s·N + n`` for grid n and source s:
+    ``geometry.ops.project(backproject(depth, k_inv), k, t_mats[s])``.
+    Gradients flow to the depth and the transforms; K and K⁻¹ are data,
+    and either requiring a gradient raises."""
+    if build.needs_grad(k, k_inv):
+        raise ValueError("project_depth takes K and K^-1 as data: neither may require a gradient")
+    if depth.device.type == "cpu":
+        return project_plain(depth, k, k_inv, t_mats)
+    depth, k, k_inv = depth.contiguous(), k.contiguous(), k_inv.contiguous()
+    if t_mats.stride(-1) != 1 or t_mats.stride(-2) != 4:
+        t_mats = t_mats.contiguous()
+    if build.needs_grad(depth, t_mats):
+        return _ProjectDepth.apply(depth, k, k_inv, t_mats)
+    return forward(depth, k, k_inv, t_mats)

@@ -1,9 +1,13 @@
 """S: bilinear sampling of C channel planes with optional d/dx, d/dy.
 
-``sample`` and ``sample_multi`` are the kernels' wrappers: a CUDA tensor
-launches a CUDA kernel (``csrc/sampler.cu``, which names the TPU kernels
-it replaces) and any error raises; a CPU tensor takes ``sample_plain`` /
-``sample_multi_plain``, the plain PyTorch gathers beside them.
+``bilinear_sample_planes`` (NHWC: ``bilinear_sample_fast``) and
+``bilinear_sample_grouped_planes`` are the photometric warps' samplers:
+forward S with d/dx, d/dy, backward the channel sums Σ_c g·dx, Σ_c g·dy;
+no gradient to the image; S's value-only variant outside autograd.
+``sample`` and ``sample_multi`` choose by the tensor's device: a CUDA
+tensor launches a CUDA kernel (``csrc/sampler.cu``, which names the TPU
+kernels it replaces) and any error raises; a CPU tensor takes
+``sample_plain`` / ``sample_multi_plain``, the plain gathers beside them.
 ``sample_multi`` samples several plane sets (the geo scales of a step) in
 one launch of the multi-plane-set kernel, which also takes every C=1 call
 of ``sample``; C>1 and grouped calls launch ``bilinear_sample_kernel``.
@@ -178,8 +182,13 @@ def sample_multi(srcs: Sequence[torch.Tensor], xs: Sequence[torch.Tensor],
     return _sample_multi_cuda(srcs, xs, ys, with_grad)
 
 
-def _sample_cuda(src: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-                 with_grad: bool, group: int) -> Outputs:
+def sample(src: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+           with_grad: bool, group: int = 1) -> Outputs:
+    """Sample ``src`` at (x, y): the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor. Returns (out, dx, dy); dx, dy are None
+    without ``with_grad``. Output plane ``i`` samples ``src[i // group]``."""
+    if src.device.type == "cpu":
+        return sample_plain(src, x, y, with_grad, group)
     if src.dim() == 4 and src.shape[1] == 1 and group == 1:
         return _sample_multi_cuda([src], [x], [y], with_grad)[0]
     _check(src, x, y, group)
@@ -204,11 +213,41 @@ def _sample_cuda(src: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     return out, dx, dy
 
 
-def sample(src: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-           with_grad: bool, group: int = 1) -> Outputs:
-    """Sample ``src`` at (x, y): the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor. Returns (out, dx, dy); dx, dy are None
-    without ``with_grad``. Output plane ``i`` samples ``src[i // group]``."""
-    if src.device.type == "cpu":
-        return sample_plain(src, x, y, with_grad, group)
-    return _sample_cuda(src, x, y, with_grad, group)
+class _SampleCoordsGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, src, x, y, group):
+        out, dx, dy = sample(src, x, y, with_grad=True, group=group)
+        ctx.save_for_backward(dx, dy)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        dx, dy = ctx.saved_tensors
+        return None, (g * dx).sum(1), (g * dy).sum(1), None
+
+
+def bilinear_sample_grouped_planes(src: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                                   group: int) -> torch.Tensor:
+    """Grouped coords-gradient sampler: src (N, C, H, W), x/y (N·group, h, w)
+    ordered so that plane ``i`` samples ``src[i // group]`` → (N·group, C,
+    h, w). Mirrors ``colvo.kernels.bilinear_sample_fast_grouped``."""
+    x, y = x.contiguous(), y.contiguous()
+    if build.needs_grad(x, y):
+        return _SampleCoordsGrad.apply(src, x, y, group)
+    return sample(src, x, y, False, group)[0]
+
+
+def bilinear_sample_planes(src: torch.Tensor, x: torch.Tensor,
+                           y: torch.Tensor) -> torch.Tensor:
+    """Coords-gradient sampler on planes: src (N, C, H, W), x/y (N, h, w)
+    → (N, C, h, w). The image gets no gradient (mirrors the reference)."""
+    return bilinear_sample_grouped_planes(src, x, y, 1)
+
+
+def bilinear_sample_fast(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """img (B, H, W, C), coords (B, h, w, 2) → (B, h, w, C); gradients
+    flow to ``coords`` only."""
+    out = bilinear_sample_planes(
+        img.permute(0, 3, 1, 2).contiguous(), coords[..., 0], coords[..., 1]
+    )
+    return out.permute(0, 2, 3, 1)

@@ -1,4 +1,7 @@
-"""T: source cotangent of bilinear sampling (``csrc/scatter.cu``).
+"""T: source cotangent of bilinear sampling (``csrc/scatter.cu``), the
+backward of ``bilinear_sample_full_multi``: the geo-consistency depth
+warps of every scale, with gradients to coordinates and sources (forward
+one launch of S, backward the channel sums and one launch of T).
 
 ``scatter_multi`` is the kernel's wrapper: a CUDA tensor launches the
 kernel once for up to ``MAX_DESCS`` plane sets (the geo scales of a step),
@@ -33,7 +36,7 @@ from typing import List, NamedTuple, Sequence, Tuple
 import torch
 
 from colvo_torch.geometry.ops import bilinear_taps
-from colvo_torch.kernels import build
+from colvo_torch.kernels import build, sampler
 
 # Launch variants: "C<c>" (float atomics), "C<c>/det" (the cluster
 # kernel) or "C<c>/det/global" (the device-memory path).
@@ -247,9 +250,15 @@ def _check(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor) -> None:
         raise ValueError("coords and cotangent must share one device")
 
 
-def _scatter_multi_cuda(xs: Sequence[torch.Tensor], ys: Sequence[torch.Tensor],
-                        gs: Sequence[torch.Tensor],
-                        src_hws: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+def scatter_multi(xs: Sequence[torch.Tensor], ys: Sequence[torch.Tensor],
+                  gs: Sequence[torch.Tensor],
+                  src_hws: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+    """Cotangents ``gs[i]`` (N_i, C, h_i, w_i) of samples at (``xs[i]``,
+    ``ys[i]``) → gradients of the (N_i, C, *src_hws[i]) sources: one launch
+    for up to ``MAX_DESCS`` plane sets of one channel count on CUDA tensors
+    (views into one zeroed buffer), the plain version on CPU tensors."""
+    if gs[0].device.type == "cpu":
+        return scatter_multi_plain(xs, ys, gs, src_hws)
     if not len(xs) == len(ys) == len(gs) == len(src_hws):
         raise ValueError("scatter_multi takes one x, y, g and source size per plane set")
     for x, y, g in zip(xs, ys, gs):
@@ -310,21 +319,69 @@ def multi_params(xs: Sequence[torch.Tensor], ys: Sequence[torch.Tensor],
     return params, buf, results
 
 
-def scatter_multi(xs: Sequence[torch.Tensor], ys: Sequence[torch.Tensor],
-                  gs: Sequence[torch.Tensor],
-                  src_hws: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
-    """Cotangents ``gs[i]`` (N_i, C, h_i, w_i) of samples at (``xs[i]``,
-    ``ys[i]``) → gradients of the (N_i, C, *src_hws[i]) sources: one launch
-    for up to ``MAX_DESCS`` plane sets of one channel count on CUDA tensors
-    (views into one zeroed buffer), the plain version on CPU tensors."""
-    if gs[0].device.type == "cpu":
-        return scatter_multi_plain(xs, ys, gs, src_hws)
-    return _scatter_multi_cuda(xs, ys, gs, src_hws)
-
-
 def scatter(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
             h_src: int, w_src: int) -> torch.Tensor:
     """Cotangent g (N, C, h, w) of samples at (x, y) → gradient of the
     (N, C, h_src, w_src) source: the CUDA kernel for a CUDA tensor, the
     plain version for a CPU tensor."""
     return scatter_multi([x], [y], [g], [(h_src, w_src)])[0]
+
+
+class _SampleFullGradMulti(torch.autograd.Function):
+    """``apply(*srcs, *xs, *ys)`` → one output per plane set. Forward: one
+    launch of S with d/dx, d/dy; backward: one launch of T for the sources
+    that need a gradient, and the coordinate channel sums."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        k = len(args) // 3
+        srcs, xs, ys = args[:k], args[k:2 * k], args[2 * k:]
+        res = sampler.sample_multi(srcs, xs, ys, with_grad=True)
+        ctx.save_for_backward(*xs, *ys, *(r[1] for r in res), *(r[2] for r in res))
+        ctx.src_hws = [tuple(s.shape[2:]) for s in srcs]
+        return tuple(r[0] for r in res)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        k = len(gs)
+        saved = ctx.saved_tensors
+        xs, ys, dxs, dys = (saved[i * k:(i + 1) * k] for i in range(4))
+        d_srcs: List = [None] * k
+        need = [i for i in range(k) if ctx.needs_input_grad[i]]
+        if need:
+            got = scatter_multi([xs[i] for i in need], [ys[i] for i in need],
+                                [gs[i].contiguous() for i in need],
+                                [ctx.src_hws[i] for i in need])
+            for i, d in zip(need, got):
+                d_srcs[i] = d
+        gxs = [(g * dx).sum(1) for g, dx in zip(gs, dxs)]
+        gys = [(g * dy).sum(1) for g, dy in zip(gs, dys)]
+        return (*d_srcs, *gxs, *gys)
+
+
+def bilinear_sample_full_multi(srcs: Sequence[torch.Tensor], xs: Sequence[torch.Tensor],
+                               ys: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Full-gradient sampler over several plane sets in one launch each
+    way: ``srcs[i]`` (N_i, C, H_i, W_i) at ``xs[i]``, ``ys[i]`` (N_i, h_i,
+    w_i) → one (N_i, C, h_i, w_i) output per plane set, with gradients to
+    the sources and the coordinates."""
+    xs = [x.contiguous() for x in xs]
+    ys = [y.contiguous() for y in ys]
+    if build.needs_grad(*srcs, *xs, *ys):
+        return list(_SampleFullGradMulti.apply(*srcs, *xs, *ys))
+    return [r[0] for r in sampler.sample_multi(srcs, xs, ys, with_grad=False)]
+
+
+def bilinear_sample_full_planes(src: torch.Tensor, x: torch.Tensor,
+                                y: torch.Tensor) -> torch.Tensor:
+    """Full-gradient sampler on planes (source and coords gradients)."""
+    return bilinear_sample_full_multi([src], [x], [y])[0]
+
+
+def bilinear_sample_full(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """img (B, H, W, C), coords (B, h, w, 2) → (B, h, w, C); gradients
+    flow to ``img`` and ``coords``."""
+    out = bilinear_sample_full_planes(
+        img.permute(0, 3, 1, 2).contiguous(), coords[..., 0], coords[..., 1]
+    )
+    return out.permute(0, 2, 3, 1)

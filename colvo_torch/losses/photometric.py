@@ -1,12 +1,13 @@
 """Photometric loss + LCC calibration (port of ``colvo/losses/photometric.py``).
 
 * ``ssim`` / ``photometric_error``: ``α·(1−SSIM)/2 + (1−α)·L1`` with 3×3
-  SSIM windows, constants C1 = 0.01², C2 = 0.03².
+  SSIM windows, constants C1 = 0.01², C2 = 0.03² (``kernels/window.py``).
 * ``lcc_calibrate``: Light Consistent Calibration of the warped source to
   the target from windowed (and optionally per-frame global) statistics,
   with the coefficients clipped and stop-gradiented; see the JAX module for
   the rationale of each mode. Its windowed step (``affine``, ``gain``) is
   ``kernels.lcc_window``: kernel L on a card, the plain means on the CPU.
+* ``warp_photometric``: ``loss.fused_kernel``'s error of one source frame.
 
 Images are (B, H, W, C) as in the JAX package, or (..., H, W, C) with any
 leading dims that broadcast against each other (the batched photometric
@@ -19,49 +20,11 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 
-from colvo_torch.kernels import lcc_window
+from colvo_torch.kernels import bilinear_sample_planes, fused_error, lcc_window
+from colvo_torch.kernels.window import photometric_error, ssim
 
-
-def _box_sum(x: torch.Tensor, window: int) -> torch.Tensor:
-    """SAME-padded 2-D box sum over the H, W dims of a (..., H, W, C) tensor."""
-    lo = (window - 1) // 2
-    hi = window - 1 - lo
-    nchw = F.pad(x.reshape(-1, *x.shape[-3:]).permute(0, 3, 1, 2), (lo, hi, lo, hi))
-    out = F.avg_pool2d(nchw, window, 1, divisor_override=1).permute(0, 2, 3, 1)
-    return out.reshape(x.shape)
-
-
-def _avg_pool_same(x: torch.Tensor, window: int) -> torch.Tensor:
-    """Mean filter with SAME padding; border pixels divide by the true
-    window overlap."""
-    ones = torch.ones((1,) + x.shape[-3:-1] + (1,), dtype=x.dtype, device=x.device)
-    return _box_sum(x, window) / _box_sum(ones, window)
-
-
-def ssim(x: torch.Tensor, y: torch.Tensor, window: int = 3) -> torch.Tensor:
-    """Per-pixel SSIM over local windows; (B, H, W, C) in [−1, 1]."""
-    c1, c2 = 0.01**2, 0.03**2
-    mu_x = _avg_pool_same(x, window)
-    mu_y = _avg_pool_same(y, window)
-    sigma_x = _avg_pool_same(x * x, window) - mu_x * mu_x
-    sigma_y = _avg_pool_same(y * y, window) - mu_y * mu_y
-    sigma_xy = _avg_pool_same(x * y, window) - mu_x * mu_y
-    num = (2 * mu_x * mu_y + c1) * (2 * sigma_xy + c2)
-    den = (mu_x * mu_x + mu_y * mu_y + c1) * (sigma_x + sigma_y + c2)
-    return num / den
-
-
-def photometric_error(
-    pred: torch.Tensor, target: torch.Tensor, alpha: float = 0.85
-) -> torch.Tensor:
-    """``α·(1−SSIM)/2 + (1−α)·L1`` per pixel, mean over channels → (B, H, W)."""
-    l1 = torch.mean(torch.abs(pred - target), dim=-1)
-    if alpha == 0.0:
-        return l1
-    s = torch.mean(ssim(pred, target), dim=-1)
-    return alpha * 0.5 * (1.0 - s) + (1.0 - alpha) * l1
+__all__ = ["ssim", "photometric_error", "lcc_calibrate", "warp_photometric"]
 
 
 def lcc_calibrate(
@@ -109,3 +72,21 @@ def lcc_calibrate(
             return warped
         mode = rest
     return lcc_window(warped, target, window, clip, mode)
+
+
+def warp_photometric(src: torch.Tensor, tgt: torch.Tensor, x: torch.Tensor,
+                     y: torch.Tensor, lcc_mode: str, lcc_window: int,
+                     alpha: float) -> torch.Tensor:
+    """Per-pixel photometric error (N, h, w) of ``src`` (N, C, H, W) warped
+    to (x, y) against ``tgt`` (N, C, h, w); gradients flow to x and y only.
+    Mirrors ``colvo.kernels.warp_photometric_fast``: kernel F
+    (``kernels.fused_error``) where LCC is affine or off and α > 0, else the
+    composed sampler → ``lcc_calibrate`` → ``photometric_error``, whose LCC
+    pools no valid mask."""
+    if lcc_mode in ("affine", "off") and alpha > 0.0:
+        return fused_error(src, tgt, x, y, lcc_window if lcc_mode == "affine" else 0, alpha)
+    warped = bilinear_sample_planes(src, x, y).permute(0, 2, 3, 1)
+    tgt = tgt.permute(0, 2, 3, 1)
+    if lcc_mode != "off":
+        warped = lcc_calibrate(warped, tgt, lcc_mode, lcc_window)
+    return photometric_error(warped, tgt, alpha)

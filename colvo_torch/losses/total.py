@@ -51,9 +51,8 @@ from colvo_torch.kernels import (
     bilinear_sample_grouped_planes,
     bilinear_sample_planes,
     project_depth,
-    warp_photometric,
 )
-from colvo_torch.losses.photometric import lcc_calibrate, photometric_error
+from colvo_torch.losses.photometric import lcc_calibrate, photometric_error, warp_photometric
 from colvo_torch.losses.terms import LOCAL
 from colvo_torch.losses.terms import automask as automask_fn
 from colvo_torch.losses.terms import geometry_consistency, smoothness_loss

@@ -15,6 +15,7 @@ import torch
 from colvo_torch import kernels
 from colvo_torch.config import ColvoConfig
 from colvo_torch.kernels import fused_loss, sampler, scatter
+from colvo_torch.losses.photometric import warp_photometric
 from colvo_torch.models import ColVOModel
 from colvo_torch.runtime import InferenceRunner
 from colvo_torch.vo import StreamingVO
@@ -351,7 +352,7 @@ def test_fused_loss_autograd_goes_through_the_kernels(device):
     for dev in (device, torch.device("cpu")):
         tx = x.to(dev, copy=True).requires_grad_(True)
         ty = y.to(dev, copy=True).requires_grad_(True)
-        e = kernels.warp_photometric(src.to(dev), tgt.to(dev), tx, ty, "affine", 15, 0.85)
+        e = warp_photometric(src.to(dev), tgt.to(dev), tx, ty, "affine", 15, 0.85)
         torch.sum(torch.cos(4 * e)).backward()
         out[dev.type] = (e.detach().cpu(), tx.grad.cpu(), ty.grad.cpu())
     assert kernels.launch_counts() == {"F/fwd/C3": 1, "F/bwd/C3": 1}

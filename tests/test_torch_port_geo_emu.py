@@ -2,7 +2,7 @@
 on the CPU.
 
 Both sources are compiled with the host's C++ compiler against the CUDA
-shim of ``test_torch_port_fused_emu.py`` (a ``std::thread`` per CUDA
+shim of ``tests/cuda_emu.py`` (a ``std::thread`` per CUDA
 thread, barriers for ``__syncthreads`` and the warp reductions, atomic
 references for ``atomicAdd``, the blocks of a thread-block cluster at
 once) and against ``CLUSTER``, this file's version of the port's
@@ -22,18 +22,13 @@ ones take the device-memory path.
 """
 
 import ctypes
-import re
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
 import torch
 
-from colvo_torch.kernels import build, sampler, scatter
-from test_torch_port_fused_emu import SHIM
-
-LAUNCH = re.compile(r"([\w]+(?:<\w+>)?)<<<([^,]+),\s*([^,]+),\s*([^,]+),\s*[^>]+>>>\(")
+from colvo_torch.kernels import sampler, scatter
+from cuda_emu import SHIM, compile_source, workdir
 
 # csrc/cluster.cuh on the shim: a shared::cluster address is a byte pointer
 # into the target block's buffer.
@@ -74,35 +69,14 @@ int cluster_occupancy(void (*)(Args...), unsigned, size_t, unsigned, int* n) {
 SMALL = ("-DCOLVO_T_BAND_BYTES=1024", "-DCOLVO_T_SMEM_CAP=4096")
 
 
-def _compile(d, cxx, name, *flags):
-    src = (build.CSRC / f"{name}.cu").read_text()
-    src = src.replace("extern __shared__ float smem[];", "float* smem = block_smem;")
-    src = src.replace("extern __shared__ __align__(16) unsigned char smem[];",
-                      "unsigned char* smem = block_smem_bytes;")
-    src, n_launch = LAUNCH.subn(r"shim_launch(\1, \2, \3, \4, ", src)
-    assert n_launch >= 1
-    (d / f"{name}.cpp").write_text(src)
-    out = d / f"{name}{''.join(flags)}.so"
-    run = subprocess.run([cxx, "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC", "-w", *flags,
-                          f"-I{d}", f"-I{build.CSRC}", "-o", str(out), str(d / f"{name}.cpp")],
-                         capture_output=True, text=True)
-    assert run.returncode == 0, run.stderr[-4000:]
-    return ctypes.CDLL(str(out))
-
-
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
     """S; T as built for the card, forward and reversed; T with ``SMALL``
     sizes, forward and reversed."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("needs a C++20 compiler")
-    d = tmp_path_factory.mktemp("geo_emu")
-    (d / "cuda_runtime.h").write_text(SHIM)
-    (d / "cluster.cuh").write_text(CLUSTER)
-    s_lib = _compile(d, cxx, "sampler")
+    d, cxx = workdir(tmp_path_factory, "geo_emu", {"cuda_runtime.h": SHIM, "cluster.cuh": CLUSTER})
+    s_lib = compile_source(d, cxx, "sampler")
     s_lib.colvo_bilinear_sample_multi.argtypes = [sampler.GeoParams, ctypes.c_void_p]
-    t_libs = [scatter.bind(_compile(d, cxx, "scatter", *flags))
+    t_libs = [scatter.bind(compile_source(d, cxx, "scatter", *flags))
               for flags in ((), ("-DSHIM_REVERSE",), SMALL, (*SMALL, "-DSHIM_REVERSE"))]
     return (s_lib, *t_libs)
 

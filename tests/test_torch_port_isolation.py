@@ -51,12 +51,15 @@ def test_importing_every_module_loads_no_jax_or_colvo():
 
 
 def _imports(path: Path):
+    """Every module a source names in an import, at any depth; ``from a
+    import b`` gives ``a.b`` (b may be a module of package a)."""
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom):
-            yield "." * node.level + (node.module or "")
+            base = "." * node.level + (node.module or "")
+            yield from (base + ("." if node.module else "") + a.name for a in node.names)
         elif (isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(
                 node.func, "id", None)) in ("import_module", "__import__")
               and node.args and isinstance(node.args[0], ast.Constant)):
@@ -105,4 +108,35 @@ def test_the_scripts_load_neither_jax_nor_bench():
     assert [m for m in loaded if m.split(".")[0] in NOT_LOADED_BY_AN_IMPORT] == []
     for path in sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
         bad = [m for m in _imports(path) if m.split(".")[0] in ("bench", "scripts")]
+        assert bad == [], f"{path.relative_to(ROOT)} imports {bad}"
+
+
+# What a kernel module may import of the package: the kernel layer itself,
+# the configuration, the geometry (a leaf: it imports only torch), and the
+# span recorder for the launch counters. ``runtime.spans`` is the one
+# module of the runtime: ``colvo_torch.runtime`` imports the loop, which
+# imports the loss above this layer, so the recorder is imported inside
+# functions until it leaves the runtime package.
+KERNEL_LAYER = ("colvo_torch.kernels", "colvo_torch.config", "colvo_torch.geometry",
+                "colvo_torch.runtime.spans")
+
+
+@pytest.mark.parametrize("path", sorted((PACKAGE / "kernels").glob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_kernel_modules_import_nothing_above_them(path):
+    """Imports go one way, from the loss down to the kernels: no kernel
+    module imports a ``colvo_torch`` module outside ``KERNEL_LAYER``, at any
+    depth (imports inside functions count)."""
+    names = [m for m in _imports(path) if m.split(".")[0] == "colvo_torch"]
+    bad = [m for m in names if not any(m == ok or m.startswith(ok + ".") for ok in KERNEL_LAYER)]
+    assert bad == [], f"{path.relative_to(ROOT)} imports {bad}"
+    assert not any(m.startswith(".") for m in _imports(path)), "relative imports hide the layer"
+
+
+def test_the_geometry_below_the_kernels_imports_no_colvo_torch_module_above_it():
+    """``colvo_torch.geometry``, which the kernels' plain versions use,
+    imports only itself of the package."""
+    for path in sorted((PACKAGE / "geometry").glob("*.py")):
+        bad = [m for m in _imports(path)
+               if m.split(".")[0] == "colvo_torch" and not m.startswith("colvo_torch.geometry")]
         assert bad == [], f"{path.relative_to(ROOT)} imports {bad}"

@@ -22,7 +22,8 @@ from colvo.kernels.scatter import bilinear_sample_fullgrad
 from colvo.losses.photometric import lcc_calibrate as jax_lcc_calibrate
 from colvo.losses.photometric import photometric_error as jax_photometric_error
 from colvo_torch import kernels
-from colvo_torch.kernels import build, fused_loss, sampler, scatter
+from colvo_torch.kernels import build, fused_loss, lcc, project, sampler, scatter
+from colvo_torch.losses.photometric import warp_photometric
 
 torch.set_num_threads(2)
 
@@ -169,8 +170,8 @@ def _fused_port(src, tgt, coords, lcc_mode, window):
     """The port's warp_photometric on NHWC numpy inputs: (e, coords grad of
     Σcos(4e)) through the CPU path (plain forward, plain analytic backward)."""
     tc = _t(coords, True)
-    e = kernels.warp_photometric(_t(src).permute(0, 3, 1, 2), _t(tgt).permute(0, 3, 1, 2),
-                                 tc[..., 0], tc[..., 1], lcc_mode, window, 0.85)
+    e = warp_photometric(_t(src).permute(0, 3, 1, 2), _t(tgt).permute(0, 3, 1, 2),
+                         tc[..., 0], tc[..., 1], lcc_mode, window, 0.85)
     torch.sum(torch.cos(4 * e)).backward()
     return e.detach().numpy(), tc.grad.numpy()
 
@@ -258,8 +259,8 @@ def test_cpu_path_launches_no_kernel():
     kernels.bilinear_sample_fast(img, coords).sum().backward()
     planes = img.detach().permute(0, 3, 1, 2)
     kernels.bilinear_sample_grouped_planes(planes, coords[..., 0], coords[..., 1], 1).sum().backward()
-    kernels.warp_photometric(planes, planes, coords[..., 0], coords[..., 1], "affine", 15,
-                             0.85).sum().backward()
+    warp_photometric(planes, planes, coords[..., 0], coords[..., 1], "affine", 15,
+                     0.85).sum().backward()
     assert kernels.launch_counts() == {}
 
 
@@ -282,6 +283,15 @@ def test_non_cpu_tensors_never_take_the_plain_path():
         fused_loss.err(src, src, x, x, 15, 0.85)
     with pytest.raises(ValueError, match="CUDA"):
         fused_loss.err_bwd(src, src, x, x, x, 15, 0.85)
+    mats = (x, torch.empty((3, 3), device="meta"), torch.empty((3, 3), device="meta"),
+            torch.empty((2, 1, 4, 4), device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        project.project_depth(*mats)
+    with pytest.raises(ValueError, match="CUDA"):
+        project.forward(*mats)
+    frames = torch.empty((1, 4, 4, 3), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        lcc.lcc_window(frames, frames, 3)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

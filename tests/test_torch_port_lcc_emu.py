@@ -1,10 +1,10 @@
 """Kernel L's CUDA source (``csrc/lcc.cu``) on the CPU.
 
 The source is compiled with the host's C++ compiler against the CUDA shim
-of ``test_torch_port_fused_emu.py`` (a ``std::thread`` per CUDA thread,
-barriers for ``__syncthreads``, plain copies for ``cp.async``; the shim
-reports 4 SMs, so a frame splits into several row ranges), with a
-bfloat16 header of its own, and fed by the wrapper's own ``lcc.args``.
+of ``tests/cuda_emu.py`` (a ``std::thread`` per CUDA thread, barriers for
+``__syncthreads``, plain copies for ``cp.async``; the shim reports 4 SMs,
+so a frame splits into several row ranges), with its bfloat16 header
+(``BF16``), and fed by the wrapper's own ``lcc.args``.
 That runs the kernel's strip walk (the
 strips and their halo, the row ranges, the ring of rows, the vertical
 walkers' restarts and their kept sums, the horizontal segments, the
@@ -18,8 +18,6 @@ output is the same bits: no sum depends on the order in which the CTAs
 run, nor on the other images of the call.
 """
 
-import shutil
-
 import numpy as np
 import pytest
 import torch
@@ -27,29 +25,7 @@ import torch
 from colvo_torch import kernels
 from colvo_torch.kernels import lcc
 from colvo_torch.losses.photometric import lcc_calibrate
-from test_torch_port_fused_emu import CP_ASYNC, SHIM
-from test_torch_port_geo_emu import _compile
-
-# bfloat16 as CUDA's header gives it: the top 16 bits of a float, rounded
-# to nearest even from float.
-BF16 = r"""
-#pragma once
-#include <cstring>
-struct __nv_bfloat16 { unsigned short x; };
-inline float __bfloat162float(__nv_bfloat16 v) {
-  const unsigned u = static_cast<unsigned>(v.x) << 16;
-  float f;
-  std::memcpy(&f, &u, 4);
-  return f;
-}
-inline __nv_bfloat16 __float2bfloat16(float f) {
-  unsigned u;
-  std::memcpy(&u, &f, 4);
-  if ((u & 0x7fffffffu) > 0x7f800000u) return {static_cast<unsigned short>((u >> 16) | 0x40u)};
-  u += 0x7fffu + ((u >> 16) & 1u);
-  return {static_cast<unsigned short>(u >> 16)};
-}
-"""
+from cuda_emu import BF16, CP_ASYNC, SHIM, compile_source, workdir
 
 # The floor of the comparison with the float64 plain path: ŵ, a.
 FLOOR = (2e-6, 2e-5)
@@ -58,14 +34,10 @@ FLOOR = (2e-6, 2e-5)
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
     """L as built for the card, and with the blocks and threads reversed."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("needs a C++20 compiler")
-    d = tmp_path_factory.mktemp("lcc_emu")
-    (d / "cuda_runtime.h").write_text(SHIM)
-    (d / "cuda_bf16.h").write_text(BF16)
-    (d / "cp_async.cuh").write_text(CP_ASYNC)
-    return tuple(lcc.bind(_compile(d, cxx, "lcc", *flags)) for flags in ((), ("-DSHIM_REVERSE",)))
+    d, cxx = workdir(tmp_path_factory, "lcc_emu", {"cuda_runtime.h": SHIM, "cuda_bf16.h": BF16,
+                                                   "cp_async.cuh": CP_ASYNC})
+    return tuple(lcc.bind(compile_source(d, cxx, "lcc", *flags))
+                 for flags in ((), ("-DSHIM_REVERSE",)))
 
 
 def _frames(lead, h, w, c, seed, layout="nhwc", target_lead=None):

@@ -154,7 +154,7 @@ VARIANTS = {
     }},
     "batched_photo": {"loss": {"batched_photo": True}},
     "fused_kernel": {"loss": {"fused_kernel": True}},
-    # the composed path of warp_photometric: its LCC pools no valid mask
+    # the composed path of losses.photometric.warp_photometric: its LCC pools no valid mask
     "fused_kernel_global_lcc": {"loss": {"fused_kernel": True, "lcc_mode": "global+affine"}},
 }
 KNOB_VARIANTS = ("batched_photo", "fused_kernel", "fused_kernel_global_lcc")

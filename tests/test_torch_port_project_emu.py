@@ -1,7 +1,7 @@
 """Kernel P's CUDA source (``csrc/project.cu``) on the CPU.
 
 The source is compiled with the host's C++ compiler against the CUDA shim
-of ``test_torch_port_fused_emu.py`` (a ``std::thread`` per CUDA thread,
+of ``tests/cuda_emu.py`` (a ``std::thread`` per CUDA thread,
 barriers for ``__syncthreads`` and the warp shuffles), as
 ``test_torch_port_geo_emu.py`` does for S and T, and its entry points are
 fed by the wrapper's own ``project.mats``. That runs the kernels' indexing
@@ -17,27 +17,20 @@ and d_depth come out bit for bit the same: no sum depends on the order
 in which the CTAs run.
 """
 
-import shutil
-
 import numpy as np
 import pytest
 import torch
 
 from colvo_torch import kernels
 from colvo_torch.kernels import project
-from test_torch_port_fused_emu import SHIM
-from test_torch_port_geo_emu import _compile
+from cuda_emu import SHIM, compile_source, workdir
 
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
     """P as built for the card, and with the blocks and threads reversed."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("needs a C++20 compiler")
-    d = tmp_path_factory.mktemp("project_emu")
-    (d / "cuda_runtime.h").write_text(SHIM)
-    return tuple(project.bind(_compile(d, cxx, "project", *flags))
+    d, cxx = workdir(tmp_path_factory, "project_emu", {"cuda_runtime.h": SHIM})
+    return tuple(project.bind(compile_source(d, cxx, "project", *flags))
                  for flags in ((), ("-DSHIM_REVERSE",)))
 
 
