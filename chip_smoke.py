@@ -27,7 +27,11 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
    photometric shape against the plain path (its float32 and float64
    ``avg_pool2d`` means), in ``affine`` and ``gain`` and in bfloat16, twice
    bit for bit, timed (replayed, warm and cold, and eager) beside the plain
-   path. Every kernel's registers and spills come from the
+   path. Kernel E (the SSIM+L1 error, forward and the warp's cotangent) at
+   the photometric shape against the plain ``window.photometric_error``
+   and its autograd gradient in float32 and float64, in bfloat16, twice
+   bit for bit, timed (replayed, warm and cold, and eager) beside the
+   plain path. Every kernel's registers and spills come from the
    build's ``ptxas`` report; a spill fails the run.
 4. Slice phase, three times: ``ColvoConfig`` at full width (ResNet-18,
    B=12, 256×320, 3 frames, 4 scales, bf16 convs) by default, with
@@ -220,7 +224,7 @@ from colvo_torch.config import ColvoConfig  # noqa: E402
 from colvo_torch.geometry.ops import bilinear_taps  # noqa: E402
 from colvo_torch.data import batch_iterator, synthetic_dataset  # noqa: E402
 from colvo_torch.kernels import build, launch_counts, project_depth, reset_launch_counts  # noqa: E402
-from colvo_torch.kernels import fused_loss, lcc, project, sampler, scatter  # noqa: E402
+from colvo_torch.kernels import fused_loss, lcc, project, sampler, scatter, ssim, window  # noqa: E402
 from colvo_torch.losses.photometric import lcc_calibrate  # noqa: E402
 from colvo_torch.runtime import InferenceRunner, init_state, loss_fn, to_device, train_step  # noqa: E402
 from colvo_torch.runtime import graphs, spans  # noqa: E402
@@ -279,6 +283,16 @@ F_BWD_OPS = F_FWD_OPS + 4 + 30 + 12 + 12
 # plain path (ŵ, a), as tests/test_torch_port_lcc_emu.py's.
 L_OPS = 2 + 16 + 17
 LCC_FLOOR = (2e-6, 2e-5)
+# Kernel E: f32 operations a pixel and channel: forward the nine taps of
+# the five 3×3 sums (three products and five adds each, 72), the moments
+# (8), SSIM (12) and the L1 and channel sums (4); the backward recomputes
+# the moments (80), adds the window's terms (20) and the nine taps of the
+# transpose (seven each, 63) and dŵ (4). The floors of its comparison with
+# the float64 plain path (e, the warp's cotangent, of the largest
+# magnitude), as tests/test_torch_port_ssim_emu.py's.
+E_FWD_OPS = 72 + 8 + 12 + 4
+E_BWD_OPS = 80 + 20 + 63 + 4
+SSIM_FLOOR = (1e-6, 1e-5)
 
 
 def log(msg: str) -> None:
@@ -391,8 +405,9 @@ def _norm_grid(x, y, h, w):
 
 def kernel_phase(device, photo=PHOTO, geo_n=GEO_N, geo_scales=GEO_SCALES, group=GROUP,
                  timed=True):
-    """Hold S, T, F, P and L against their plain versions; returns the
-    kernel rows (without launch counts) keyed P1..P8, P/fwd, P/bwd and L."""
+    """Hold S, T, F, P, L and E against their plain versions; returns the
+    kernel rows (without launch counts) keyed P1..P8, P/fwd, P/bwd, L,
+    E/fwd and E/bwd."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cpu").manual_seed(0)
@@ -439,6 +454,7 @@ def kernel_phase(device, photo=PHOTO, geo_n=GEO_N, geo_scales=GEO_SCALES, group=
     rows.update(fused_rows(device, gen, photo, timer, eager, cold))
     rows.update(project_rows(device, gen, geo_scales, timer, eager, cold))
     rows.update(lcc_rows(device, gen, photo, timer, eager, cold))
+    rows.update(ssim_rows(device, gen, photo, timer, eager, cold))
     torch.backends.cudnn.allow_tf32 = True
     return rows
 
@@ -857,6 +873,86 @@ def lcc_rows(device, gen, photo, timer, eager, cold):
     return {"L": row}
 
 
+def ssim_forward_plain(pred, target, alpha):
+    """``ssim.forward`` by its plain version, in E's arithmetic: float32,
+    stored in the frames' dtype."""
+    return window.photometric_error(pred.float(), target.float(), alpha).to(pred.dtype)
+
+
+def ssim_rows(device, gen, photo, timer, eager, cold):
+    """E/fwd, E/bwd: the SSIM+L1 error and the warp's cotangent at the
+    photometric shape (L's inputs: a permuted plane stack against an
+    interleaved target) against the plain ``window.photometric_error`` and
+    its autograd gradient: no farther from the float64 plain path than
+    twice the float32 plain path's distance plus ``SSIM_FLOOR`` of the
+    largest magnitude; bfloat16 within that plus one bfloat16 unit in the
+    last place; two calls bit for bit. Timed (replayed, warm and cold, and
+    eager through the wrapper) beside the plain path, whose ``avg_pool2d``
+    means are the nearest PyTorch."""
+    warp, target = lcc_inputs(gen, photo, device)
+    g = torch.randn(warp.shape[:-1], generator=gen).to(device)
+
+    def both(w, t, gg):
+        return ssim.forward(w, t, ALPHA), ssim.backward(w, t, gg, ALPHA)
+
+    def plain(w, t, gg, dtype):
+        w, t, gg = w.to(dtype), t.to(dtype), gg.to(dtype)
+        return (window.photometric_error(w, t, ALPHA), ssim.backward_plain(w, t, gg, ALPHA))
+
+    def gap(got, want):
+        return (got.double() - want.double()).abs().max().item()
+
+    got = both(warp, target, g)
+    want64, want32 = plain(warp, target, g, torch.float64), plain(warp, target, g, torch.float32)
+    gaps = [(gap(k, w64), gap(w32, w64), f * w64.abs().max().item())
+            for k, w64, w32, f in zip(got, want64, want32, SSIM_FLOOR)]
+    log(f"E at {tuple(warp.shape)}: off the float64 plain path e {gaps[0][0]:.3g} (plain "
+        f"float32 {gaps[0][1]:.3g}), the warp's cotangent {gaps[1][0]:.3g} ({gaps[1][1]:.3g})")
+    check(all(k <= 2 * p + f for k, p, f in gaps), "E vs the plain path")
+    check(all(bool(torch.isfinite(x).all()) for x in got), "E finite")
+    check(got[1].stride() == warp.stride(), "E: the cotangent in the warp's layout")
+    again = both(warp, target, g)
+    check(all(same_bits(a, b) for a, b in zip(got, again)), "E: the same bits twice")
+    wb, tb, gb = warp.to(torch.bfloat16), target.to(torch.bfloat16), g.to(torch.bfloat16)
+    for x, w64, w32 in zip(both(wb, tb, gb), plain(wb, tb, gb, torch.float64),
+                           plain(wb, tb, gb, torch.float32)):
+        check(bool(((x.double() - w64).abs() <= 2 * gap(w32, w64) + 2.0**-7 * w64.abs()).all()),
+              "E bfloat16 within one unit in the last place of its float32 arithmetic")
+    x_req = warp.clone().requires_grad_()
+
+    def grad_of(fn):
+        return lambda: torch.autograd.grad(fn(x_req, target, ALPHA), x_req, g)
+
+    px, c = warp[..., 0].numel(), warp.shape[-1]
+    fwd = lambda: ssim.forward(warp, target, ALPHA)  # noqa: E731
+    bwd = lambda: ssim.backward(warp, target, g, ALPHA)  # noqa: E731
+    rows = {}
+    for key, fn, eager_fn, plain_fn, n_bytes, ops, kernel in (
+            ("E/fwd", fwd, lambda: ssim.ssim_error(warp, target, ALPHA),
+             lambda: window.photometric_error(warp, target, ALPHA), 4 * px * (2 * c + 1),
+             px * c * E_FWD_OPS, "ssim_err_fwd_kernelIfLi3E"),
+            ("E/bwd", bwd, grad_of(ssim.ssim_error), grad_of(window.photometric_error),
+             4 * px * (3 * c + 1), px * c * E_BWD_OPS, "ssim_err_bwd_kernelIfLi3E")):
+        rows[key] = dict(
+            max_abs_err=gaps[key == "E/bwd"][0], ms=timer(fn), cold_ms=cold(fn),
+            eager_ms=eager(eager_fn), plain_ms=timer(plain_fn), library_ms=None,
+            bound=bound(n_bytes, ops), registers=ptxas_entry("ssim", kernel)[0],
+            smem_bytes=ssim.smem_bytes(c, key == "E/bwd"),
+        )
+    bf16_ms = timer(lambda: ssim.forward(wb, tb, ALPHA))
+    log(f"E at {tuple(warp.shape)}: forward {rows['E/fwd']['ms']:.4f} ms (cold "
+        f"{rows['E/fwd']['cold_ms']:.4f}, eager {rows['E/fwd']['eager_ms']:.4f}, bfloat16 "
+        f"{bf16_ms:.4f}; plain {rows['E/fwd']['plain_ms']:.4f}), backward "
+        f"{rows['E/bwd']['ms']:.4f} ms (cold {rows['E/bwd']['cold_ms']:.4f}; eager forward + "
+        f"backward {rows['E/bwd']['eager_ms']:.4f}, plain {rows['E/bwd']['plain_ms']:.4f}); "
+        f"bounds {rows['E/fwd']['bound'][0]:.4f} and {rows['E/bwd']['bound'][0]:.4f} ms; "
+        f"registers {rows['E/fwd']['registers']} and {rows['E/bwd']['registers']}, shared "
+        f"memory {rows['E/fwd']['smem_bytes']} and {rows['E/bwd']['smem_bytes']} B a CTA; a "
+        f"default step's 10 forwards and 8 backwards: "
+        f"{10 * rows['E/fwd']['ms'] + 8 * rows['E/bwd']['ms']:.4f} ms")
+    return rows
+
+
 def kernel_ptxas() -> None:
     """Logs every kernel's registers and stack frame from the builds'
     ``ptxas -v`` reports, and fails if any kernel spills. A stack frame
@@ -919,7 +1015,12 @@ def expected_launches(cfg: ColvoConfig, n_steps: int) -> dict:
     computes LCC itself (``loss.fused_kernel`` with ``affine``), twice in a
     training step under ``loss.photo_remat`` (its recomputation in the
     backward); and under ``loss.lcc_identity`` once for each automask
-    identity source."""
+    identity source. Kernel E computes the SSIM+L1 error of each
+    photometric term that F does not (``E/fwd/C3``; the whole stack once
+    under ``loss.batched_photo``; twice in a training step under
+    ``loss.photo_remat``) with its backward (``E/bwd/C3``), and under
+    ``loss.automask`` each identity error (at each scale under
+    ``loss.photo_native``) without one."""
     n_scales, n_sources = cfg.model.n_scales, len(cfg.data.frame_offsets)
     pairs = n_scales * n_sources
     grids = n_scales
@@ -939,14 +1040,17 @@ def expected_launches(cfg: ColvoConfig, n_steps: int) -> dict:
         counts.update({f"S/grad/C3/g{n_scales}": n_steps, f"S/value/C3/g{n_scales}": 1})
     else:
         counts.update({"S/grad/C3": pairs * n_steps, "S/value/C3": pairs})
+    mode = cfg.loss.lcc_mode if cfg.loss.lcc else "off"
+    by_f = cfg.loss.fused_kernel and mode in ("affine", "off") and cfg.loss.ssim_alpha > 0
+    terms = 0 if by_f else (1 if cfg.loss.batched_photo else pairs)
+    per_step = terms * (2 if cfg.loss.photo_remat else 1)
+    idents = n_sources * (n_scales if cfg.loss.photo_native else 1) * cfg.loss.automask
+    counts["E/fwd/C3"] = per_step * n_steps + terms + idents * (n_steps + 1)
+    counts["E/bwd/C3"] = terms * n_steps
     key = lcc_key(cfg)
     if key:
-        fused = cfg.loss.fused_kernel and cfg.loss.lcc_mode == "affine" and cfg.loss.ssim_alpha > 0
-        terms = 0 if fused else (1 if cfg.loss.batched_photo else pairs)
-        per_step = terms * (2 if cfg.loss.photo_remat else 1)
-        idents = n_sources * (n_scales if cfg.loss.photo_native else 1)
-        idents *= cfg.loss.lcc_identity and cfg.loss.automask
-        counts[key] = per_step * n_steps + terms + idents * (n_steps + 1)
+        lcc_idents = idents * cfg.loss.lcc_identity
+        counts[key] = per_step * n_steps + terms + lcc_idents * (n_steps + 1)
     return {k: v for k, v in counts.items() if v}
 
 
@@ -960,12 +1064,14 @@ def lcc_key(cfg: ColvoConfig):
 
 def eval_hook_launches(cfg: ColvoConfig, calls: int) -> dict:
     """The launches of ``calls`` calls of the training eval hook on one
-    model: its forward calibrates each source's warp by L (once a source a
-    call; its captured program's warm-up counts as a call)."""
-    key = lcc_key(cfg)
-    if not (key and calls):
+    model: its forward calibrates each source's warp by L and computes its
+    error and its identity error by E (once, and twice, a source a call;
+    its captured program's warm-up counts as a call)."""
+    if not calls:
         return {}
-    return {key: len(cfg.data.frame_offsets) * (STEP_WARMUP + calls)}
+    n = len(cfg.data.frame_offsets) * (STEP_WARMUP + calls)
+    key = lcc_key(cfg)
+    return {"E/fwd/C3": 2 * n, **({key: n} if key else {})}
 
 
 def slice_phase(cfg: ColvoConfig, device, batches, n_steps: int = TRAIN_STEPS,
@@ -993,7 +1099,8 @@ def slice_phase(cfg: ColvoConfig, device, batches, n_steps: int = TRAIN_STEPS,
             mock.patch.object(fused_loss, "err", fused_loss.err_plain), \
             mock.patch.object(fused_loss, "err_bwd", fused_loss.err_bwd_plain), \
             mock.patch.object(project, "forward", project.project_plain), \
-            mock.patch.object(lcc, "forward", lcc_forward_plain):
+            mock.patch.object(lcc, "forward", lcc_forward_plain), \
+            mock.patch.object(ssim, "forward", ssim_forward_plain):
         _, ref_aux = loss_fn(state.model, batches[0], cfg)
     ref_aux = {k: v.item() for k, v in ref_aux.items()}
 
@@ -1554,6 +1661,7 @@ BUCKETS = (
     ("T (bilinear_scatter)", ("bilinear_scatter",)),
     ("P (project_depth)", ("project_depth",)),
     ("L (lcc_window)", ("lcc_window",)),
+    ("E (ssim_err)", ("ssim_err",)),
     ("conv / gemm", ("conv", "gemm", "xmma", "cutlass", "sm90", "wgrad", "dgrad", "fprop")),
     ("norm", ("norm",)),
     ("pooling", ("pool",)),
@@ -2829,12 +2937,13 @@ REFINE_ITERS, REFINE_BATCH = 40, 64  # refine_keyframe_poses' defaults
 def refine_launches(calls: int) -> dict:
     """The launches of ``calls`` calls of the refinement's program (a call a
     batch, and its warm-up): each Adam iteration's warp with d/dx, d/dy (S)
-    and its ``global+affine`` LCC's windowed step (L), and the depth warp;
-    then twice the value-only warps and L for the keep-or-reject
-    residuals."""
+    and its ``global+affine`` LCC's windowed step (L), its SSIM+L1 error
+    with its backward (E), and the depth warp; then twice the value-only
+    warps, L and E's forward for the keep-or-reject residuals."""
     return {"S/grad/C3": REFINE_ITERS * calls, "S/grad/C1": REFINE_ITERS * calls,
             "S/value/C3": 2 * calls, "S/value/C1": 2 * calls,
-            "L/affine": (REFINE_ITERS + 2) * calls}
+            "L/affine": (REFINE_ITERS + 2) * calls, "E/fwd/C3": (REFINE_ITERS + 2) * calls,
+            "E/bwd/C3": REFINE_ITERS * calls}
 TOL_REFINE_POSE = 1e-4  # refined poses, kernel S against the plain sampler (the CPU test's)
 REFINE_SHORT = 4  # iterations of the refinement held to TOL_REFINE_POSE (the CPU test's)
 
@@ -4077,8 +4186,9 @@ def studies_phase(device, smi: str, root: str, out: str) -> None:
 
 DRIFT_FRAMES = 98  # 97 pairs: three batches of 32 and one padded (600 frames uncut)
 # 2 arms × 2 sources, one warp of 31 frames each; L: each warp's and each
-# calibrated identity's global+affine LCC
-EXPJIT_MECHANISM_LAUNCHES = {"S/value/C3": 4, "L/affine": 8}
+# calibrated identity's global+affine LCC; E: each warp's error and each
+# identity's, raw and calibrated
+EXPJIT_MECHANISM_LAUNCHES = {"S/value/C3": 4, "L/affine": 8, "E/fwd/C3": 12}
 
 
 def analysis_with_peaks(device, root: str, out_dir: str) -> tuple:
@@ -4277,6 +4387,10 @@ KERNELS = (
      "none: XLA's in the JAX package", "P/bwd"),
     ("L", "lcc_window[affine,C=3,L=15,12x256x320]", "colvo_torch/kernels/csrc/lcc.cu",
      "none: XLA's reduce_window in the JAX package", "L/affine"),
+    ("E/fwd", "ssim_err[fwd,C=3,12x256x320]", "colvo_torch/kernels/csrc/ssim.cu",
+     "none: XLA's reduce_window in the JAX package", "E/fwd/C3"),
+    ("E/bwd", "ssim_err[bwd,C=3,12x256x320]", "colvo_torch/kernels/csrc/ssim.cu",
+     "none: XLA's reduce_window in the JAX package", "E/bwd/C3"),
 )
 
 # The configurations the slice phase trains: the default path, and the two

@@ -1,11 +1,11 @@
 """Hand-written CUDA kernels under the training loss (``colvo/kernels``'
 ports) and their plain PyTorch versions, a module a kernel: ``sampler``
 (S), ``scatter`` (T), ``project`` (P), ``fused_loss`` (F), ``lcc`` (L),
-``attention``; ``window`` holds the plain windowed statistics, ``build``
-what the wrappers share. Each module chooses in one place by the tensor's
-device (CUDA: the kernel; CPU: the plain version) and imports nothing of
-``colvo_torch`` above this package, which the loss imports (but the span
-recorder of the launch counters, inside functions).
+``ssim`` (E), ``attention``; ``window`` holds the plain windowed
+statistics, ``build`` what the wrappers share. Each module chooses in one
+place by the tensor's device (CUDA: the kernel; CPU: the plain version)
+and imports nothing of ``colvo_torch`` above this package, which the loss
+imports (but the span recorder of the launch counters, inside functions).
 """
 
 from __future__ import annotations
@@ -27,15 +27,16 @@ from colvo_torch.kernels.scatter import (
     bilinear_sample_full_multi,
     bilinear_sample_full_planes,
 )
+from colvo_torch.kernels.ssim import ssim_error
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last reset: ``S/grad/C3``,
     ``S/grad/C3/g4``, ``S/value/C1``, ``T/C1``, ``F/fwd/C3``, ``F/bwd/C3``,
-    ``P/fwd``, ``P/bwd``, ``L/affine``, ``attn/fwd``, ... (only CUDA
-    launches count; the plain versions do not). They are the counters
-    ``launch.<key>`` of ``runtime.spans``, which count whether it records
-    or not (``spans.tally``)."""
+    ``P/fwd``, ``P/bwd``, ``L/affine``, ``E/fwd/C3``, ``E/bwd/C3``,
+    ``attn/fwd``, ... (only CUDA launches count; the plain versions do
+    not). They are the counters ``launch.<key>`` of ``runtime.spans``,
+    which count whether it records or not (``spans.tally``)."""
     from colvo_torch.runtime import spans  # the runtime package imports this one
 
     return {k[len(build.LAUNCH):]: v for k, v in spans.counters(build.LAUNCH).items()}
@@ -69,6 +70,7 @@ __all__ = [
     "fused_error",
     "project_depth",
     "lcc_window",
+    "ssim_error",
     "launch_counts",
     "reset_launch_counts",
     "add_launch_counts",

@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("sampler", "scatter", "fused_loss", "project", "lcc")
+SOURCES = ("sampler", "scatter", "fused_loss", "project", "lcc", "ssim")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -56,6 +56,21 @@ def empty(numel: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     writes or zeroes whole, where a fill would be a wasted pass over it."""
     storage = torch.UntypedStorage(numel * dtype.itemsize, device=device)
     return torch.empty(0, dtype=dtype, device=device).set_(storage, 0, (numel,), (1,))
+
+
+def like(x: torch.Tensor, shape: torch.Size) -> torch.Tensor:
+    """An unfilled tensor of ``shape`` and x's dtype and device: in x's
+    layout where x is dense with that shape (a permuted plane stack stays
+    one), else contiguous."""
+    order = sorted(range(x.dim()), key=lambda d: -x.stride(d))
+    dense, step = x.shape == shape, 1
+    for d in reversed(order):
+        dense = dense and (x.shape[d] == 1 or x.stride(d) == step)
+        step *= x.shape[d]
+    if not dense:
+        order = list(range(len(shape)))
+    buf = empty(shape.numel(), x.dtype, x.device).view([shape[d] for d in order])
+    return buf.permute([order.index(d) for d in range(len(shape))])
 
 
 def _nvcc() -> str:

@@ -89,20 +89,6 @@ def window_plain(warped: torch.Tensor, target: torch.Tensor, window: int,
     return a.detach() * warped + b.detach()
 
 
-def _like(x: torch.Tensor, shape: torch.Size) -> torch.Tensor:
-    """An unfilled tensor of ``shape`` and x's dtype and device: in x's
-    layout where x is dense with that shape, else contiguous."""
-    order = sorted(range(x.dim()), key=lambda d: -x.stride(d))
-    dense, step = x.shape == shape, 1
-    for d in reversed(order):
-        dense = dense and (x.shape[d] == 1 or x.stride(d) == step)
-        step *= x.shape[d]
-    if not dense:
-        order = list(range(len(shape)))
-    buf = build.empty(shape.numel(), x.dtype, x.device).view([shape[d] for d in order])
-    return buf.permute([order.index(d) for d in range(len(shape))])
-
-
 def args(warped: torch.Tensor, target: torch.Tensor, out: torch.Tensor,
          a: Optional[torch.Tensor], window: int, clip: Sequence[float], mode: str) -> LccArgs:
     """The ``LccArgs`` of one call writing ŵ to ``out`` (and a to ``a``,
@@ -160,8 +146,8 @@ def forward(warped: torch.Tensor, target: torch.Tensor, window: int, clip: Seque
     ``with_a``). Other tensors, and a window that cannot fit shared
     memory, raise."""
     shape = _check(warped, target, window, mode)
-    out = _like(warped, shape)
-    a = _like(warped, shape) if with_a else None
+    out = build.like(warped, shape)
+    a = build.like(warped, shape) if with_a else None
     p = args(warped, target, out, a, window, clip, mode)
     stream = torch.cuda.current_stream(warped.device).cuda_stream
     with torch.cuda.device(warped.device):

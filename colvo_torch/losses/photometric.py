@@ -2,6 +2,8 @@
 
 * ``ssim`` / ``photometric_error``: ``α·(1−SSIM)/2 + (1−α)·L1`` with 3×3
   SSIM windows, constants C1 = 0.01², C2 = 0.03² (``kernels/window.py``).
+  ``photometric_error`` is ``kernels.ssim_error``: kernel E on a card, the
+  plain ``window.photometric_error`` on the CPU.
 * ``lcc_calibrate``: Light Consistent Calibration of the warped source to
   the target from windowed (and optionally per-frame global) statistics,
   with the coefficients clipped and stop-gradiented; see the JAX module for
@@ -22,7 +24,8 @@ from typing import Tuple
 import torch
 
 from colvo_torch.kernels import bilinear_sample_planes, fused_error, lcc_window
-from colvo_torch.kernels.window import photometric_error, ssim
+from colvo_torch.kernels import ssim_error as photometric_error
+from colvo_torch.kernels.window import ssim
 
 __all__ = ["ssim", "photometric_error", "lcc_calibrate", "warp_photometric"]
 

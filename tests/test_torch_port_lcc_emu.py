@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from colvo_torch import kernels
-from colvo_torch.kernels import lcc
+from colvo_torch.kernels import build, lcc
 from colvo_torch.losses.photometric import lcc_calibrate
 from cuda_emu import BF16, CP_ASYNC, SHIM, compile_source, workdir
 
@@ -69,7 +69,7 @@ def _run(lib, warped, target, window, mode, clip=(0.5, 2.0)):
     """ŵ and a through ``lib``'s entry point, into buffers of NaN in the
     layout the wrapper gives them."""
     shape = torch.broadcast_shapes(warped.shape, target.shape)
-    out, a = lcc._like(warped, shape).fill_(float("nan")), lcc._like(warped, shape)
+    out, a = build.like(warped, shape).fill_(float("nan")), build.like(warped, shape)
     a.fill_(float("nan"))
     p = lcc.args(warped, target, out, a, window, clip, mode)
     bf16 = int(warped.dtype == torch.bfloat16)
@@ -182,7 +182,7 @@ def test_lcc_source_refuses_a_window_that_cannot_fit(libs):
     """A window whose strip cannot fit shared memory at the narrowest strip
     is refused at launch, not run."""
     warped, target = _frames((1,), 20, 20, 3, 1)
-    out, a = lcc._like(warped, warped.shape), lcc._like(warped, warped.shape)
+    out, a = build.like(warped, warped.shape), build.like(warped, warped.shape)
     p = lcc.args(warped, target, out, a, 301, (0.5, 2.0), "affine")
     assert libs[0].colvo_lcc_window(p, 1, 0, None) != 0
 
