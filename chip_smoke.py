@@ -31,7 +31,11 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
    the photometric shape against the plain ``window.photometric_error``
    and its autograd gradient in float32 and float64, in bfloat16, twice
    bit for bit, timed (replayed, warm and cold, and eager) beside the
-   plain path. Every kernel's registers and spills come from the
+   plain path. Kernel FA (MPViT's factorized attention, forward and
+   backward) at MPViT-Small's four stage shapes over 36 frames, each output
+   part against the plain op in float64, twice bit for bit, timed
+   (replayed, warm and cold, and eager) beside the plain op; its rows are
+   a default step's 38 calls each way. Every kernel's registers and spills come from the
    build's ``ptxas`` report; a spill fails the run.
 4. Slice phase, three times: ``ColvoConfig`` at full width (ResNet-18,
    B=12, 256×320, 3 frames, 4 scales, bf16 convs) by default, with
@@ -44,6 +48,11 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
    same weights and batch, and with the default path's step 1. One more
    step runs under ``torch.profiler``: device time by kernel and by
    bucket, the device's busy share, peak memory.
+   MPViT phase: a default step of ``model.depth_net="mpvit_s"`` with the
+   launch counters reset just before it (38 ``FA/fwd``, 38 ``FA/bwd``),
+   then one more step of it and one of the ResNet under the profiler: the
+   kernels of MPViT's depthwise convolutions, and none of another op's,
+   are those the benchmark's ``dwconv_ms.mpvit`` counts.
    Knob phase: the off-default training configurations (``KNOB_PATHS``:
    each of the seven loss protocols alone, ``photo_native`` with
    ``fused_kernel``, ``batched_photo`` with bf16 planes, ``model.remat``,
@@ -224,6 +233,8 @@ from colvo_torch.config import ColvoConfig  # noqa: E402
 from colvo_torch.geometry.ops import bilinear_taps  # noqa: E402
 from colvo_torch.data import batch_iterator, synthetic_dataset  # noqa: E402
 from colvo_torch.kernels import build, launch_counts, project_depth, reset_launch_counts  # noqa: E402
+from colvo_torch.kernels.factor_attention import (  # noqa: E402
+    backward as fa_backward, factor_attention, factor_attention_plain, forward as fa_forward)
 from colvo_torch.kernels import fused_loss, lcc, project, sampler, scatter, ssim, window  # noqa: E402
 from colvo_torch.losses.photometric import lcc_calibrate  # noqa: E402
 from colvo_torch.runtime import InferenceRunner, init_state, loss_fn, to_device, train_step  # noqa: E402
@@ -293,6 +304,24 @@ LCC_FLOOR = (2e-6, 2e-5)
 E_FWD_OPS = 72 + 8 + 12 + 4
 E_BWD_OPS = 80 + 20 + 63 + 4
 SSIM_FLOOR = (1e-6, 1e-5)
+# Kernel FA at MPViT-Small's four stages at 256×320 over a default step's
+# B·3 = 36 frames, 8 heads: (tokens, width, path-layers a step), so d = 8,
+# 16, 27 and 36 and 2·1 + 3·3 + 3·6 + 3·3 = 38 calls each way. Bytes an
+# (F, N, C) element a call moves once in bfloat16: the forward reads q, k,
+# v and cv and writes out; the backward reads q, k, v, g and cv and writes
+# dq, dk, dv and dcv. f32 operations an element: forward the column max,
+# exp and sum (4), Pᵀv (2d) and q·KV with the scale and q ∘ cv (2d + 3);
+# backward qᵀg (2d), P again (3), dq (2d + 3), dv (2d), dk (2d + 2) and dcv
+# (1). Each output part (out, dq, dk, dv, dcv) is held to TOL_FA of its own
+# largest magnitude against float64 on the same bfloat16 inputs: the
+# bfloat16 store's rounding (2⁻⁹ of an element) twice over for the float32
+# sums of up to 5,120 terms before it.
+FA_HEADS, FA_FRAMES = 8, 36
+FA_STAGES = ((5120, 64, 2), (1280, 128, 9), (320, 216, 18), (80, 288, 9))
+FA_FWD_BYTES, FA_BWD_BYTES = 5 * 2, 9 * 2
+FA_FWD_OPS = lambda d: 4 * d + 7  # noqa: E731
+FA_BWD_OPS = lambda d: 8 * d + 9  # noqa: E731
+TOL_FA = 2 * 2.0**-8
 
 
 def log(msg: str) -> None:
@@ -455,6 +484,7 @@ def kernel_phase(device, photo=PHOTO, geo_n=GEO_N, geo_scales=GEO_SCALES, group=
     rows.update(project_rows(device, gen, geo_scales, timer, eager, cold))
     rows.update(lcc_rows(device, gen, photo, timer, eager, cold))
     rows.update(ssim_rows(device, gen, photo, timer, eager, cold))
+    rows.update(fa_rows(device, timer, eager, cold, timed))
     torch.backends.cudnn.allow_tf32 = True
     return rows
 
@@ -950,6 +980,103 @@ def ssim_rows(device, gen, photo, timer, eager, cold):
         f"memory {rows['E/fwd']['smem_bytes']} and {rows['E/bwd']['smem_bytes']} B a CTA; a "
         f"default step's 10 forwards and 8 backwards: "
         f"{10 * rows['E/fwd']['ms'] + 8 * rows['E/bwd']['ms']:.4f} ms")
+    return rows
+
+
+def fa_inputs(device, n: int, c: int, seed: int) -> tuple:
+    """qkv (F, N, 3·C), cv and a cotangent g (F, N, C), bfloat16, with k
+    three times wider than q and v: a peaked softmax over the tokens."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    qkv = torch.randn(FA_FRAMES, n, 3 * c, generator=gen)
+    qkv[..., c:2 * c] *= 3.0
+    cv, g = (torch.randn(FA_FRAMES, n, c, generator=gen) for _ in range(2))
+    return tuple(x.to(device, torch.bfloat16) for x in (qkv, cv, g))
+
+
+def fa_parity(qkv, cv, g) -> dict:
+    """Each output part of FA (forward and backward through the wrapper)
+    against the plain op and its autograd gradient in float64 on the same
+    inputs: {part: (gap, largest magnitude)}; checks the bits of a second
+    call."""
+    def run(fn, dtype):
+        a, b = qkv.to(dtype).requires_grad_(True), cv.to(dtype).requires_grad_(True)
+        out = fn(a, b, FA_HEADS)
+        da, db = torch.autograd.grad(out, (a, b), g.to(dtype))
+        f, n, c3 = da.shape
+        return (out.detach(), *da.view(f, n, 3, c3 // 3).unbind(2), db)
+
+    got = run(factor_attention, torch.bfloat16)
+    again = run(factor_attention, torch.bfloat16)
+    check(all(same_bits(a, b) for a, b in zip(got, again)), "FA: the same bits twice")
+    check(all(bool(torch.isfinite(x).all()) for x in got), "FA finite")
+    want = run(factor_attention_plain, torch.float64)
+    return {part: ((x.double() - y).abs().max().item(), y.abs().max().item())
+            for part, x, y in zip(("out", "dq", "dk", "dv", "dcv"), got, want)}
+
+
+PLAIN_OF = {"FA/fwd": "forward", "FA/bwd": "forward + backward"}
+
+
+def fa_rows(device, timer, eager, cold, timed=True):
+    """FA/fwd, FA/bwd: kernel FA at MPViT-Small's four stage shapes (36
+    frames, 8 heads), each output part (out; dq, dk, dv, dcv) against the
+    plain op in float64 within ``TOL_FA`` of the part's largest magnitude,
+    two calls bit for bit. Each shape timed forward and backward (replayed,
+    warm and cold, and eager through the wrapper) beside the plain op (its
+    forward replayed; its forward + backward by the device time of its
+    kernels under the profiler, since its autograd backward does not
+    capture: it makes the legacy stream wait on the capturing one); the
+    rows are a default step's 38 forwards and 38 backwards, summed over the
+    stages by their path-layers."""
+    rows = {key: dict(max_abs_err=0.0, ms=0.0, cold_ms=0.0, eager_ms=0.0, plain_ms=0.0,
+                      library_ms=None, bound=(0.0, "bytes"))
+            for key in ("FA/fwd", "FA/bwd")}
+    plain = factor_attention_plain
+    profiled = (lambda fn: busy_share(fn)[0]) if timed else timer
+    for n, c, calls in FA_STAGES:
+        qkv, cv, g = fa_inputs(device, n, c, seed=n + c)
+        gaps = fa_parity(qkv, cv, g)
+        log(f"FA {FA_FRAMES}x{n}x{c} (d {c // FA_HEADS}): off float64, of each part's largest "
+            "magnitude: " + ", ".join(f"{k} {gap / top:.3g}" for k, (gap, top) in gaps.items()))
+        check(all(gap <= TOL_FA * top for gap, top in gaps.values()),
+              f"FA vs the float64 plain op at {FA_FRAMES}x{n}x{c}")
+        _, stats = fa_forward(qkv, cv, FA_HEADS)
+        a, b = qkv.clone().requires_grad_(True), cv.clone().requires_grad_(True)
+
+        def grad_of(fn):
+            return lambda: torch.autograd.grad(fn(a, b, FA_HEADS), (a, b), g)
+
+        elems, d = qkv.numel() // 3, c // FA_HEADS
+        fwd = lambda: fa_forward(qkv, cv, FA_HEADS)  # noqa: E731
+        bwd = lambda: fa_backward(qkv, cv, stats, g, FA_HEADS)  # noqa: E731
+        stage = {}
+        for key, fn, eager_fn, plain_ms, n_bytes, ops, parts in (
+                ("FA/fwd", fwd, lambda: factor_attention(qkv, cv, FA_HEADS),
+                 lambda: timer(lambda: plain(qkv, cv, FA_HEADS)), FA_FWD_BYTES * elems,
+                 FA_FWD_OPS(d) * elems, ("out",)),
+                ("FA/bwd", bwd, grad_of(factor_attention), lambda: profiled(grad_of(plain)),
+                 FA_BWD_BYTES * elems, FA_BWD_OPS(d) * elems, ("dq", "dk", "dv", "dcv"))):
+            stage[key] = dict(ms=timer(fn), cold_ms=cold(fn), eager_ms=eager(eager_fn),
+                              plain_ms=plain_ms(), bound=bound(n_bytes, ops))
+            r = rows[key]
+            for k in ("ms", "cold_ms", "eager_ms", "plain_ms"):
+                r[k] += calls * stage[key][k]
+            r["bound"] = (r["bound"][0] + calls * stage[key]["bound"][0],
+                          "bytes" if stage[key]["bound"][1] == "bytes" else r["bound"][1])
+            r["max_abs_err"] = max(r["max_abs_err"], max(gaps[p][0] / gaps[p][1] for p in parts))
+        log(f"FA {FA_FRAMES}x{n}x{c}, a call: " + "; ".join(
+            f"{key} {v['ms']:.4f} ms (cold {v['cold_ms']:.4f}, eager {v['eager_ms']:.4f}; plain "
+            f"{PLAIN_OF[key]} {v['plain_ms']:.4f}; bound {v['bound'][0]:.4f} by {v['bound'][1]})"
+            for key, v in stage.items()))
+    for key, r in rows.items():
+        regs = [ptxas_entry("factor_attention", f"fa_{key[3:]}_{part}")[0]
+                for part in ("reduceI13__nv_bfloat16", "combine", "applyI13__nv_bfloat16")]
+        r["registers"] = max(regs)
+        log(f"{key}, a default step's 38 calls: {r['ms']:.4f} ms (cold {r['cold_ms']:.4f}, "
+            f"eager {r['eager_ms']:.4f}; plain {PLAIN_OF[key]} {r['plain_ms']:.4f}), bound "
+            f"{r['bound'][0]:.4f} "
+            f"ms ({r['ms'] / r['bound'][0]:.2f}x); registers of reduce, combine and apply "
+            f"{regs}; the largest part's gap {r['max_abs_err']:.3g} of its largest magnitude")
     return rows
 
 
@@ -1721,6 +1848,90 @@ def profile_step(step) -> tuple:
         log(f"  op {ms:8.3f} ms  {100 * ms / busy:5.1f} %  x{e.count} {e.key} "
             f"{str(e.input_shapes)[:90]}")
     return busy, peak_gib
+
+
+# Where a convolution's kernels show in a profile: the ATen op that
+# launches them and the index of its weight among the op's inputs (the
+# input is the first 4-D input before it).
+CONV_OPS = {"aten::cudnn_convolution": 1, "aten::convolution_backward": 2,
+            "aten::_conv_depthwise2d": 1, "aten::_convolution": 1, "aten::convolution": 1}
+
+
+def conv_split(prof) -> tuple:
+    """({kernel name: ms} launched by depthwise convolutions, {kernel name:
+    ms} launched by every other op) of a profile taken with
+    ``record_shapes``: a convolution is depthwise where its weight is
+    (C, 1, k, k) over an input of C channels."""
+    dw, rest = Counter(), Counter()
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CPU or not evt.kernels:
+            continue
+        shapes = evt.input_shapes or []
+        at = CONV_OPS.get(evt.name)
+        depthwise = False
+        if at is not None and len(shapes) > at and len(shapes[at]) == 4:
+            w = shapes[at]
+            x = next((s for s in shapes[:at] if len(s) == 4), None)
+            depthwise = w[1] == 1 and x is not None and x[1] == w[0] > 1
+        for k in evt.kernels:
+            (dw if depthwise else rest)[k.name] += k.duration / 1e3
+    return dw, rest
+
+
+def profiled_conv_split(step) -> tuple:
+    """``conv_split`` of one more eager ``step()``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step()
+        torch.cuda.synchronize()
+    return conv_split(prof)
+
+
+def mpvit_phase(device, batch) -> Counter:
+    """A default step of the MPViT depth net (``model.depth_net="mpvit_s"``,
+    the default config otherwise: B=12, 256×320, four scales, DCDP, bf16)
+    with the launch counters reset just before it: 38 ``FA/fwd``, 38
+    ``FA/bwd``, and the loss's kernels a ResNet step launches. Then one
+    more step of it and one of the ResNet net under the profiler: the
+    kernels that the benchmark's ``dwconv_ms.mpvit`` counts
+    (``flops_mpvit.kernel_kind`` "dwconv") are launched by MPViT's
+    depthwise convolutions and by no other op in either step. Logs the
+    depthwise convolutions' ms a step by kernel, the share the reader
+    counts, and the ResNet step's kernels that a looser rule would take."""
+    from portbench import flops_mpvit
+
+    cfg = ColvoConfig()
+    cfg.model.depth_net = "mpvit_s"
+    state = init_state(cfg, seed=0, device=device)
+    reset_launch_counts()
+    train_step(state, batch, cfg)
+    torch.cuda.synchronize()
+    counts = Counter(launch_counts())
+    expect = dict(step_launches(cfg, 1), **{"FA/fwd": 38, "FA/bwd": 38})
+    check(dict(counts) == expect, f"MPViT step launch counts {dict(counts)} == {expect}")
+    log(f"MPViT step: launches {dict(sorted(counts.items()))}")
+    dw, rest = profiled_conv_split(lambda: train_step(state, batch, cfg))
+    del state
+    resnet = ColvoConfig()
+    state = init_state(resnet, seed=0, device=device)
+    train_step(state, batch, resnet)
+    _, resnet_rest = profiled_conv_split(lambda: train_step(state, batch, resnet))
+    del state
+    counted = {k: ms for k, ms in dw.items() if flops_mpvit.kernel_kind(k) == "dwconv"}
+    log(f"MPViT step: depthwise convolutions {sum(dw.values()):.3f} ms on the device, of which "
+        f"dwconv_ms.mpvit counts {sum(counted.values()):.3f} ms; by kernel: " + "; ".join(
+            f"{ms:.3f} ms {'counted' if k in counted else 'not counted'} {k[:90]}"
+            for k, ms in dw.most_common()))
+    for label, other in (("MPViT", rest), ("ResNet", resnet_rest)):
+        wrong = {k: ms for k, ms in other.items() if flops_mpvit.kernel_kind(k) == "dwconv"}
+        check(not wrong, f"dwconv_ms.mpvit counts kernels of the {label} step's other ops: "
+              f"{wrong}")
+        grouped = {k[:90]: round(ms, 3) for k, ms in other.items() if "grouped" in k}
+        log(f"{label} step: other ops' kernels named 'grouped' (not counted): {grouped}")
+    return counts
 
 
 def serving_phase(cfg: ColvoConfig, state, device, pairs: int = 4, iters: int = 10):
@@ -4391,6 +4602,12 @@ KERNELS = (
      "none: XLA's reduce_window in the JAX package", "E/fwd/C3"),
     ("E/bwd", "ssim_err[bwd,C=3,12x256x320]", "colvo_torch/kernels/csrc/ssim.cu",
      "none: XLA's reduce_window in the JAX package", "E/bwd/C3"),
+    ("FA/fwd", "factor_attention[fwd,a step's 38 calls,36 frames,d=8..36]",
+     "colvo_torch/kernels/csrc/factor_attention.cu",
+     "none: MPViT (no JAX counterpart); a softmax and two einsums in plain PyTorch", "FA/fwd"),
+    ("FA/bwd", "factor_attention[bwd,a step's 38 calls,36 frames,d=8..36]",
+     "colvo_torch/kernels/csrc/factor_attention.cu",
+     "none: MPViT (no JAX counterpart); a softmax and two einsums in plain PyTorch", "FA/bwd"),
 )
 
 # The configurations the slice phase trains: the default path, and the two
@@ -4446,6 +4663,8 @@ def main() -> int:
         del state  # the next path's peak memory holds its own state only
     log("train ms/step (median of steps 2.., CUDA events): " + ", ".join(
         f"{k} {v:.2f}" for k, v in step_ms.items()))
+    log("--- MPViT: a default step's launches, the depthwise convolutions' kernels ---")
+    counts.update(mpvit_phase(device, batches[0]))
     log("--- knobs: the off-default training configurations ---")
     counts.update(knob_phase(device, smi, batches, first["default"], step_ms["default"],
                              default_prof))

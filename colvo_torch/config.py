@@ -8,7 +8,9 @@ knob lives beside it in ``colvo/config.py``. Every knob is ported:
 a ``torch.distributed`` process group (``runtime/mesh.py``).
 
 The port also has knobs of its own, which ``PORT_ONLY`` names:
-``model.depth_net`` chooses the depth network (``models/depthnet.py``).
+``model.depth_net`` chooses the depth network (``models/depthnet.py``):
+``"resnet"``, a Depth Anything V2 preset (``"dpt_vitl14"``, ...) or
+MonoViT's MPViT encoder (``"mpvit_s"``).
 ``dump`` leaves a port-only knob out of the file while it holds its
 default, so a file of a configuration both packages run loads in either;
 one that sets it is refused by the JAX package's loader, which names the
@@ -58,7 +60,8 @@ class ModelConfig:
     dtype: str = "bfloat16"  # conv compute dtype; params stay float32
     remat: bool = False  # recompute conv blocks in the backward pass
     # depth network: resnet (ResNet encoder + Monodepth2 decoder) |
-    # dpt_vits14 | dpt_vitb14 | dpt_vitl14 (Depth Anything V2: DINOv2 + DPT)
+    # dpt_vits14 | dpt_vitb14 | dpt_vitl14 (Depth Anything V2: DINOv2 + DPT) |
+    # mpvit_s (MonoViT's MPViT-Small encoder + the decoder above)
     depth_net: str = "resnet"
 
 

@@ -3,9 +3,11 @@
 U-Net decoder with skips concatenated as ``[x, skip]``; ELU, nearest ×2
 upsampling and 3×3 convs; sigmoid disparity heads at ``n_scales`` scales,
 computed in float32; with ``remat`` each ``ConvBlock`` is recomputed in the
-backward. ``pad_mode`` "same" (default) pads the convs as Flax
-``SAME`` does; "reflect" (selected by ``model.norm="none"``, the family's
-``Conv3x3``) reflects the input by one pixel and convolves without padding.
+backward. ``channels`` are the encoder pyramid's five widths, /2 to /32
+(the ResNet's by default). ``pad_mode`` "same" (default) pads the convs as
+Flax ``SAME`` does; "reflect" (selected by ``model.norm="none"``, the
+family's ``Conv3x3``) reflects the input by one pixel and convolves without
+padding.
 """
 
 from __future__ import annotations
@@ -56,15 +58,16 @@ class DepthDecoder(nn.Module):
     (B, 1, H/2^s, W/2^s) in (0, 1) for s in 0..n_scales−1."""
 
     def __init__(self, n_scales: int = 4, dtype: torch.dtype = torch.float32,
-                 pad_mode: str = "same", remat: bool = False):
+                 pad_mode: str = "same", remat: bool = False,
+                 channels: Sequence[int] = ENCODER_CHANNELS):
         super().__init__()
         self.n_scales = n_scales
         self.remat = remat
         blocks = []
-        cin = ENCODER_CHANNELS[-1]
+        cin = channels[-1]
         for i in range(4, -1, -1):
             blocks.append(ConvBlock(cin, DECODER_CHANNELS[i], dtype, pad_mode))
-            cin = DECODER_CHANNELS[i] + (ENCODER_CHANNELS[i - 1] if i > 0 else 0)
+            cin = DECODER_CHANNELS[i] + (channels[i - 1] if i > 0 else 0)
             blocks.append(ConvBlock(cin, DECODER_CHANNELS[i], dtype, pad_mode))
             cin = DECODER_CHANNELS[i]
         self.blocks = nn.ModuleList(blocks)

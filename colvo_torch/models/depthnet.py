@@ -5,7 +5,11 @@
 ``"resnet"``, the reference's ResNet encoder and Monodepth2 decoder
 (``DepthNet``), or a Depth Anything V2 preset (``"dpt_vitl14"``, ...:
 ``models/dpt.py``), which gives one full-resolution disparity and leaves
-``model.num_layers`` and ``model.norm`` to the pose encoder.
+``model.num_layers`` and ``model.norm`` to the pose encoder, or MPViT
+(``"mpvit_s"``: ``models/mpvit.py``), whose five-level pyramid feeds the
+same decoder at every scale and whose /32 feature DCDP fuses; its
+BatchNorm trains on the batched depth pass's statistics, so
+``model.batched_snippet=false`` normalises each frame's pass on its own.
 
 ``model.remat`` recomputes every encoder ``BasicBlock`` and decoder
 ``ConvBlock`` in the backward pass (``torch.utils.checkpoint``); the
@@ -25,6 +29,8 @@ from colvo_torch.config import ModelConfig
 from colvo_torch.models.depth_decoder import DepthDecoder
 from colvo_torch.models.dpt import ConvTranspose, DPTDepthNet
 from colvo_torch.models.encoder import ENCODER_CHANNELS, Conv, ResNetEncoder
+from colvo_torch.models.mpvit import PRESETS as MPVIT_PRESETS
+from colvo_torch.models.mpvit import MPViTDepthNet
 from colvo_torch.models.posenet import DCDPFusion, PoseDecoder
 from colvo_torch.models.vit import LayerScale, Linear, ViTEncoder
 
@@ -36,6 +42,8 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 class DepthNet(nn.Module):
     """Single-frame depth: NCHW image → ({scale: disp (B, 1, h, w)},
     /32 bottleneck used by DCDP fusion)."""
+
+    channels = ENCODER_CHANNELS
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -54,6 +62,8 @@ def build_depth_net(cfg: ModelConfig) -> nn.Module:
     """The depth network ``model.depth_net`` names."""
     if cfg.depth_net == "resnet":
         return DepthNet(cfg)
+    if cfg.depth_net in MPVIT_PRESETS:
+        return MPViTDepthNet(cfg, compute_dtype(cfg))
     return DPTDepthNet(cfg, compute_dtype(cfg))
 
 
@@ -74,7 +84,7 @@ class ColVOModel(nn.Module):
         cin = ENCODER_CHANNELS[-1]
         self.fusion = None
         if cfg.dcdp_fusion:
-            self.fusion = DCDPFusion(cfg.fusion_channels, 2, dt)
+            self.fusion = DCDPFusion(cfg.fusion_channels, 2, dt, self.depth.channels[-1])
             cin += 2 * cfg.fusion_channels
         self.pose_decoder = PoseDecoder(
             cin, cfg.pose_rotation_scale, cfg.pose_translation_scale, dt
@@ -85,10 +95,14 @@ class ColVOModel(nn.Module):
         (fan-in, truncated), biases 0, GroupNorm scale 1 and bias 0; in a
         DPT depth net also linear layers trunc-normal of std 0.02 with
         biases 0, LayerNorm 1 and 0, LayerScale 1.0, the position table
-        trunc-normal of std 0.02 and the cls token of std 1e-6."""
+        trunc-normal of std 0.02 and the cls token of std 1e-6; in an MPViT
+        depth net linear layers as the DPT's, BatchNorm 1 and 0 with fresh
+        running statistics."""
         for m in self.modules():
             if isinstance(m, (Conv, ConvTranspose, Linear, ViTEncoder)):
                 m.reset_parameters(generator)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
             elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)

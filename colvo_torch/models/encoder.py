@@ -43,16 +43,17 @@ def _same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
 
 class Conv(nn.Module):
     """2-D conv computing in ``dtype``, with Flax ``SAME`` padding, or with
-    ``padding`` on every side where it is given."""
+    ``padding`` on every side where it is given; ``groups`` as torch's."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
                  bias: bool = True, dtype: torch.dtype = torch.float32,
-                 padding: int | None = None):
+                 padding: int | None = None, groups: int = 1):
         super().__init__()
         self.stride = stride
         self.dtype = dtype
         self.padding = padding
-        self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
+        self.groups = groups
+        self.weight = nn.Parameter(torch.empty(cout, cin // groups, k, k))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.reset_parameters()
 
@@ -68,7 +69,8 @@ class Conv(nn.Module):
         x = x.to(self.dtype)
         b = None if self.bias is None else self.bias.to(self.dtype)
         if self.padding is not None:
-            return F.conv2d(x, self.weight.to(self.dtype), b, self.stride, self.padding)
+            return F.conv2d(x, self.weight.to(self.dtype), b, self.stride, self.padding,
+                            groups=self.groups)
         k = self.weight.shape[-1]
         ph = _same_pads(x.shape[2], k, self.stride)
         pw = _same_pads(x.shape[3], k, self.stride)
@@ -77,7 +79,8 @@ class Conv(nn.Module):
         else:
             x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
             padding = 0
-        return F.conv2d(x, self.weight.to(self.dtype), b, self.stride, padding)
+        return F.conv2d(x, self.weight.to(self.dtype), b, self.stride, padding,
+                        groups=self.groups)
 
 
 class GroupNorm(nn.GroupNorm):

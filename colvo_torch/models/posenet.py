@@ -12,15 +12,17 @@ from colvo_torch.models.encoder import ENCODER_CHANNELS, Conv
 
 
 class DCDPFusion(nn.Module):
-    """Project each frame's /32 depth bottleneck (512 ch) to ``features``
-    channels by a 1×1 conv + ReLU and concatenate ``[pose_feat, proj_0,
-    proj_1]`` along channels, cropped to the smallest spatial size."""
+    """Project each frame's /32 depth bottleneck (``depth_channels``, the
+    ResNet's 512 by default) to ``features`` channels by a 1×1 conv + ReLU
+    and concatenate ``[pose_feat, proj_0, proj_1]`` along channels, cropped
+    to the smallest spatial size."""
 
     def __init__(self, features: int = 64, n_inputs: int = 2,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 depth_channels: int = ENCODER_CHANNELS[-1]):
         super().__init__()
         self.depth_proj = nn.ModuleList(
-            Conv(ENCODER_CHANNELS[-1], features, 1, dtype=dtype) for _ in range(n_inputs)
+            Conv(depth_channels, features, 1, dtype=dtype) for _ in range(n_inputs)
         )
 
     def forward(self, pose_feat: torch.Tensor,

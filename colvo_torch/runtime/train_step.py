@@ -195,10 +195,11 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
 
 
 def _mutable(state: TrainState, counter: torch.Tensor) -> List[torch.Tensor]:
-    """The tensors a step updates in place: the weights, every tensor of the
-    optimizer's state and parameter groups, and the device step counter."""
+    """The tensors a step updates in place: the weights, the model's buffers
+    (BatchNorm's running statistics), every tensor of the optimizer's state
+    and parameter groups, and the device step counter."""
     opt = state.optimizer
-    out = list(state.model.parameters())
+    out = list(state.model.parameters()) + list(state.model.buffers())
     out += [v for st in opt.state.values() for v in st.values() if isinstance(v, torch.Tensor)]
     out += [g["lr"] for g in opt.param_groups if isinstance(g["lr"], torch.Tensor)]
     return out + [counter]

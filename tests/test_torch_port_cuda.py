@@ -1727,6 +1727,87 @@ def test_dpt_attention_takes_a_fused_kernel_never_math(device, monkeypatch):
         kernels.attention(q, q, q)
 
 
+# MPViT-Small's four stages at 256×320 over a default step's 36 frames:
+# (tokens, width); 8 heads, so d = 8, 16, 27 and 36.
+FA_STAGES = [(5120, 64), (1280, 128), (320, 216), (80, 288)]
+
+
+def _fa_inputs(device, n, c, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn(36, n, 3 * c, generator=gen, device=device)
+    qkv[..., c:2 * c] *= 3.0  # a peaked softmax over the tokens
+    cv, g = (torch.randn(36, n, c, generator=gen, device=device) for _ in range(2))
+    return qkv.bfloat16(), cv.bfloat16(), g.bfloat16()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", FA_STAGES, ids=[f"n{n}-c{c}" for n, c in FA_STAGES])
+def test_fa_matches_float64_at_the_stage_shapes(device, n, c):
+    """FA's forward and backward on bfloat16 inputs against the plain op and
+    its autograd gradient in float64 on the same inputs: each output part
+    (out; dq, dk and dv of ∂qkv each; dcv) within 2·2⁻⁸ of its own largest
+    magnitude (the bfloat16 store's rounding, 2⁻⁹ of an element, twice over
+    for the float32 sums of up to 5,120 terms before it); and the same bits
+    on a second call."""
+    from colvo_torch.kernels.factor_attention import factor_attention_plain
+
+    fa = kernels.factor_attention
+    qkv, cv, g = _fa_inputs(device, n, c, seed=n + c)
+    outs = []
+    for _ in range(2):
+        a, b = qkv.clone().requires_grad_(True), cv.clone().requires_grad_(True)
+        out = fa(a, b, 8)
+        da, db = torch.autograd.grad(out, (a, b), g)
+        outs.append((out.detach(), da, db))
+    for x, y in zip(*outs):
+        assert torch.equal(x, y)
+    a, b = qkv.double().requires_grad_(True), cv.double().requires_grad_(True)
+    ref = factor_attention_plain(a, b, 8)
+    want = (ref.detach(), *torch.autograd.grad(ref, (a, b), g.double()))
+    for x, y in zip(outs[0], want):
+        assert x.dtype == torch.bfloat16 and x.shape == y.shape
+
+    def parts(out, dqkv, dcv):
+        return (out, *dqkv.unflatten(-1, (3, c)).unbind(-2), dcv)
+
+    for name, x, y in zip(("out", "dq", "dk", "dv", "dcv"), parts(*outs[0]), parts(*want)):
+        gap = (x.double() - y).abs().max().item()
+        assert gap <= 2 * 2.0 ** -8 * y.abs().max().item(), (name, gap)
+
+
+@pytest.mark.cuda
+def test_fa_launches_of_a_default_mpvit_step_and_captured_batchnorm(device):
+    """A step of ``colvo_mpvit_s`` (four scales, DCDP, bf16, 256×320, B = 2)
+    launches FA 38 times forward and 38 backward, one a path-layer (2·1 +
+    3·3 + 3·6 + 3·3). The captured step from the same weights gives the
+    eager step's loss terms bit for bit and leaves BatchNorm's running
+    statistics where the eager step does (its warm-up's update is put
+    back), bit for bit, each count 1."""
+    from colvo_torch.data import SnippetDataset, batch_iterator, render_sequence
+    from colvo_torch.runtime import init_state, make_train_step, to_device, train_step
+
+    cfg = ColvoConfig()
+    cfg.model.depth_net = "mpvit_s"
+    cfg.data.batch_size = 2
+    seq = render_sequence(n_frames=6, height=256, width=320, seed=3)
+    it = batch_iterator(SnippetDataset([seq.frames], [seq.k], cfg.data.frame_offsets), cfg.data,
+                        seed=0)
+    batch = to_device(next(it), device)
+    eager, graphed = (init_state(cfg, seed=0, device=device) for _ in range(2))
+    kernels.reset_launch_counts()
+    want = train_step(eager, batch, cfg)
+    counts = kernels.launch_counts()
+    assert counts.get("FA/fwd") == 38 and counts.get("FA/bwd") == 38, counts
+    got = make_train_step(graphed, cfg)(graphed, batch)
+    for key in ("loss/total", "loss/photometric", "loss/smoothness", "loss/geometric"):
+        assert torch.equal(got[key], want[key]), key
+    bufs = dict(graphed.model.named_buffers())
+    for name, b in eager.model.named_buffers():
+        assert torch.equal(bufs[name], b), name
+        if name.endswith("num_batches_tracked"):
+            assert int(b) == 1
+
+
 @pytest.mark.cuda
 def test_capture_survives_a_graph_dropped_in_a_reference_cycle(device):
     """A CUDA graph dropped inside a reference cycle is destroyed by the
