@@ -35,7 +35,12 @@ repository root with one CUDA card: ``python3 chip_smoke.py``.
    backward) at MPViT-Small's four stage shapes over 36 frames, each output
    part against the plain op in float64, twice bit for bit, timed
    (replayed, warm and cold, and eager) beside the plain op; its rows are
-   a default step's 38 calls each way. Every kernel's registers and spills come from the
+   a default step's 38 calls each way. Kernel A (the clip's A/sumsq and
+   A/clip, Adam's A/step) at the three training cells' parameter lists:
+   one step bit for bit the foreach chain's, the norm within 1e-6 of
+   float64's, each pass timed (replayed, warm and cold, and eager) beside
+   the plain chain and, for A/step, ``torch.optim.Adam(fused=True)``.
+   Every kernel's registers and spills come from the
    build's ``ptxas`` report; a spill fails the run.
 4. Slice phase, three times: ``ColvoConfig`` at full width (ResNet-18,
    B=12, 256×320, 3 frames, 4 scales, bf16 convs) by default, with
@@ -235,7 +240,7 @@ from colvo_torch.data import batch_iterator, synthetic_dataset  # noqa: E402
 from colvo_torch.kernels import build, launch_counts, project_depth, reset_launch_counts  # noqa: E402
 from colvo_torch.kernels.factor_attention import (  # noqa: E402
     backward as fa_backward, factor_attention, factor_attention_plain, forward as fa_forward)
-from colvo_torch.kernels import fused_loss, lcc, project, sampler, scatter, ssim, window  # noqa: E402
+from colvo_torch.kernels import adam, fused_loss, lcc, project, sampler, scatter, ssim, window  # noqa: E402
 from colvo_torch.losses.photometric import lcc_calibrate  # noqa: E402
 from colvo_torch.runtime import InferenceRunner, init_state, loss_fn, to_device, train_step  # noqa: E402
 from colvo_torch.runtime import graphs, spans  # noqa: E402
@@ -485,6 +490,7 @@ def kernel_phase(device, photo=PHOTO, geo_n=GEO_N, geo_scales=GEO_SCALES, group=
     rows.update(lcc_rows(device, gen, photo, timer, eager, cold))
     rows.update(ssim_rows(device, gen, photo, timer, eager, cold))
     rows.update(fa_rows(device, timer, eager, cold, timed))
+    rows.update(adam_rows(device, timer, eager, cold))
     torch.backends.cudnn.allow_tf32 = True
     return rows
 
@@ -1080,6 +1086,122 @@ def fa_rows(device, timer, eager, cold, timed=True):
     return rows
 
 
+# The training cells' parameter lists, by benchmark configuration (A's rows).
+ADAM_LISTS = (("default", "colvo_r18_gn"), ("mpvit", "colvo_mpvit_s"),
+              ("dpt", "colvo_dav2_vitl"))
+# Bytes a float32 parameter of each pass of A: A/sumsq reads g; A/clip, where
+# it engages, reads and writes g; A/step reads p, g, μ (float32), ν and
+# writes p, μ, ν.
+ADAM_BYTES = {"A/sumsq": 4, "A/clip": 8, "A/step": 28}
+
+
+def model_shapes(config: str) -> list:
+    """The parameter shapes of a benchmark configuration's model (meta)."""
+    from colvo_torch.models import ColVOModel
+
+    cfg = ColvoConfig()
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "portbench", "configs",
+                           f"{config}.json")) as f:
+        overrides = json.load(f)["overrides"]
+    cfg.apply_overrides([f"{k}={json.dumps(v)}" for k, v in overrides.items()])
+    with torch.device("meta"):
+        return [tuple(p.shape) for p in ColVOModel(cfg.model).parameters()]
+
+
+def adam_rows(device, timer, eager, cold) -> dict:
+    """A/sumsq, A/clip, A/step at each training cell's parameter list
+    (``ADAM_LISTS``; float32 μ, the learning rate a device tensor): one
+    step of A against the foreach chain (``adam.step_plain``) bit for bit,
+    the norm against float64's, and the clip engaged (the limit half the
+    norm) bit for bit the chain's scaling by A's own norm
+    (``adam.clip_plain``'s scale and product); each pass timed (replayed,
+    warm and cold; eager through the wrapper: A/sumsq as
+    ``clip_global_norm`` below the limit, A/clip as it engages with a scale
+    of -1, A/step as ``adam_update``) beside the plain chain (the clip's
+    norm and scale; Adam's passes) and, for A/step,
+    ``torch.optim.Adam(fused=True)`` on the same list (the yardstick, never
+    on the port's path). Rows ``A/<pass>/<list>``; their ``max_abs_err``
+    the norm's relative error (A/sumsq) and the largest difference from
+    the chain (A/clip, A/step)."""
+    rows = {}
+    lib = adam.bind(build.library("adam"))
+    stream = lambda: torch.cuda.current_stream(device).cuda_stream  # noqa: E731
+    for label, config in ADAM_LISTS:
+        shapes = model_shapes(config)
+        gen = torch.Generator(device=device).manual_seed(11)
+        ps = [torch.randn(s, device=device, generator=gen) for s in shapes]
+        gs = [1e-3 * torch.randn(s, device=device, generator=gen) for s in shapes]
+        ms = [1e-3 * torch.randn(s, device=device, generator=gen) for s in shapes]
+        vs = [1e-6 * torch.rand(s, device=device, generator=gen) for s in shapes]
+        steps = [torch.full((), 3.0, device=device) for _ in shapes]
+        lr = torch.tensor(1e-4, device=device)
+        n = sum(p.numel() for p in ps)
+        args = (lr, (0.9, 0.999), 1e-8, 0.0)
+        plans = adam.Plans()
+
+        # parity: one step; the norm; the clip engaged
+        ref = [[x.clone() for x in xs] for xs in (ps, ms, vs, steps)]
+        adam.adam_update(ps, gs, ms, vs, steps, *args, plans=plans)
+        adam.step_plain(ref[0], gs, ref[1], ref[2], ref[3], *args)
+        pairs = [(x, y) for xs, ys in zip((ps, ms, vs, steps), ref) for x, y in zip(xs, ys)]
+        same = all(torch.equal(x, y) for x, y in pairs)
+        step_err = max(float((x - y).abs().max()) for x, y in pairs)
+        del ref, pairs
+        want = float(torch.sqrt(sum((g.double() ** 2).sum() for g in gs)))
+        norm = float(adam.clip_global_norm(gs, 1e30))  # the step's table
+        gap = abs(norm - want) / want
+        limit = 0.5 * want
+        gk, gr = [g.clone() for g in gs], [g.clone() for g in gs]
+        norm_k = adam.clip_global_norm(gk, limit)  # a table of its own: gk is no step's
+        scale = torch.where(norm_k < limit, torch.ones_like(norm_k), limit / norm_k)
+        torch._foreach_mul_(gr, scale)
+        clip_same = all(torch.equal(x, y) for x, y in zip(gk, gr))
+        clip_err = max(float((x - y).abs().max()) for x, y in zip(gk, gr))
+        del gk, gr
+        log(f"A at {label}'s list ({len(shapes)} tensors, {n / 1e6:.2f} M): A/step bit for "
+            f"bit the chain {same} (max abs diff {step_err:.3g}); norm off float64 by "
+            f"{gap:.3g} (relative); A/clip at scale {float(scale):.6f} bit for bit the chain's "
+            f"scaling by A's norm {clip_same} (max abs diff {clip_err:.3g})")
+        check(same and gap <= 1e-6 and clip_same and float(scale) < 1.0,
+              f"A at {label}'s list against the chain and float64")
+
+        gc = [g.clone() for g in gs]  # the clip's: a scale of -1 flips signs, nothing drifts
+        g_plan = plans.get((None, gc, None, None, None), device)
+        partial = torch.empty(g_plan.grid, dtype=torch.float64, device=device)
+        out_s, out_c = torch.empty(2, device=device), torch.tensor([1.0, -1.0], device=device)
+        sumsq = lambda: lib.colvo_adam_sumsq(*g_plan.args(), partial.data_ptr(),  # noqa: E731
+                                             out_s.data_ptr(), 1e30, stream())
+        clip = lambda: lib.colvo_adam_clip(*g_plan.args(), out_c.data_ptr(), stream())  # noqa: E731
+        step = lambda: adam.adam_update(ps, gs, ms, vs, steps, *args, plans=plans)  # noqa: E731
+        plain_step = lambda: adam.step_plain(ps, gs, ms, vs, steps, *args)  # noqa: E731
+        fused_ps = [p.detach().clone().requires_grad_(True) for p in ps]
+        for p, g in zip(fused_ps, gs):
+            p.grad = g
+        fused = torch.optim.Adam(fused_ps, lr=lr.clone(), fused=True, capturable=True)
+        for key, fn, eager_fn, plain_fn, lib_fn in (
+                ("A/sumsq", sumsq, lambda: adam.clip_global_norm(gc, 1e30),
+                 lambda: adam.clip_plain(gc, 1e30), None),
+                ("A/clip", clip, lambda: adam.clip_global_norm(gc, -want),
+                 lambda: adam.clip_plain(gc, -want), None),
+                ("A/step", step, step, plain_step, fused.step)):
+            rows[f"{key}/{label}"] = dict(
+                max_abs_err={"A/sumsq": gap, "A/clip": clip_err, "A/step": step_err}[key],
+                ms=timer(fn), cold_ms=cold(fn),
+                eager_ms=eager(eager_fn), plain_ms=timer(plain_fn),
+                library_ms=timer(lib_fn) if lib_fn else None,
+                bound=bound(ADAM_BYTES[key] * n, 0.0),
+                registers=ptxas_entry("adam", key[2:].replace("/", "") + "_kernel")[0])
+            r = rows[f"{key}/{label}"]
+            log(f"{key} at {label}'s list: {r['ms']:.4f} ms (cold {r['cold_ms']:.4f}, eager "
+                f"{r['eager_ms']:.4f}; plain chain {r['plain_ms']:.4f}"
+                + (f"; fused torch Adam {r['library_ms']:.4f}" if lib_fn else "")
+                + f"), bound {r['bound'][0]:.4f} ms ({r['ms'] / r['bound'][0]:.2f}x); "
+                f"{r['registers']} registers")
+        del ps, gs, gc, ms, vs, fused_ps, fused
+        torch.cuda.empty_cache()
+    return rows
+
+
 def kernel_ptxas() -> None:
     """Logs every kernel's registers and stack frame from the builds'
     ``ptxas -v`` reports, and fails if any kernel spills. A stack frame
@@ -1147,7 +1269,8 @@ def expected_launches(cfg: ColvoConfig, n_steps: int) -> dict:
     under ``loss.batched_photo``; twice in a training step under
     ``loss.photo_remat``) with its backward (``E/bwd/C3``), and under
     ``loss.automask`` each identity error (at each scale under
-    ``loss.photo_native``) without one."""
+    ``loss.photo_native``) without one. Kernel A clips (``A/sumsq``,
+    ``A/clip``) and steps Adam (``A/step``) once a training step."""
     n_scales, n_sources = cfg.model.n_scales, len(cfg.data.frame_offsets)
     pairs = n_scales * n_sources
     grids = n_scales
@@ -1174,6 +1297,7 @@ def expected_launches(cfg: ColvoConfig, n_steps: int) -> dict:
     idents = n_sources * (n_scales if cfg.loss.photo_native else 1) * cfg.loss.automask
     counts["E/fwd/C3"] = per_step * n_steps + terms + idents * (n_steps + 1)
     counts["E/bwd/C3"] = terms * n_steps
+    counts.update({"A/sumsq": n_steps, "A/clip": n_steps, "A/step": n_steps})
     key = lcc_key(cfg)
     if key:
         lcc_idents = idents * cfg.loss.lcc_identity
@@ -3150,11 +3274,12 @@ def refine_launches(calls: int) -> dict:
     batch, and its warm-up): each Adam iteration's warp with d/dx, d/dy (S)
     and its ``global+affine`` LCC's windowed step (L), its SSIM+L1 error
     with its backward (E), and the depth warp; then twice the value-only
-    warps, L and E's forward for the keep-or-reject residuals."""
+    warps, L and E's forward for the keep-or-reject residuals; A's step of
+    Adam each iteration."""
     return {"S/grad/C3": REFINE_ITERS * calls, "S/grad/C1": REFINE_ITERS * calls,
             "S/value/C3": 2 * calls, "S/value/C1": 2 * calls,
             "L/affine": (REFINE_ITERS + 2) * calls, "E/fwd/C3": (REFINE_ITERS + 2) * calls,
-            "E/bwd/C3": REFINE_ITERS * calls}
+            "E/bwd/C3": REFINE_ITERS * calls, "A/step": REFINE_ITERS * calls}
 TOL_REFINE_POSE = 1e-4  # refined poses, kernel S against the plain sampler (the CPU test's)
 REFINE_SHORT = 4  # iterations of the refinement held to TOL_REFINE_POSE (the CPU test's)
 
@@ -4608,7 +4733,10 @@ KERNELS = (
     ("FA/bwd", "factor_attention[bwd,a step's 38 calls,36 frames,d=8..36]",
      "colvo_torch/kernels/csrc/factor_attention.cu",
      "none: MPViT (no JAX counterpart); a softmax and two einsums in plain PyTorch", "FA/bwd"),
-)
+) + tuple(
+    (f"A/{kind}/{label}", f"adam_{kind}[{config}'s parameters]", "colvo_torch/kernels/csrc/adam.cu",
+     "none: optax's clip and Adam, which XLA fuses, in the JAX package", f"A/{kind}")
+    for label, config in ADAM_LISTS for kind in ("sumsq", "clip", "step"))
 
 # The configurations the slice phase trains: the default path, and the two
 # alternative photometric paths of the reference.

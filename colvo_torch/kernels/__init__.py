@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels under the training loss (``colvo/kernels``'
 ports) and their plain PyTorch versions, a module a kernel: ``sampler``
 (S), ``scatter`` (T), ``project`` (P), ``fused_loss`` (F), ``lcc`` (L),
-``ssim`` (E), ``factor_attention`` (FA), ``attention``; ``window`` holds
+``ssim`` (E), ``factor_attention`` (FA), ``attention``, ``adam`` (A, the
+optimizer's update); ``window`` holds
 the plain windowed statistics, ``build`` what the wrappers share. Each
 module chooses in one place by the tensor's device (CUDA: the kernel;
 CPU: the plain version) and imports nothing of ``colvo_torch`` above this
@@ -14,6 +15,7 @@ from __future__ import annotations
 from typing import Dict
 
 from colvo_torch.kernels import build
+from colvo_torch.kernels.adam import adam_update, clip_global_norm
 from colvo_torch.kernels.attention import attention
 from colvo_torch.kernels.factor_attention import factor_attention
 from colvo_torch.kernels.fused_loss import fused_error
@@ -36,7 +38,8 @@ def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last reset: ``S/grad/C3``,
     ``S/grad/C3/g4``, ``S/value/C1``, ``T/C1``, ``F/fwd/C3``, ``F/bwd/C3``,
     ``P/fwd``, ``P/bwd``, ``L/affine``, ``E/fwd/C3``, ``E/bwd/C3``,
-    ``FA/fwd``, ``FA/bwd``, ``attn/fwd``, ... (only CUDA launches count;
+    ``FA/fwd``, ``FA/bwd``, ``attn/fwd``, ``A/sumsq``, ``A/clip``,
+    ``A/step``, ... (only CUDA launches count;
     the plain versions do not). They are the counters ``launch.<key>`` of ``runtime.spans``,
     which count whether it records or not (``spans.tally``)."""
     from colvo_torch.runtime import spans  # the runtime package imports this one
@@ -62,6 +65,8 @@ def add_launch_counts(counts: Dict[str, int], times: int = 1) -> None:
 
 
 __all__ = [
+    "adam_update",
+    "clip_global_norm",
     "attention",
     "factor_attention",
     "bilinear_sample_fast",

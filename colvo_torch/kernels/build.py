@@ -24,7 +24,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("sampler", "scatter", "fused_loss", "project", "lcc", "ssim", "factor_attention")
+SOURCES = ("sampler", "scatter", "fused_loss", "project", "lcc", "ssim", "factor_attention",
+           "adam")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -15,14 +15,21 @@ operations:
     p += −lr·u
 
 and μ' is stored back in ``mu_dtype`` (rounded to nearest even in bf16);
-ν stays f32. The update uses the f32 μ', not its rounded copy. Every step is a few
-``torch._foreach_*`` calls over all parameters; with ``capturable=True``
-the learning rate is read from a device tensor in the group (``lr``) and
-the step counts live on the device, so the step reads no host scalar and
-a CUDA graph can capture it. State keys and ``param_groups`` are those of
-``torch.optim.Adam`` (``step``, ``exp_avg``, ``exp_avg_sq``; ``lr``,
-``capturable``), so checkpoints and the captured chunk treat both alike;
-``load_state_dict`` keeps ``exp_avg`` in ``mu_dtype``.
+ν stays f32. The update uses the f32 μ', not its rounded copy. A step is
+``kernels.adam_update`` over each parameter group: on CUDA one launch of
+kernel A (``A/step``, ``kernels/csrc/adam.cu``) over the whole group, which
+reads and writes each byte of the state once; on the CPU the plain chain
+of ``torch._foreach_*`` passes (``kernels.adam.step_plain``), whose bits A
+gives. The step counts live on their parameter's device, whatever
+``capturable`` says (a count a checkpoint brought on the host moves there
+at the next step), so A reads no host scalar; with ``capturable=True`` the
+learning rate may be a device tensor in the group (``lr``) too, and a CUDA
+graph can capture the step. The tables of A's launches are the
+optimizer's own, outside its state (``kernels.adam.Plans``). State keys
+and ``param_groups`` are those of ``torch.optim.Adam`` (``step``,
+``exp_avg``, ``exp_avg_sq``; ``lr``, ``capturable``), so checkpoints and
+the captured chunk treat both alike; ``load_state_dict`` keeps
+``exp_avg`` in ``mu_dtype``.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ from __future__ import annotations
 from typing import Iterable
 
 import torch
+
+from colvo_torch.kernels.adam import Plans, adam_update
 
 
 class Adam(torch.optim.Optimizer):
@@ -42,6 +51,7 @@ class Adam(torch.optim.Optimizer):
                         capturable=capturable)
         super().__init__(params, defaults)
         self.mu_dtype = mu_dtype
+        self._plans = Plans()
 
     def load_state_dict(self, state_dict) -> None:
         # torch casts every floating state to its parameter's dtype
@@ -61,34 +71,14 @@ class Adam(torch.optim.Optimizer):
             for p in params:
                 st = self.state[p]
                 if not st:
-                    on = p.device if group["capturable"] else torch.device("cpu")
-                    st["step"] = torch.zeros((), dtype=torch.float32, device=on)
+                    st["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
                     st["exp_avg"] = torch.zeros_like(p, dtype=self.mu_dtype)
                     st["exp_avg_sq"] = torch.zeros_like(p)
-            b1, b2 = group["betas"]
-            grads = [p.grad for p in params]
-            steps = [self.state[p]["step"] for p in params]
-            mus = [self.state[p]["exp_avg"] for p in params]
-            nus = [self.state[p]["exp_avg_sq"] for p in params]
-
-            torch._foreach_add_(steps, 1.0)
-            mu = torch._foreach_mul(grads, 1.0 - b1)
-            b1_mu = float(torch.tensor(b1, dtype=self.mu_dtype))
-            torch._foreach_add_(mu, [m.float() for m in torch._foreach_mul(mus, b1_mu)])
-            torch._foreach_mul_(nus, b2)
-            torch._foreach_add_(nus, torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - b2))
-            # the bias corrections, f32 as optax computes them (the step
-            # counts of one group move together)
-            t = steps[0].to(params[0].device)
-            bc1 = 1.0 - torch.pow(torch.full_like(t, b1), t)
-            bc2 = 1.0 - torch.pow(torch.full_like(t, b2), t)
-            denom = torch._foreach_sqrt(torch._foreach_div(nus, bc2))
-            torch._foreach_add_(denom, group["eps"])
-            upd = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
-            if group["weight_decay"]:
-                torch._foreach_add_(upd, torch._foreach_mul(params, group["weight_decay"]))
-            lr = group["lr"]
-            torch._foreach_mul_(upd, -lr if not isinstance(lr, torch.Tensor) else torch.neg(lr))
-            torch._foreach_add_(params, upd)
-            torch._foreach_copy_(mus, mu)  # rounded to nearest even
+                elif st["step"].device != p.device:
+                    st["step"] = st["step"].to(p.device, torch.float32)
+            adam_update(params, [p.grad for p in params],
+                        [self.state[p]["exp_avg"] for p in params],
+                        [self.state[p]["exp_avg_sq"] for p in params],
+                        [self.state[p]["step"] for p in params], group["lr"], group["betas"],
+                        group["eps"], group["weight_decay"], plans=self._plans)
         return None

@@ -26,6 +26,7 @@ import torch
 from colvo_torch import resolve_device
 from colvo_torch.config import ColvoConfig
 from colvo_torch.data.device_store import assemble
+from colvo_torch.kernels import clip_global_norm
 from colvo_torch.losses import snippet_loss
 from colvo_torch.models import ColVOModel
 from colvo_torch.runtime.graphs import Graphed
@@ -142,11 +143,10 @@ def loss_fn(model: ColVOModel, batch: Mapping[str, torch.Tensor], cfg: ColvoConf
 
 def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
     """optax ``clip_by_global_norm``: scale by max_norm/‖g‖ only when
-    ‖g‖ ≥ max_norm (no +1e-6 in the divisor). Returns ‖g‖ before clipping."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-    torch._foreach_mul_(grads, scale)
-    return norm
+    ‖g‖ ≥ max_norm (no +1e-6 in the divisor), in place. Returns ‖g‖ before
+    clipping. ``kernels.clip_global_norm``: kernel A's A/sumsq and A/clip
+    on the card, the plain foreach chain on the CPU."""
+    return clip_global_norm(grads, max_norm)
 
 
 def _set_learning_rate(opt: torch.optim.Optimizer, lr: float | torch.Tensor) -> None:

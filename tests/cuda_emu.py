@@ -7,7 +7,8 @@ small shim of the CUDA features the sources use (``SHIM``, written as
 ``std::barrier`` for ``__syncthreads``, a byte buffer per block for its
 dynamic shared memory, float4, float and 64-bit atomics
 (``std::atomic_ref``, on shared memory too), memset, and the warp
-shuffles (of 32- and 64-bit values) and votes, through a barrier a warp.
+shuffles (of 32- and 64-bit values) and votes, through a barrier a warp,
+and float32 operations rounded once (``__fadd_rn``, ...).
 The blocks of a grid run one after another; the blocks of a thread-block
 cluster (``shim_launch_cluster``) run at once, with a barrier across the
 cluster, each block's rank in it and every block's buffer reachable from
@@ -53,7 +54,8 @@ struct dim3 {
 };
 struct Index { unsigned x = 0, y = 0, z = 0; };
 struct alignas(16) float4 { float x, y, z, w; };
-inline thread_local Index threadIdx, blockIdx, blockDim;
+struct alignas(8) uint2 { unsigned x, y; };
+inline thread_local Index threadIdx, blockIdx, blockDim, gridDim;
 inline thread_local std::barrier<>* block_barrier = nullptr;
 inline thread_local unsigned char* block_smem_bytes = nullptr;  // dynamic shared memory
 inline thread_local float* block_smem = nullptr;                // the same, as floats
@@ -136,11 +138,21 @@ template <class T> T __shfl_xor_sync(unsigned, T v, unsigned mask) {
 }
 template <class T> T __ldg(const T* p) { return *p; }
 template <class T> T __ldcs(const T* p) { return *p; }
+template <class T> T __ldcg(const T* p) { return *p; }
 template <class T> void __stcs(T* p, T v) { *p = v; }
 inline unsigned __umulhi(unsigned a, unsigned b) {
   return static_cast<unsigned>((static_cast<unsigned long long>(a) * b) >> 32);
 }
 inline float __fdividef(float a, float b) { return a / b; }
+// IEEE float32 operations rounded once (the host's compiler contracts
+// nothing here: ISO C++ mode, no FMA instructions in the baseline x86-64).
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __frcp_rn(float a) { return 1.0f / a; }
+inline float __fsqrt_rn(float a) { return std::sqrt(a); }
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 inline void __syncthreads() { block_barrier->arrive_and_wait(); }
 // Compiled with -DSHIM_REVERSE, the blocks of a grid run last to first and
 // a block's threads start last to first.
@@ -192,6 +204,9 @@ void shim_launch_cluster(K kernel, dim3 grid, int threads, size_t bytes, unsigne
           blockIdx.y = b / grid.x % grid.y;
           blockIdx.z = b / (grid.x * grid.y);
           blockDim.x = threads;
+          gridDim.x = grid.x;
+          gridDim.y = grid.y;
+          gridDim.z = grid.z;
           block_barrier = &blk.bar;
           block_smem_bytes = blk.bytes();
           block_smem = blk.smem.get();
@@ -240,6 +255,8 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
   u += 0x7fffu + ((u >> 16) & 1u);
   return {static_cast<unsigned short>(u >> 16)};
 }
+inline __nv_bfloat16 __float2bfloat16_rn(float f) { return __float2bfloat16(f); }
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 v) { return v.x; }
 """
 
 # A kernel launch ``k<<<grid, block, smem, stream>>>(``, template

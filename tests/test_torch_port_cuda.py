@@ -602,7 +602,8 @@ def test_replayed_chunk_equals_eager_steps_on_the_same_draws(device):
         assert chunk.graph is not None and state.step == 3 and int(chunk.step) == 3
         assert chunk.captured_launches == {"S/grad/C3": 6, "S/grad/C1": 3, "T/C1": 3,
                                            "P/fwd": 12, "P/bwd": 12, "L/affine": 6,
-                                           "E/fwd/C3": 9, "E/bwd/C3": 6}
+                                           "E/fwd/C3": 9, "E/bwd/C3": 6, "A/sumsq": 3,
+                                           "A/clip": 3, "A/step": 3}
         replay = torch.Generator(device=device)
         replay.set_state(rng)
         eager = []
@@ -752,7 +753,8 @@ def test_chunk_captures_under_remat_and_the_bf16_moment(device, knob):
     remat = knob == "model.remat"
     assert chunk.captured_launches == {"S/grad/C3": 4, "S/grad/C1": 2, "T/C1": 2,
                                        "P/fwd": 8, "P/bwd": 8, "L/affine": 8 if remat else 4,
-                                       "E/fwd/C3": 10 if remat else 6, "E/bwd/C3": 4}
+                                       "E/fwd/C3": 10 if remat else 6, "E/bwd/C3": 4,
+                                       "A/sumsq": 2, "A/clip": 2, "A/step": 2}
     if knob == "train.adam_mu_dtype":
         moments = [state.optimizer.state[p]["exp_avg"] for p in state.model.parameters()]
         assert all(m.dtype == torch.bfloat16 for m in moments)
@@ -799,7 +801,8 @@ def test_refine_with_kernel_s_matches_the_plain_sampler(device):
     shape: one warm-up call, then two replays of the captured program)
     and L (its ``global+affine`` LCC's windowed step, once an iteration and
     twice a batch after them) and E (its error, likewise, with a backward
-    an iteration) against the same call with the sampler's plain version,
+    an iteration), its Adam through A (one A/step an iteration) against
+    the same call with the sampler's plain version,
     captured anew: poses to 1e-4."""
     from unittest import mock
 
@@ -820,7 +823,7 @@ def test_refine_with_kernel_s_matches_the_plain_sampler(device):
     counts = kernels.launch_counts()
     assert counts == {"S/grad/C3": 3 * iters, "S/grad/C1": 3 * iters, "S/value/C3": 6,
                       "S/value/C1": 6, "L/affine": 3 * iters + 6, "E/fwd/C3": 3 * iters + 6,
-                      "E/bwd/C3": 3 * iters}, counts
+                      "E/bwd/C3": 3 * iters, "A/step": 3 * iters}, counts
     _refine.programs.clear()  # a program holds the kernels it captured
     try:
         with mock.patch.object(sampler, "sample", sampler.sample_plain):
@@ -897,6 +900,25 @@ def test_three_deterministic_captured_steps_equal_three_eager_ones(device):
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", _DET_CHILD], cwd=root, capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "deterministic steps equal" in out.stdout
+
+
+@pytest.mark.cuda
+def test_three_deterministic_captured_steps_with_the_bf16_moment_equal_three_eager_ones(device):
+    """As the test above with ``train.adam_mu_dtype="bfloat16"``: 3 replays
+    of the captured step give the metrics, weights and bf16 Adam moments
+    of 3 eager ``train_step`` calls, bit for bit (A/step rounds μ to bf16
+    inside the graph as in the eager steps, whose gradients move)."""
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    child = _DET_CHILD.replace("cfg.model.n_scales = 2\n",
+                               "cfg.model.n_scales = 2\ncfg.train.adam_mu_dtype = 'bfloat16'\n")
+    assert "bfloat16" in child
+    out = subprocess.run([sys.executable, "-c", child], cwd=root, capture_output=True,
                          text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-4000:]
     assert "deterministic steps equal" in out.stdout
@@ -1033,7 +1055,8 @@ def test_ablation_cell_launches_its_steps_and_its_resume_none(device, tmp_path, 
         n = 3 + graphs.WARMUP
         assert kernels.launch_counts() == {"S/grad/C3": 8 * n, "S/grad/C1": n, "T/C1": n,
                                            "P/fwd": 8 * n, "P/bwd": 8 * n, "L/affine": 8 * n,
-                                           "E/fwd/C3": 10 * n, "E/bwd/C3": 8 * n}
+                                           "E/fwd/C3": 10 * n, "E/bwd/C3": 8 * n,
+                                           "A/sumsq": n, "A/clip": n, "A/step": n}
         assert np.isfinite(rec["abs_rel"]) and np.isfinite(rec["polyp/e_mean"])
         kernels.reset_launch_counts()
         assert ablate.run_cell(True, True, 3, str(tmp_path), device="cuda") == rec
@@ -1209,7 +1232,8 @@ def test_captured_default_step_projects_through_p_alone(device):
     kernels.reset_launch_counts()
     step_fn(state, batches[1])
     assert kernels.launch_counts() == {"P/fwd": 8, "P/bwd": 8, "S/grad/C3": 8, "S/grad/C1": 1,
-                                       "T/C1": 1, "L/affine": 8, "E/fwd/C3": 10, "E/bwd/C3": 8}
+                                       "T/C1": 1, "L/affine": 8, "E/fwd/C3": 10, "E/bwd/C3": 8,
+                                       "A/sumsq": 1, "A/clip": 1, "A/step": 1}
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA],
                                 record_shapes=True) as prof:
@@ -1806,6 +1830,199 @@ def test_fa_launches_of_a_default_mpvit_step_and_captured_batchnorm(device):
         assert torch.equal(bufs[name], b), name
         if name.endswith("num_batches_tracked"):
             assert int(b) == 1
+
+
+# Kernel A's list: sizes as MPViT's list mixes them (1-element tensors, odd
+# lengths, a quad exactly), and tensors of many chunks.
+ADAM_SIZES = (1, 3, 4, 5, 7, 8, 33, 1, 1000, 4097, 2, 70001, 64, 1, 9, 1 << 20, 3 * 4096 + 3)
+
+
+def _adam_list(sizes, seed, device, offsets=(0,), scale=1.0):
+    """Tensors of ``sizes`` with normal values on ``device``, the i-th a view
+    ``offsets[i % len(offsets)]`` elements into its own buffer (misaligned
+    where that is not a multiple of 4)."""
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for i, n in enumerate(sizes):
+        off = offsets[i % len(offsets)]
+        out.append((scale * torch.randn(n + off, generator=gen)).to(device)[off:])
+    return out
+
+
+def _adam_models():
+    """The training models' parameter shapes (the benchmark's configs)."""
+    import json
+
+    from colvo_torch.models import ColVOModel
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = {}
+    for name in ("colvo_r18_gn", "colvo_mpvit_s", "colvo_dav2_vitl"):
+        cfg = ColvoConfig()
+        with open(os.path.join(root, "portbench", "configs", f"{name}.json")) as f:
+            overrides = json.load(f)["overrides"]
+        cfg.apply_overrides([f"{k}={json.dumps(v)}" for k, v in overrides.items()])
+        with torch.device("meta"):
+            out[name] = [tuple(p.shape) for p in ColVOModel(cfg.model).parameters()]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mu_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("weight_decay", [0.0, 1e-2])
+def test_adam_step_kernel_equals_the_plain_chain_bit_for_bit(device, mu_dtype, weight_decay):
+    """Three A/steps against ``adam.step_plain`` (the foreach chain) on the
+    card, on copies: p, μ, ν and every step count bit for bit after steps 1
+    and 3, on a list that mixes sizes, some tensors misaligned (views 1-3
+    elements into their buffers: A's element-wise path), the learning rate
+    a device tensor; one A/step launch a step."""
+    from colvo_torch.kernels import adam
+
+    ps = _adam_list(ADAM_SIZES, 1, device, offsets=(0, 1, 0, 2, 0, 3))
+    ref = [p.clone() for p in ps]
+    ms, rm = ([torch.zeros_like(p, dtype=mu_dtype) for p in ps] for _ in range(2))
+    vs, rv = ([torch.zeros_like(p) for p in ps] for _ in range(2))
+    steps, rs = ([torch.zeros((), device=device) for _ in ps] for _ in range(2))
+    lr = torch.tensor(2e-3, device=device)
+    plans = adam.Plans()
+    kernels.reset_launch_counts()
+    for k in range(3):
+        gs = _adam_list(ADAM_SIZES, 10 + k, device, offsets=(0, 0, 0, 1))
+        adam.adam_update(ps, gs, ms, vs, steps, lr, (0.9, 0.999), 1e-8, weight_decay,
+                         plans=plans)
+        adam.step_plain(ref, gs, rm, rv, rs, lr, (0.9, 0.999), 1e-8, weight_decay)
+        if k in (0, 2):
+            for got, want in ((ps, ref), (ms, rm), (vs, rv), (steps, rs)):
+                for i, (x, y) in enumerate(zip(got, want)):
+                    assert x.dtype == y.dtype and torch.equal(x, y), (k, i, x.numel())
+    assert kernels.launch_counts() == {"A/step": 3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["colvo_r18_gn", "colvo_mpvit_s", "colvo_dav2_vitl"])
+def test_adam_kernels_at_the_training_models_lists(device, name):
+    """At a training model's parameter list (160, 742 and 470 tensors): the
+    norm within 1e-6 of float64's, the clip engaged equal to g times the
+    written scale, and an AdamW step with a bf16 μ from a step count of 2
+    bit for bit the foreach chain's."""
+    from colvo_torch.kernels import adam
+
+    shapes = _adam_models()[name]
+    gen = torch.Generator(device=device).manual_seed(5)
+    gs = [torch.randn(s, device=device, generator=gen) * 1e-3 for s in shapes]
+    want = torch.sqrt(sum((g.double() ** 2).sum() for g in gs))
+    g0 = [g.clone() for g in gs]
+    norm = adam.clip_global_norm(gs, 0.5 * float(want))
+    assert abs(float(norm) - float(want)) <= 1e-6 * float(want)
+    scale = torch.reciprocal(norm) * (0.5 * float(want))
+    assert all(torch.equal(g, x * scale) for g, x in zip(gs, g0))
+    del g0
+    ps = [torch.randn(s, device=device, generator=gen) for s in shapes]
+    ms = [(torch.randn(s, device=device, generator=gen) * 1e-3).bfloat16() for s in shapes]
+    vs = [torch.rand(s, device=device, generator=gen) * 1e-6 for s in shapes]
+    steps = [torch.full((), 2.0, device=device) for _ in shapes]
+    ref = [[x.clone() for x in xs] for xs in (ps, ms, vs, steps)]
+    args = (torch.tensor(1e-4, device=device), (0.9, 0.999), 1e-8, 1e-2)
+    adam.adam_update(ps, gs, ms, vs, steps, *args, plans=adam.Plans())
+    adam.step_plain(ref[0], gs, ref[1], ref[2], ref[3], *args)
+    for got, want in zip((ps, ms, vs, steps), ref):
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_adam_norm_is_the_same_bits_in_every_replay_and_scale_one_writes_nothing(device):
+    """A/sumsq and A/clip captured in a CUDA graph and replayed twice, and
+    called eagerly: the norm is the same bits each time, within 1e-6 of
+    float64's; the limit above it, the scale is 1 and the gradients keep
+    their bits (signed zeros and subnormals too)."""
+    from colvo_torch.kernels import adam
+
+    gs = _adam_list(ADAM_SIZES, 4, device, offsets=(0, 3, 0, 1, 2), scale=1e-3)
+    gs[0][0], gs[3][2], gs[6][5] = -0.0, 1e-45, -3e-39
+    before = [g.clone() for g in gs]
+    want = float(torch.sqrt(sum((g.double() ** 2).sum() for g in gs)))
+    eager = adam.clip_global_norm(gs, 1e6).clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        adam.clip_global_norm(gs, 1e6)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = adam.clip_global_norm(gs, 1e6)
+    norms = []
+    for _ in range(2):
+        graph.replay()
+        norms.append(out.clone())
+    for norm in norms:
+        assert torch.equal(norm.view(torch.int32), eager.view(torch.int32))
+    assert abs(float(eager) - want) <= 1e-6 * want
+    for g, b in zip(gs, before):
+        assert torch.equal(g.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_adam_wrappers_reject_what_they_cannot_launch(device):
+    """On the card: float64 parameters, a μ of float16, step counts on the
+    host and a learning rate on the host are refused; nothing falls back
+    to the chain."""
+    from colvo_torch.kernels import adam
+
+    p = [torch.zeros(8, device=device)]
+    mus, nus = [torch.zeros(8, device=device)], [torch.zeros(8, device=device)]
+    steps = [torch.zeros((), device=device)]
+    args, kw = ((0.9, 0.999), 1e-8, 0.0), {"plans": adam.Plans()}
+    with pytest.raises(TypeError, match="params"):
+        adam.adam_update([p[0].double()], [p[0].double()], mus, nus, steps, 1e-3, *args, **kw)
+    with pytest.raises(TypeError, match="mus"):
+        adam.adam_update(p, p, [mus[0].half()], nus, steps, 1e-3, *args, **kw)
+    with pytest.raises(ValueError, match="step counts"):
+        adam.adam_update(p, p, mus, nus, [torch.zeros(())], 1e-3, *args, **kw)
+    with pytest.raises(ValueError, match="learning rate"):
+        adam.adam_update(p, p, mus, nus, steps, torch.tensor(1e-3), *args, **kw)
+    with pytest.raises(TypeError, match="grads"):
+        adam.clip_global_norm([p[0].double()], 1.0)
+
+
+@pytest.mark.cuda
+def test_adam_keeps_its_step_counts_on_the_card_whatever_capturable_says(device):
+    """``Adam`` with its default ``capturable=False`` and a float learning
+    rate trains on the card, its step counts on the card, bit for bit as a
+    capturable one with the rate a device tensor; a state dict whose counts
+    lie on the host (as a checkpoint of a non-capturable optimizer holds
+    them) loads, and the next step moves them to the card and equals the
+    capturable one's."""
+    from colvo_torch.runtime.optim import Adam
+
+    gen = torch.Generator().manual_seed(3)
+    p0 = [torch.randn(s, generator=gen) for s in ((5,), (3, 7), (1,))]
+    grads = [[torch.randn(p.shape, generator=gen).to(device) for p in p0] for _ in range(3)]
+    a = [p.to(device).requires_grad_(True) for p in p0]
+    b = [p.to(device).requires_grad_(True) for p in p0]
+    opt_a = Adam(a, lr=1e-3)
+    opt_b = Adam(b, lr=torch.tensor(1e-3, device=device), capturable=True)
+    for step in range(2):
+        for ps, opt in ((a, opt_a), (b, opt_b)):
+            for p, g in zip(ps, grads[step]):
+                p.grad = g.clone()
+            opt.step()
+    assert all(opt_a.state[p]["step"].device == a[0].device for p in a)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    sd = opt_a.state_dict()
+    for st in sd["state"].values():
+        st["step"] = st["step"].cpu()
+    c = [p.detach().clone().requires_grad_(True) for p in a]
+    opt_c = Adam(c, lr=1e-3)
+    opt_c.load_state_dict(sd)
+    for ps, opt in ((c, opt_c), (b, opt_b)):
+        for p, g in zip(ps, grads[2]):
+            p.grad = g.clone()
+        opt.step()
+    assert all(opt_c.state[p]["step"].device == c[0].device for p in c)
+    assert all(torch.equal(x, y) for x, y in zip(c, b))
+    for p, q in zip(c, b):
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(opt_c.state[p][key], opt_b.state[q][key])
 
 
 @pytest.mark.cuda
